@@ -1,0 +1,33 @@
+"""bigdl_tpu_torch.serving — dynamic-batching inference engine
+(≙ ``bigdl_tpu/serving``).
+
+  * :class:`BucketLadder` — the fixed power-of-two batch sizes the
+    engine ever runs; requests pad up to the next bucket.
+  * :class:`BatchingQueue` — bounded FIFO coalescing concurrent
+    requests into micro-batches under a max-latency deadline, shedding
+    (:class:`LoadShedError`) at admission when full.
+  * :class:`ModelRegistry` — named, versioned models with immutable
+    weight :class:`Snapshot` s and atomic hot-swap.
+  * :class:`ServingEngine` — warmup of every bucket, per-request
+    deadline propagation, graceful drain, Recorder wiring.
+
+Quick start::
+
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.serving import ModelRegistry, ServingEngine
+
+    reg = ModelRegistry()
+    reg.register("lm", T.build("base", seed=0), input_shape=(512,),
+                 dtype=np.int32)
+    eng = ServingEngine(reg, max_batch=8).warmup()
+    logits = eng.predict("lm", tokens)        # or submit(...) -> Future
+    eng.shutdown(drain=True)
+"""
+from .buckets import BucketLadder
+from .engine import ServingEngine
+from .queue import BatchingQueue, EngineClosedError, LoadShedError, Request
+from .registry import ModelEntry, ModelRegistry, Snapshot
+
+__all__ = ["BatchingQueue", "BucketLadder", "EngineClosedError",
+           "LoadShedError", "ModelEntry", "ModelRegistry", "Request",
+           "ServingEngine", "Snapshot"]
