@@ -1,19 +1,24 @@
-"""TransformerLM — the flagship decoder-only LM, forward path.
+"""TransformerLM — the flagship decoder-only LM: forward and token loss.
 
 Port of ``bigdl_tpu/models/transformer.py``: the full-sequence forward
 that the dynamic-batching ``ServingEngine`` runs (``apply`` →
-``apply_trunk`` → ``head_logits``).  Same layout and op order as the
+``apply_trunk`` → ``head_logits``), and the masked token cross-entropy
+that ``SpmdTrainer`` trains on (``loss`` → ``token_nll`` →
+:func:`lm_token_nll`).  Same layout and op order as the
 reference: weights are used as ``x @ w`` with ``w`` of shape
 ``(d_in, d_out)``, the embedding is ``(V, D)``, the head ``(D, V)``; RoPE
 is the reference's *interleaved* form (pairs ``x[..., 0::2]``,
 ``x[..., 1::2]``); attention goes through ``ops.flash_attention`` (the
 Hopper kernel on the card); the plain matmuls stay ``torch.matmul``, as
-the reference leaves them to XLA.
+the reference leaves them to XLA.  Gradients flow through ``torch.autograd``;
+attention's backward is the flash backward (the Hopper kernels on the
+card).
 
 Not ported yet (ROADMAP queue A): the kv cache / ``apply_with_cache`` /
 decode / ``generate`` / beam paths, MoE (``moe_experts``), remat, ring
-attention, dropout in training, and the token losses.  A config that
-asks for one of them raises.
+attention, dropout in training, and the chunked loss
+(``chunked_token_nll``).  A config or an argument that asks for one of
+them raises.
 
 Weights are drawn from a ``torch.Generator`` seeded by ``build(seed=)``
 on the CPU and then moved, so one seed gives the same weights on every
@@ -29,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
-from ..nn.module import Module
+from ..nn.module import Ctx, Module
 from ..nn.normalization import RMSNorm
 from ..ops.flash_attention import flash_attention
 
@@ -182,8 +187,8 @@ class TransformerBlock(Module):
     def apply(self, params, x, ctx):
         if ctx.training and self.cfg.dropout > 0.0:
             raise NotImplementedError(
-                "dropout in training belongs to the training slice "
-                "(ROADMAP queue A)")
+                "dropout in training is not ported yet (ROADMAP queue A, "
+                "item 2)")
         h = x + self.attn.apply(params, self.norm1.apply(params, x, ctx),
                                 ctx)
         return h + self.mlp.apply(params, self.norm2.apply(params, h, ctx),
@@ -248,6 +253,49 @@ class TransformerLM(Module):
     def apply(self, params, x, ctx):
         h = self.apply_trunk(params, x, ctx)
         return self.head_logits(params, h, ctx).float()
+
+    def token_nll(self, params, tokens, targets, *, ignore_index=-1,
+                  loss_chunk=None, training=False, ctx=None):
+        """(sum of masked token NLLs, valid-token count) over the full
+        sequence.  A ``loss_chunk`` smaller than the sequence (the
+        reference's chunked head + loss) raises: not ported yet."""
+        if loss_chunk and loss_chunk < tokens.shape[1]:
+            raise NotImplementedError(
+                "TransformerLM: loss_chunk (chunked_token_nll) is not "
+                "ported yet (ROADMAP queue A, item 2)")
+        if ctx is None:
+            ctx = Ctx(state={}, training=training)
+        h = self.apply_trunk(params, tokens, ctx)
+        logits = self.head_logits(params, h, ctx).float()
+        return lm_token_nll(logits, targets, ignore_index)
+
+    def loss(self, params, tokens, targets, *, ignore_index=-1,
+             loss_chunk=None, training=False, ctx=None):
+        """Mean masked token cross-entropy (see :meth:`token_nll`)."""
+        tot, cnt = self.token_nll(params, tokens, targets,
+                                  ignore_index=ignore_index,
+                                  loss_chunk=loss_chunk, training=training,
+                                  ctx=ctx)
+        return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_token_nll(logits, targets, ignore_index: int = -1):
+    """(sum of masked token NLLs, valid-token count): the reference's
+    ``clip(targets, 0, V-1)`` gather and ``targets != ignore_index``
+    mask, in fp32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = targets.long().clamp(0, logits.shape[-1] - 1)
+    gold = torch.gather(logits, -1, tgt[..., None])[..., 0]
+    nll = lse - gold
+    mask = (targets != ignore_index).float()
+    return (nll * mask).sum(), mask.sum()
+
+
+def lm_cross_entropy(logits, targets, ignore_index: int = -1):
+    """Mean token cross-entropy. logits (B, S, V) fp32, targets (B, S) int."""
+    total, count = lm_token_nll(logits, targets, ignore_index)
+    return total / torch.clamp(count, min=1.0)
 
 
 PRESETS = {

@@ -1,6 +1,7 @@
 """Core module abstraction — the functional core of the port.
 
-Port of ``bigdl_tpu/nn/module.py``, the part the serving slice needs.
+Port of ``bigdl_tpu/nn/module.py``, the part the serving and training
+slices need.
 A module is a ``torch.nn.Module`` that also keeps the reference's
 functional core:
 
@@ -23,7 +24,7 @@ an unnamed module, and children named after their parent
 from __future__ import annotations
 
 import itertools
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -33,15 +34,18 @@ Params = Dict[str, Dict[str, torch.Tensor]]
 
 
 class Ctx:
-    """Per-call context threaded through ``apply``: the training flag and
-    persistent state in/out dicts."""
+    """Per-call context threaded through ``apply``: the training flag,
+    persistent state in/out dicts, and the side losses a layer adds to
+    the training loss (which ``SpmdTrainer`` sums; none of the ported
+    layers adds one yet)."""
 
-    __slots__ = ("training", "state", "new_state")
+    __slots__ = ("training", "state", "new_state", "side_losses")
 
     def __init__(self, state=None, training: bool = False):
         self.training = training
         self.state = state or {}
         self.new_state: Dict[str, Any] = {}
+        self.side_losses: List[torch.Tensor] = []
 
 
 class Module(torch.nn.Module):

@@ -3,12 +3,18 @@
 Each source under ``bigdl_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, in
 ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``).  The library's file name carries a hash of its source,
-so an edited source is rebuilt and an unchanged one is loaded as it is.
+``.gitignore``).  Every source gets :data:`NVCC_FLAGS`, and some get
+extra flags of their own (:data:`EXTRA_FLAGS`).  The library's file name
+carries a hash of its source and its flags, so an edited source or a
+changed flag is rebuilt and an unchanged one is loaded as it is.
 Nothing is built when a module is imported: :func:`load` runs inside the
 wrapper that launches the kernel.  ``nvcc`` prints each kernel's
 registers and shared memory (``-Xptxas -v``) into a ``.log`` beside the
 library.
+
+Each wrapper counts its launches here, one count per kernel name
+(:func:`count_launch`), so that a run can show which kernels its main
+path went through.
 """
 from __future__ import annotations
 
@@ -19,15 +25,39 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# fused_adam: no FMA contraction, so that every multiply and add rounds on
+# its own as in the plain PyTorch version (IEEE / and sqrt are nvcc's
+# default and stay on)
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"fused_adam": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+_launches: Dict[str, int] = {}
+
+
+def count_launch(kernel: str) -> None:
+    """Add one to ``kernel``'s count; a wrapper calls it once for every
+    launch of its kernel, and nowhere else."""
+    with _count_lock:
+        _launches[kernel] = _launches.get(kernel, 0) + 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """``{kernel: launches}`` since the last :func:`reset_launch_counts`."""
+    with _count_lock:
+        return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        _launches.clear()
 
 
 def _nvcc() -> str:
@@ -42,10 +72,14 @@ def _nvcc() -> str:
                        "from source at first use and need the CUDA toolkit")
 
 
+def _flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update("\0".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -56,7 +90,7 @@ def _start(name: str):
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     log = open(out.with_suffix(".log"), "w")
     try:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)

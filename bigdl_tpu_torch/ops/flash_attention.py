@@ -1,29 +1,36 @@
-"""Flash attention: a hand-written Hopper kernel and its plain version.
+"""Flash attention: hand-written Hopper kernels and their plain versions.
 
 Port of ``bigdl_tpu/ops/flash_attention.py``.  Layout (B, H, S, D) as in
 the reference.
 
-  * forward on a CUDA tensor — ``csrc/flash_fwd.cu``, which replaces the
-    reference's Pallas ``_fwd_kernel``.  It takes f32 or bf16 inputs and
-    head dims 64 and 128, and masks the ragged tail itself, so there is
-    no shape gate.  Anything else raises: a CUDA tensor goes to the
-    kernel or the call fails.
-  * forward on a CPU tensor — :func:`flash_forward_plain`, the blockwise
-    online softmax of the reference's ``_fwd_blockwise`` written in plain
-    PyTorch.  It is also what ``chip_smoke.py`` holds the kernel against
-    on the card.
-  * backward — not ported yet: the flash backward kernels (``_bwd_kernel_dkv``,
-    ``_bwd_kernel_dq``) belong to the training slice, ROADMAP queue B.
+  * forward on a CUDA tensor — ``csrc/flash_fwd.cu`` (K1), which replaces
+    the reference's Pallas ``_fwd_kernel``.
+  * backward on a CUDA tensor — ``csrc/flash_bwd.cu``: K2
+    (``flash_bwd_dkv``, replaces ``_bwd_kernel_dkv``) writes dk and dv,
+    K3 (``flash_bwd_dq``, replaces ``_bwd_kernel_dq``) writes dq.
+    ``delta = sum_d do * out`` stays a plain fp32 reduction in PyTorch
+    between the two, as the reference leaves it to XLA.
+  * the kernels take f32 or bf16 inputs and head dims 64 and 128, and mask
+    the ragged tail themselves, so there is no shape gate.  Anything else
+    raises: a CUDA tensor goes to the kernels or the call fails.
+  * on a CPU tensor — :func:`flash_forward_plain` and
+    :func:`flash_backward_plain`, the reference's blockwise
+    ``_fwd_blockwise`` and ``_flash_bwd`` written in plain PyTorch.  They
+    are also what ``chip_smoke.py`` holds the kernels against on the card,
+    and :func:`flash_attention_plain` runs them under autograd on any
+    device when called by that name.
 
 Masking is the reference's: a key is attended iff
 ``k_pos < kv_len and (not causal or q_pos >= k_pos)``; masked scores take
 the finite :data:`DEFAULT_MASK_VALUE`, and a row with l == 0 is treated
 as l == 1.
+
+Each wrapper counts its kernel's launches (``ops._build.count_launch``),
+by kernel name: :data:`KERNELS`.
 """
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -36,12 +43,11 @@ from . import _build
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
 KERNEL_NAME = "flash_fwd"
+BWD_SOURCE = "flash_bwd"
+KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (64, 128)
 _PLAIN_BLOCK_K = 128        # the reference's default block_k
-
-_launch_lock = threading.Lock()
-_launches = 0
 
 
 class _Config(NamedTuple):
@@ -50,15 +56,15 @@ class _Config(NamedTuple):
     block_k: int
 
 
-def launch_count() -> int:
-    """Launches of the forward kernel since the last reset."""
-    return _launches
+def launch_count(kernel: str = KERNEL_NAME) -> int:
+    """Launches of ``kernel`` (one of :data:`KERNELS`) since the last
+    reset."""
+    return _build.launch_counts().get(kernel, 0)
 
 
 def reset_launch_count() -> None:
-    global _launches
-    with _launch_lock:
-        _launches = 0
+    """Set the counts of every kernel to 0."""
+    _build.reset_launch_counts()
 
 
 # --------------------------------------------------------------------- #
@@ -146,6 +152,41 @@ def _fwd_blockwise(q, k, v, cfg: _Config):
     return out.to(q.dtype), lse
 
 
+def _bwd_blockwise(q, k, v, out, lse, do, cfg: _Config):
+    """The reference's blockwise ``_flash_bwd``: a loop over key blocks
+    that recomputes ``p = exp(s - lse)`` from the saved ``lse``.
+    -> (dq, dk, dv) in the input dtypes."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bk = min(cfg.block_k, sk)
+    n_blocks = -(-sk // bk)
+    pad = n_blocks * bk - sk
+    if pad:   # pad keys out past kv_len so the position mask drops them
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    dev = q.device
+    qf, dof = q.float(), do.float()
+    delta = (dof * out.float()).sum(-1)                   # (B, H, Sq)
+    q_pos = torch.arange(sq, device=dev)
+    dq = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for j in range(n_blocks):
+        k_c = k[:, :, j * bk:(j + 1) * bk].float()
+        v_c = v[:, :, j * bk:(j + 1) * bk].float()
+        k_pos = j * bk + torch.arange(bk, device=dev)
+        s = torch.matmul(qf, k_c.transpose(-1, -2)) * cfg.sm_scale
+        msk = _mask(q_pos, k_pos, sk, cfg.causal)
+        p = torch.where(msk, torch.exp(s - lse[..., None]), 0.0)
+        dvs.append(torch.matmul(p.transpose(-1, -2), dof))
+        dp = torch.matmul(dof, v_c.transpose(-1, -2))
+        ds = p * (dp - delta[..., None]) * cfg.sm_scale
+        dq = dq + torch.matmul(ds, k_c)
+        dks.append(torch.matmul(ds.transpose(-1, -2), qf))
+    dk = torch.cat(dks, dim=2)[:, :, :sk]
+    dv = torch.cat(dvs, dim=2)[:, :, :sk]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # --------------------------------------------------------------------- #
 # the Hopper kernel                                                     #
 # --------------------------------------------------------------------- #
@@ -183,16 +224,14 @@ def _check_kernel_inputs(q, k, v):
 
 def _fwd_cuda(q, k, v, cfg: _Config):
     """Launch ``csrc/flash_fwd.cu`` on the current stream. -> (out, lse)"""
-    global _launches
     _check_kernel_inputs(q, k, v)
     # the kernel takes any (batch, head, seq) strides, but D must be dense
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (_unit_d(t) for t in (q, k, v))
     b, h, sq, d = q.shape
     sk = k.shape[2]
     # (B, S, H, D) storage seen as (B, H, S, D): the caller's transpose
     # back to (B, S, H*D) is then a view, not a copy
-    out = torch.empty((b, sq, h, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = _seq_major_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     fn = _kernel_lib()
     with torch.cuda.device(q.device):
@@ -205,9 +244,103 @@ def _fwd_cuda(q, k, v, cfg: _Config):
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {rc} "
                            f"(q {tuple(q.shape)} {q.dtype})")
-    with _launch_lock:
-        _launches += 1
+    _build.count_launch(KERNEL_NAME)
     return out, lse
+
+
+def _bwd_lib():
+    lib = _build.load(BWD_SOURCE)
+    dkv, dq = lib.bigdl_flash_bwd_dkv, lib.bigdl_flash_bwd_dq
+    tail = [ctypes.c_int64] * 5 + [ctypes.c_void_p, ctypes.c_float,
+                                   ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p]
+    if dkv.argtypes is None:
+        dkv.argtypes = [ctypes.c_void_p] * 8 + tail
+        dkv.restype = ctypes.c_int
+    if dq.argtypes is None:
+        dq.argtypes = [ctypes.c_void_p] * 7 + tail
+        dq.restype = ctypes.c_int
+    return dkv, dq
+
+
+def _unit_d(t):
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def _seq_major_like(t):
+    """An empty (B, H, S, D) tensor in (B, S, H, D) storage, the layout
+    the model's transpose back to (B, S, H*D) reads as a view."""
+    b, h, s, d = t.shape
+    return torch.empty((b, s, h, d), dtype=t.dtype,
+                       device=t.device).transpose(1, 2)
+
+
+class _BwdCall(NamedTuple):
+    """The arguments K2 and K3 share, prepared once per backward."""
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    do: torch.Tensor
+    lse: torch.Tensor
+    delta: torch.Tensor
+    dq: torch.Tensor
+    dk: torch.Tensor
+    dv: torch.Tensor
+    strides: ctypes.Array
+    cfg: _Config
+
+
+def _bwd_prepare(q, k, v, out, lse, do, cfg: _Config) -> _BwdCall:
+    """Check the inputs, form delta and allocate dq, dk, dv."""
+    _check_kernel_inputs(q, k, v)
+    if do.shape != q.shape or out.shape != q.shape or \
+            do.dtype != q.dtype or out.dtype != q.dtype:
+        raise ValueError(f"flash_attention backward: do {tuple(do.shape)} "
+                         f"{do.dtype} / out {tuple(out.shape)} {out.dtype} "
+                         f"must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention backward: lse must be float32 "
+                         f"{tuple(q.shape[:3])}, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    # the kernels take any (batch, head, seq) strides, but D must be dense
+    q, k, v, do = (_unit_d(t) for t in (q, k, v, do))
+    # delta = rowsum(do * out) in fp32 from the input dtype, as the
+    # reference's _bwd_pallas forms it with XLA outside its kernels
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    dq, dk, dv = _seq_major_like(q), _seq_major_like(k), _seq_major_like(v)
+    strides = (ctypes.c_int64 * 21)(
+        *(st for t in (q, k, v, do, dq, dk, dv) for st in t.stride()[:3]))
+    return _BwdCall(q, k, v, do, lse.contiguous(), delta, dq, dk, dv,
+                    strides, cfg)
+
+
+def _bwd_launch(c: _BwdCall, kernel: str) -> None:
+    """Launch K2 (``"flash_bwd_dkv"``, writes dk and dv) or K3
+    (``"flash_bwd_dq"``, writes dq) on the current stream."""
+    dkv_fn, dq_fn = _bwd_lib()
+    b, h, sq, d = c.q.shape
+    ins = (c.q.data_ptr(), c.k.data_ptr(), c.v.data_ptr(), c.do.data_ptr(),
+           c.lse.data_ptr(), c.delta.data_ptr())
+    outs = ((c.dk.data_ptr(), c.dv.data_ptr()) if kernel == "flash_bwd_dkv"
+            else (c.dq.data_ptr(),))
+    fn = dkv_fn if kernel == "flash_bwd_dkv" else dq_fn
+    with torch.cuda.device(c.q.device):
+        stream = torch.cuda.current_stream(c.q.device).cuda_stream
+        rc = fn(*ins, *outs, b, h, sq, c.k.shape[2], d, c.strides,
+                float(c.cfg.sm_scale), int(c.cfg.causal),
+                KERNEL_DTYPES[c.q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc} "
+                           f"(q {tuple(c.q.shape)} {c.q.dtype})")
+    _build.count_launch(kernel)
+
+
+def _bwd_cuda(q, k, v, out, lse, do, cfg: _Config):
+    """K2 then K3 of ``csrc/flash_bwd.cu``. -> (dq, dk, dv)"""
+    c = _bwd_prepare(q, k, v, out, lse, do, cfg)
+    _bwd_launch(c, "flash_bwd_dkv")
+    _bwd_launch(c, "flash_bwd_dq")
+    return c.dq, c.dk, c.dv
 
 
 # --------------------------------------------------------------------- #
@@ -240,28 +373,59 @@ def flash_forward_plain(q, k, v, causal: bool = False,
     return _fwd_blockwise(q, k, v, _config(q, causal, sm_scale))
 
 
+def flash_backward(q, k, v, out, lse, do, causal: bool = False,
+                   sm_scale: Optional[float] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the forward's (out, lse) and the output gradient
+    ``do``: K2 and K3 for CUDA tensors, the plain version for CPU tensors;
+    any other device raises."""
+    cfg = _config(q, causal, sm_scale)
+    if q.is_cuda:
+        return _bwd_cuda(q, k, v, out, lse, do, cfg)
+    if q.device.type == "cpu":
+        return _bwd_blockwise(q, k, v, out, lse, do, cfg)
+    raise RuntimeError(f"flash_attention: no implementation for device "
+                       f"{q.device}")
+
+
+def flash_backward_plain(q, k, v, out, lse, do, causal: bool = False,
+                         sm_scale: Optional[float] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the plain PyTorch version, on any device."""
+    return _bwd_blockwise(q, k, v, out, lse, do,
+                          _config(q, causal, sm_scale))
+
+
 class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        out, lse = flash_forward(q, k, v, causal, sm_scale)
+    def forward(ctx, q, k, v, causal, sm_scale, plain):
+        fwd = flash_forward_plain if plain else flash_forward
+        out, lse = fwd(q, k, v, causal, sm_scale)
         ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.sm_scale, ctx.plain = causal, sm_scale, plain
         return out
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "flash_attention backward is not ported yet: the flash "
-            "backward kernels (_bwd_kernel_dkv, _bwd_kernel_dq) are "
-            "ROADMAP queue B items K2/K3, the training slice")
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_backward_plain if ctx.plain else flash_backward
+        dq, dk, dv = bwd(q, k, v, out, lse, do, ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = False,
                     sm_scale: Optional[float] = None):
     """Fused attention. q, k, v: (batch, heads, seq, head_dim).
 
-    The Hopper kernel for CUDA tensors, the plain blockwise version for
-    CPU tensors.  The backward raises ``NotImplementedError`` until the
-    training slice ports it.
+    Forward and backward run the Hopper kernels (K1; K2 and K3) for CUDA
+    tensors and the plain blockwise versions for CPU tensors.
     """
-    return _FlashAttention.apply(q, k, v, bool(causal), sm_scale)
+    return _FlashAttention.apply(q, k, v, bool(causal), sm_scale, False)
+
+
+def flash_attention_plain(q, k, v, causal: bool = False,
+                          sm_scale: Optional[float] = None):
+    """:func:`flash_attention` on the plain versions, forward and
+    backward, on any device: the yardstick the kernels are held to."""
+    return _FlashAttention.apply(q, k, v, bool(causal), sm_scale, True)

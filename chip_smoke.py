@@ -5,23 +5,36 @@
 
 Phases (each raises on failure; the script exits 0 only if all pass):
 
-  1. build   — compile every kernel of the port from ``bigdl_tpu_torch/csrc``
-               with nvcc for sm_90a (one nvcc per source, all at once).
-  2. kernels — each kernel against its plain PyTorch version on the card,
-               on the same inputs, with the tolerance stated; times of the
-               kernel, the plain version and one PyTorch library call,
-               and the bound for the work at the serving shape.
-  3. slice   — TransformerLM ``base`` (d_model 768, 12 layers, 6 heads of
-               128, vocab 32000, fp32, weights from a seed) registered in
-               a ``ModelRegistry`` and served by ``ServingEngine(max_batch=8)``
-               to 12 requests of 1-5 rows of 512 tokens from 3 client
-               threads.  Every answer is checked against the same model
-               run directly on the card with the plain attention.  The
-               launch counts show that every batch went through the kernel.
+  1. build    — compile every kernel of the port from ``bigdl_tpu_torch/csrc``
+                with nvcc for sm_90a (one nvcc per source, all at once).
+  2. kernels  — each kernel against its plain PyTorch version on the card,
+                on the same inputs, with the tolerance stated; times of the
+                kernel, the plain version and one PyTorch library call,
+                and the bound for the work at the main path's shape:
+                K1 flash_fwd; K2 flash_bwd_dkv and K3 flash_bwd_dq; K4
+                fused_adam (bitwise).
+  3. serving  — TransformerLM ``base`` (d_model 768, 12 layers, 6 heads of
+                128, vocab 32000, fp32, weights from a seed) registered in
+                a ``ModelRegistry`` and served by ``ServingEngine(max_batch=8)``
+                to 12 requests of 1-5 rows of 512 tokens from 3 client
+                threads.  Every answer is checked against the same model
+                run directly on the card with the plain attention.  The
+                launch counts show that every batch went through K1.
+  4. training — the same ``base`` trained by ``SpmdTrainer`` with
+                ``AdamW(learning_rate=3e-4, fused=True)`` for 6 steps on
+                one repeated batch of 8 x 512 tokens, and again from the
+                same weights with the plain attention (forward and
+                backward) and ``fused=False``.  Step-1 gradients and every
+                step's loss of the two runs agree within the stated
+                tolerance, the loss falls, and the launch counts show that
+                each step ran K1, K2 and K3 once a layer and K4 once a
+                leaf.  The same steps with the matmuls on TF32 must fall
+                outside the limits, so that the limits can see a drop
+                below fp32.
 
-Output: a ``{"slice": {...}}`` line, a ``{"kernels": [...]}`` line, the
-card's name and power limit as nvidia-smi gives them, and last
-``{"ok": true, "device": {...}}``.
+Output: a ``{"slice": {...}}`` line, a ``{"training": {...}}`` line, a
+``{"kernels": [...]}`` line, the card's name and power limit as nvidia-smi
+gives them, and last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits with
 another code and prints no result.
 
@@ -43,10 +56,28 @@ H100_FP32_FLOPS = 67e12       # data sheet, SXM, CUDA cores, 700 W
 H100_BF16_FLOPS = 989e12      # data sheet, SXM, dense tensor cores, 700 W
 H100_HBM_BYTES_S = 3.35e12    # data sheet, SXM
 N_REQUESTS, N_CLIENTS, SEQ = 12, 3, 512
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 6, 3e-4
 MODEL_TOL = dict(rtol=1e-3, atol=1e-3)
 KERNEL_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
               torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
 LSE_TOL = dict(rtol=1e-4, atol=1e-3)
+# K2/K3 against the plain backward: both sum fp32 products, in another
+# order, over up to 512 terms (gradients are O(1)-O(10) at these inputs);
+# bf16 outputs are one bf16 rounding (8 bits of mantissa) of the sum.
+# The f32 limits are about 20x the worst reading of a sound run; a TF32
+# run of the plain version must read above them (see tf32 below).
+BWD_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+           torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# per gradient, max |d - d_plain| <= BWD_REL_TOL * max |d_plain|: for
+# gradients far below 1 (those of a training step's mean loss)
+BWD_REL_TOL = 1e-5
+# kernel run against plain run of the training step (fp32, TF32 off): the
+# attention differs by fp32 rounding only (~1e-6), which the 12 layers,
+# the head and 6 AdamW steps carry into the loss (~10.9 at step 1, where
+# one ulp is 9.5e-7).  Both limits are about 20x a sound run's reading
+# and must fail a run with the model's matmuls on TF32.
+GRAD_REL_TOL = 1e-4          # per leaf, max |dg| <= GRAD_REL_TOL * max |g|
+LOSS_TOL = 2e-5              # |loss_kernel - loss_plain| per step
 
 
 def log(msg: str) -> None:
@@ -93,15 +124,20 @@ def attention_bound(b, h, sq, sk, d, causal, dtype):
 
 
 # --------------------------------------------------------------------- #
+SOURCES = ("flash_fwd", "flash_bwd", "fused_adam")
+
+
 def phase_build():
     from bigdl_tpu_torch.ops import _build
     t0 = time.monotonic()
-    _build.build_all(["flash_fwd"])
+    _build.build_all(SOURCES)
     secs = time.monotonic() - t0
     log(f"build: {secs:.1f} s")
-    for line in _build.build_log("flash_fwd").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name in SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Compiling" in line):
+                log(f"  ptxas [{name}]: {line.strip()}")
     return secs
 
 
@@ -207,6 +243,305 @@ def phase_kernels(card: str):
             "shape": [8, 6, SEQ, SEQ, 128], "dtype": "float32",
             "bf16_ms": bf16_ms, "bf16_bound_ms": bf16_bound,
             "cases": results, "card": card}
+
+
+# --------------------------------------------------------------------- #
+def _pairs(sq, sk, causal):
+    return sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+
+
+def bwd_bounds(b, h, sq, sk, d, causal, dtype):
+    """{kernel: (bound_ms, bound_by)} for K2 and K3: the larger of the
+    bytes each must move (q, k, v, do, lse and delta read once, its
+    gradients written once) over the HBM rate, and its multiply-adds over
+    the attended pairs (K2: four products, 8·D operations a pair; K3:
+    three, 6·D) over the peak rate of the dtype."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    pairs = _pairs(sq, sk, causal) * b * h
+    peak = H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+    qs, ks = b * h * sq * d * item, b * h * sk * d * item
+    rows = 2 * 4 * b * h * sq
+    out = {}
+    for name, flops, nbytes in (
+            ("flash_bwd_dkv", 8 * d * pairs, 2 * qs + 2 * ks + rows + 2 * ks),
+            ("flash_bwd_dq", 6 * d * pairs, 2 * qs + 2 * ks + rows + qs)):
+        t_ops = flops / peak * 1e3
+        t_bytes = nbytes / H100_HBM_BYTES_S * 1e3
+        out[name] = ((t_ops, "operations") if t_ops >= t_bytes
+                     else (t_bytes, "bytes"))
+    return out
+
+
+def _grad_out(q, layout, seed):
+    """A random output gradient of q's shape; for the model's layouts it
+    is the (B, S, H, D)-storage view autograd hands the backward."""
+    b, h, s, d = q.shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout in ("main", "strided"):
+        t = torch.randn((b, s, h, d), generator=g, device="cuda")
+        return t.to(q.dtype).transpose(1, 2)
+    return torch.randn((b, h, s, d), generator=g, device="cuda").to(q.dtype)
+
+
+def grad_errors(got, want):
+    """{name: (max |got - want|, max |want|)} for dq, dk, dv."""
+    return {name: ((a.float() - r.float()).abs().max().item(),
+                   r.float().abs().max().item())
+            for name, a, r in zip(("dq", "dk", "dv"), got, want)}
+
+
+def bwd_ok(got, want, errs, relative):
+    """Finite and within BWD_TOL (allclose), or, when ``relative``, within
+    BWD_REL_TOL of each gradient's own largest value."""
+    if not all(torch.isfinite(a.float()).all().item() for a in got):
+        return False
+    if relative:
+        return all(e <= BWD_REL_TOL * m for e, m in errs.values())
+    tol = BWD_TOL[want[0].dtype]
+    return all(torch.allclose(a.float(), r.float(), **tol)
+               for a, r in zip(got, want))
+
+
+def compare_bwd(fa, q, k, v, do, causal, relative=False):
+    """K2 + K3 against the plain backward on one (q, k, v, out, lse, do):
+    (max_abs_err over dq/dk/dv, {grad: (err, max |ref|)}, tolerance, ok,
+    the plain backward's result)."""
+    out, lse = fa.flash_forward_plain(q, k, v, causal=causal)
+    got = fa.flash_backward(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    want = fa.flash_backward_plain(q, k, v, out, lse, do, causal=causal)
+    errs = grad_errors(got, want)
+    tol = ({"max_abs_err/max_abs_ref": BWD_REL_TOL} if relative
+           else BWD_TOL[q.dtype])
+    ok = bwd_ok(got, want, errs, relative)
+    return max(e for e, _ in errs.values()), errs, tol, ok, want
+
+
+def tf32_bwd_reading(fa, q, k, v, do, causal, want, relative=False):
+    """The plain backward with its matmuls on TF32 tensor cores, read
+    against the same limit as K2/K3: a variant that dropped below fp32
+    this way must fail the check.  Returns (errors, passes_the_limit)."""
+    out, lse = fa.flash_forward_plain(q, k, v, causal=causal)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = fa.flash_backward_plain(q, k, v, out, lse, do, causal=causal)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    errs = grad_errors(got, want)
+    return errs, bwd_ok(got, want, errs, relative)
+
+
+def phase_flash_bwd(card: str):
+    """K2 and K3 against the plain backward, and their times."""
+    from bigdl_tpu_torch.ops import flash_attention_mod as fa
+    cases = [
+        # (label, B, H, Sq, Sk, D, dtype, causal, layout)
+        ("slice f32 causal", 8, 6, 512, 512, 128, torch.float32, True,
+         "main"),
+        ("slice bf16 causal", 8, 6, 512, 512, 128, torch.bfloat16, True,
+         "main"),
+        ("f32 non-causal", 8, 6, 512, 512, 128, torch.float32, False,
+         "contig"),
+        ("ragged S=300 f32 causal", 2, 6, 300, 300, 128, torch.float32, True,
+         "contig"),
+        ("ragged S=300 bf16 non-causal", 2, 6, 300, 300, 128, torch.bfloat16,
+         False, "strided"),
+        ("head_dim 64 f32 causal", 4, 8, 512, 512, 64, torch.float32, True,
+         "contig"),
+        ("head_dim 64 bf16 ragged S=300 causal", 2, 4, 300, 300, 64,
+         torch.bfloat16, True, "strided"),
+        ("cross Sq=128 Sk=384 f32 causal", 2, 2, 128, 384, 128,
+         torch.float32, True, "contig"),
+        ("cross Sq=384 Sk=128 f32 causal", 2, 2, 384, 128, 128,
+         torch.float32, True, "contig"),
+        ("cross Sq=200 Sk=328 bf16 non-causal", 2, 2, 200, 328, 64,
+         torch.bfloat16, False, "contig"),
+    ]
+    results = []
+    for i, (label, b, h, sq, sk, d, dt, causal, layout) in enumerate(cases):
+        q, k, v = _qkv(b, h, sq, sk, d, dt, seed=200 + i, layout=layout)
+        do = _grad_out(q, layout, seed=300 + i)
+        err, errs, tol, ok, want = compare_bwd(fa, q, k, v, do, causal)
+        case = {"case": label, "shape": [b, h, sq, sk, d],
+                "dtype": str(dt).replace("torch.", ""), "causal": causal,
+                "layout": layout, "max_abs_err": err,
+                "errors_and_max_ref": errs, "tolerance": tol, "ok": ok}
+        if i == 0:
+            case["tf32"], case["tf32_passes"] = tf32_bwd_reading(
+                fa, q, k, v, do, causal, want)
+        results.append(case)
+        log(f"K2+K3 vs plain [{label}]: max_abs_err {err:.3e} "
+            f"(err, max|ref|) {errs} tol {tol} -> {'ok' if ok else 'FAIL'}")
+        del want
+    bad = [r["case"] for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"flash_bwd disagrees with its plain version: "
+                             f"{bad}")
+    check_tf32_fails("K2+K3 [slice f32 causal]", results[0]["tf32"],
+                     results[0]["tf32_passes"], BWD_TOL[torch.float32])
+
+    # times at the training shape (B=8, H=6, S=512, D=128, causal, f32)
+    b, h, d = TRAIN_BATCH, 6, 128
+    q, k, v = _qkv(b, h, SEQ, SEQ, d, torch.float32, seed=9, layout="main")
+    do = _grad_out(q, "main", seed=10)
+    out, lse = fa.flash_forward_plain(q, k, v, causal=True)
+    cfg = fa._config(q, True, None)
+    call = fa._bwd_prepare(q, k, v, out, lse, do, cfg)
+    ms = {name: cuda_ms(lambda n=name: fa._bwd_launch(call, n))
+          for name in ("flash_bwd_dkv", "flash_bwd_dq")}
+    delta_ms = cuda_ms(lambda: (do.float() * out.float()).sum(-1))
+    plain_ms = cuda_ms(lambda: fa.flash_backward_plain(q, k, v, out, lse, do,
+                                                       causal=True), iters=5)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd_ms = cuda_ms(lambda: sdpa(qg, kg, vg, is_causal=True))
+    sdpa_fb_ms = cuda_ms(lambda: torch.autograd.grad(
+        sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do))
+    library_ms = sdpa_fb_ms - sdpa_fwd_ms
+    bounds = bwd_bounds(b, h, SEQ, SEQ, d, True, torch.float32)
+    log(f"flash_bwd f32 ({b},{h},{SEQ},{d}) causal: K2 "
+        f"{ms['flash_bwd_dkv']:.4f} ms (bound "
+        f"{bounds['flash_bwd_dkv'][0]:.4f} {bounds['flash_bwd_dkv'][1]}), "
+        f"K3 {ms['flash_bwd_dq']:.4f} ms (bound "
+        f"{bounds['flash_bwd_dq'][0]:.4f} {bounds['flash_bwd_dq'][1]}), "
+        f"delta {delta_ms:.4f} ms, plain backward {plain_ms:.4f} ms, SDPA "
+        f"backward {library_ms:.4f} ms (fwd+bwd {sdpa_fb_ms:.4f} - fwd "
+        f"{sdpa_fwd_ms:.4f}); {card}")
+    main = results[0]
+    replaces = {"flash_bwd_dkv": "bigdl_tpu/ops/flash_attention.py:285",
+                "flash_bwd_dq": "bigdl_tpu/ops/flash_attention.py:325"}
+    return [{"name": name, "route": "cuda",
+             "source": "bigdl_tpu_torch/csrc/flash_bwd.cu",
+             "replaces": replaces[name], "launches": None,
+             "max_abs_err": main["max_abs_err"],
+             "tolerance": main["tolerance"], "ms": ms[name],
+             "kernel_ms": ms[name], "plain_ms": plain_ms,
+             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+             "library_ms": library_ms,
+             "library_call": "autograd.grad through torch.nn.functional."
+                             "scaled_dot_product_attention(is_causal=True)"
+                             " minus its forward, f32",
+             "plain_and_library_cover": "dq, dk and dv (K2 and K3 "
+                                        "together, delta included)",
+             "delta_ms": delta_ms, "shape": [b, h, SEQ, SEQ, d],
+             "dtype": "float32", "cases": results, "card": card}
+            for name in ("flash_bwd_dkv", "flash_bwd_dq")]
+
+
+def check_tf32_fails(what, reading, passes, limit):
+    """The check has teeth only if a TF32 variant fails it."""
+    log(f"tf32 variant of {what}: {reading} against {limit} -> "
+        f"{'passes (the check cannot see TF32)' if passes else 'fails'}")
+    if passes:
+        raise AssertionError(f"{what}: the limit {limit} does not tell a "
+                             f"TF32 run from fp32: {reading}")
+
+
+# --------------------------------------------------------------------- #
+def _ulps(a, b):
+    """Largest distance in units in the last place between two f32
+    tensors of one sign pattern (0 when bitwise equal)."""
+    ai, bi = a.view(torch.int32).long(), b.view(torch.int32).long()
+    return int((ai - bi).abs().max().item()) if a.numel() else 0
+
+
+def phase_adam(card: str):
+    """K4 against the plain update, bitwise, on Adam and AdamW, leaf sizes
+    1, 127, 768 and 3072*768, at steps 1 and 1000."""
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.optim import Adam, AdamW
+    results = []
+    for method in (Adam(learning_rate=1e-3, fused=True),
+                   AdamW(learning_rate=TRAIN_LR, fused=True)):
+        for step in (1, 1000):
+            state = {"step": torch.tensor(step - 1, dtype=torch.int32,
+                                          device="cuda")}
+            kw = method.update_scalars(state)
+            for n in (1, 127, 768, 3072 * 768):
+                g = torch.Generator(device="cuda").manual_seed(n + step)
+
+                def rnd(scale):
+                    return torch.randn((n,), generator=g,
+                                       device="cuda") * scale
+                p0, g0, m0 = rnd(0.05), rnd(1e-2), rnd(1e-3)
+                v0 = rnd(1e-3) ** 2
+                kern = [t.clone() for t in (p0, m0, v0)]
+                plain = [t.clone() for t in (p0, m0, v0)]
+                fo.fused_adam_update({"x": kern[0]}, {"x": g0},
+                                     {"x": kern[1]}, {"x": kern[2]}, **kw)
+                torch.cuda.synchronize()
+                fo.fused_adam_update_plain({"x": plain[0]}, {"x": g0},
+                                           {"x": plain[1]}, {"x": plain[2]},
+                                           **kw)
+                ulps = {name: _ulps(a, b) for name, a, b in
+                        zip(("p", "m", "v"), kern, plain)}
+                err = max((a - b).abs().max().item()
+                          for a, b in zip(kern, plain))
+                ok = all(torch.equal(a, b) for a, b in zip(kern, plain))
+                label = f"{type(method).__name__} step {step} n={n}"
+                results.append({"case": label, "max_abs_err": err,
+                                "ulps": ulps, "bitwise": ok, "ok": ok})
+                log(f"K4 vs plain [{label}]: max_abs_err {err:.3e} ulps "
+                    f"{ulps} -> {'bitwise' if ok else 'FAIL'}")
+    bad = [r["case"] for r in results if not r["ok"]]
+    if bad:
+        raise AssertionError(f"fused_adam is not bitwise equal to its plain "
+                             f"version: {bad}")
+    # a leaf the kernel does not take raises on the card, before any launch
+    xb = torch.ones(8, dtype=torch.bfloat16, device="cuda")
+    before = fo._build.launch_counts().get(fo.KERNEL_NAME, 0)
+    try:
+        fo.fused_adam_update({"x": xb}, {"x": xb}, {"x": xb.clone()},
+                             {"x": xb.clone()}, **kw)
+    except NotImplementedError as e:
+        log(f"K4 on a bf16 leaf raises: {e}")
+    else:
+        raise AssertionError("fused_adam took a bf16 leaf on the card")
+    if fo._build.launch_counts().get(fo.KERNEL_NAME, 0) != before \
+            or not torch.equal(xb, torch.ones_like(xb)):
+        raise AssertionError("fused_adam touched a bf16 leaf it refused")
+    return {"name": "fused_adam", "route": "cuda",
+            "source": "bigdl_tpu_torch/csrc/fused_adam.cu",
+            "replaces": "bigdl_tpu/kernels/fused_optim.py:124",
+            "launches": None, "max_abs_err": max(r["max_abs_err"]
+                                                 for r in results),
+            "tolerance": "bitwise", "cases": results, "card": card}
+
+
+def time_adam(k4: dict, leaves, card: str):
+    """K4, its plain version and torch.optim.AdamW(fused=True) over leaves
+    of the shapes of ``leaves`` (all of the model's), one update each."""
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.optim import AdamW
+    shapes = [tuple(p.shape) for p in leaves]
+    n = sum(int(np.prod(s)) for s in shapes)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    tree = {f"l{i}": {"w": torch.randn(s, generator=g, device="cuda") * 0.05}
+            for i, s in enumerate(shapes)}
+    grads = {k: {"w": torch.randn_like(v["w"]) * 1e-2}
+             for k, v in tree.items()}
+    method = AdamW(learning_rate=TRAIN_LR, fused=True)
+    state = method.init_state(tree)
+    kw = method.update_scalars(state)
+    m, v = state["m"], state["v"]
+    ms = cuda_ms(lambda: fo.fused_adam_update(tree, grads, m, v, **kw),
+                 iters=10)
+    plain_ms = cuda_ms(lambda: fo.fused_adam_update_plain(tree, grads, m, v,
+                                                          **kw), iters=3)
+    flat = [t["w"].requires_grad_() for t in tree.values()]
+    for p_, gt in zip(flat, (t["w"] for t in grads.values())):
+        p_.grad = gt
+    ref = torch.optim.AdamW(flat, lr=TRAIN_LR, weight_decay=0.01, fused=True)
+    library_ms = cuda_ms(ref.step, iters=10)
+    del ref, tree, grads, m, v, flat
+    bound_ms = n * 28 / H100_HBM_BYTES_S * 1e3
+    log(f"fused_adam over {len(shapes)} leaves, {n} params: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.optim.AdamW(fused) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes); {card}")
+    k4.update(ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by="bytes", library_ms=library_ms,
+              library_call="torch.optim.AdamW(fused=True).step(), f32",
+              leaves=len(shapes), params=n)
 
 
 # --------------------------------------------------------------------- #
@@ -355,6 +690,276 @@ def phase_slice(card: str):
     return out
 
 
+# --------------------------------------------------------------------- #
+KERNEL_CLASSES = (("flash_fwd", "K1 flash_fwd"),
+                  ("flash_bwd_dkv", "K2 flash_bwd_dkv"),
+                  ("flash_bwd_dq", "K3 flash_bwd_dq"),
+                  ("adam_kernel", "K4 fused_adam"),
+                  ("gemm", "matmul (cuBLAS)"), ("cutlass", "matmul (cuBLAS)"),
+                  ("reduce", "reductions"), ("elementwise", "elementwise"))
+
+
+def profile_steps(trainer, tokens, targets, steps: int = 2):
+    """Device time by kernel class and the device's busy share over
+    ``steps`` training steps, from torch.profiler (CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            trainer.step(tokens, targets)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    by_class, device_us = {}, 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0.0)
+        if not us or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        device_us += us
+        name = ev.key.lower()
+        cls = next((c for key, c in KERNEL_CLASSES if key in name), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3 / steps
+    if device_us == 0.0:
+        log("profile: the profiler saw no device time (not measured)")
+        return None
+    busy = device_us / 1e3 / wall_ms
+    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
+           "device_ms_per_step": device_us / 1e3 / steps,
+           "device_busy_share": busy,
+           "device_ms_by_class": dict(sorted(by_class.items(),
+                                             key=lambda kv: -kv[1]))}
+    log(f"profile: {json.dumps(out)}")
+    return out
+
+
+def phase_training(card: str, k4: dict):
+    """SpmdTrainer on base: the kernel run (counted), the plain run from
+    the same weights, step-1 gradients of both, and the breakdown."""
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import flash_attention_mod as fa
+    from bigdl_tpu_torch.optim import AdamW, make_accum_grads
+    from bigdl_tpu_torch.parallel import SpmdTrainer
+
+    t0 = time.monotonic()
+    model = T.build("base", device="cuda", seed=0)
+    cfg = model.cfg
+    params = model.param_dict()
+    leaves = [p for sub in params.values() for p in sub.values()]
+    w0 = [p.detach().clone() for p in leaves]
+    n_leaves = len(leaves)
+    log(f"training model built: {n_leaves} leaves, "
+        f"{sum(p.numel() for p in leaves)} params, "
+        f"{time.monotonic() - t0:.1f} s")
+    rs = np.random.RandomState(1)
+    ids = rs.randint(0, cfg.vocab_size, (TRAIN_BATCH, SEQ + 1)).astype(
+        np.int32)
+    tokens, targets = ids[:, :-1], ids[:, 1:]
+    tok_d = torch.from_numpy(tokens).cuda()
+    tgt_d = torch.from_numpy(targets).cuda()
+
+    def set_attention(fn):
+        for blk in model.blocks:
+            blk.attn.attention_fn = fn
+
+    def plain_attention(q, k, v):
+        return fa.flash_attention_plain(q, k, v, causal=True)
+
+    captured = {}
+
+    def capture_attention(q, k, v):
+        captured.update(q=q.detach().clone(
+            memory_format=torch.preserve_format),
+            k=k.detach().clone(memory_format=torch.preserve_format),
+            v=v.detach().clone(memory_format=torch.preserve_format))
+        o = plain_attention(q, k, v)
+        o.register_hook(lambda g: captured.update(
+            do=g.detach().clone(memory_format=torch.preserve_format)))
+        return o
+
+    grads_fn = make_accum_grads(
+        lambda p, st, x, y: (model.loss(p, x, y, training=True), st), 1)
+
+    # step-1 gradients: kernels against the plain attention
+    (loss_k, _), g_k = grads_fn(params, {}, tok_d, tgt_d)
+    set_attention(plain_attention)
+    model.blocks[0].attn.attention_fn = capture_attention
+    (loss_p, _), g_p = grads_fn(params, {}, tok_d, tgt_d)
+    set_attention(None)
+
+    def worst_rel_diff(g_a):
+        worst_rel, worst_leaf = 0.0, None
+        for name, sub in g_p.items():
+            for pname, gp in sub.items():
+                ga = g_a[name][pname]
+                if not torch.isfinite(ga).all():
+                    raise AssertionError(f"non-finite gradient "
+                                         f"{name}.{pname}")
+                rel = ((ga - gp).abs().max() /
+                       gp.abs().max().clamp(min=1e-30)).item()
+                if rel > worst_rel:
+                    worst_rel, worst_leaf = rel, f"{name}.{pname}"
+        return worst_rel, worst_leaf
+
+    worst_rel, worst_leaf = worst_rel_diff(g_k)
+    log(f"step-1 gradients, kernels vs plain attention: loss "
+        f"{loss_k.item():.6f} vs {loss_p.item():.6f}; worst leaf "
+        f"{worst_leaf} max|dg|/max|g| {worst_rel:.3e} (tol {GRAD_REL_TOL})")
+    if worst_rel > GRAD_REL_TOL:
+        raise AssertionError(f"step-1 gradients differ: {worst_leaf} "
+                             f"{worst_rel:.3e}")
+    del g_k
+    # the same kernel step with the model's matmuls on TF32 tensor cores
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        (loss_t, _), g_t = grads_fn(params, {}, tok_d, tgt_d)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_rel, tf32_leaf = worst_rel_diff(g_t)
+    del g_t, g_p
+    check_tf32_fails("step-1 gradients", {"worst_leaf": tf32_leaf,
+                                          "max_rel_diff": tf32_rel},
+                     tf32_rel <= GRAD_REL_TOL, GRAD_REL_TOL)
+
+    # K2/K3 on exactly what layer 0 of a training step hands them: its
+    # gradients are far below 1, so each is held relative to its own size
+    q, k, v, do = (captured[n] for n in ("q", "k", "v", "do"))
+    err, errs, tol, ok, want = compare_bwd(fa, q, k, v, do, causal=True,
+                                           relative=True)
+    tf32_errs, tf32_passes = tf32_bwd_reading(fa, q, k, v, do, True, want,
+                                              relative=True)
+    layer_case = {"case": "training layer 0 q/k/v/do",
+                  "shape": [q.shape[0], q.shape[1], SEQ, SEQ, q.shape[3]],
+                  "dtype": "float32", "causal": True,
+                  "strides": [list(t.stride()) for t in (q, k, v, do)],
+                  "max_abs_err": err, "errors_and_max_ref": errs,
+                  "tolerance": tol, "ok": ok, "tf32": tf32_errs,
+                  "tf32_passes": tf32_passes}
+    log(f"K2+K3 vs plain [training layer 0 q/k/v/do, strides "
+        f"{layer_case['strides']}]: max_abs_err {err:.3e} (err, max|ref|) "
+        f"{errs} tol {tol} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash_bwd disagrees with its plain version on "
+                             "the training layer's q, k, v, do")
+    check_tf32_fails("K2+K3 [training layer 0]", tf32_errs, tf32_passes, tol)
+    del captured, q, k, v, do, want
+
+    # the main path: counts from 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    _build.reset_launch_counts()
+    trainer = SpmdTrainer(model, AdamW(learning_rate=TRAIN_LR, fused=True))
+    losses_k, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t_s = time.monotonic()
+        losses_k.append(trainer.step(tokens, targets))
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t_s)
+    launches = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses_k = [float(x) for x in losses_k]
+    want = {"flash_fwd": cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd_dq": cfg.n_layers * TRAIN_STEPS,
+            "fused_adam": n_leaves * TRAIN_STEPS}
+    got = {name: launches.get(name, 0) for name in want}
+    log(f"training launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"training launches {got}, expected {want}")
+
+    # the same steps from the same weights on the plain versions
+    def restore_weights():
+        with torch.no_grad():
+            for p_, w in zip(leaves, w0):
+                p_.copy_(w)
+    restore_weights()
+    set_attention(plain_attention)
+    plain_trainer = SpmdTrainer(model, AdamW(learning_rate=TRAIN_LR,
+                                             fused=False))
+    losses_p = [float(plain_trainer.step(tokens, targets))
+                for _ in range(TRAIN_STEPS)]
+    set_attention(None)
+    if _build.launch_counts() != launches:
+        raise AssertionError("the plain run launched a kernel")
+    diffs = [abs(a - b) for a, b in zip(losses_k, losses_p)]
+    log(f"losses kernels {losses_k}; plain {losses_p}; max |diff| "
+        f"{max(diffs):.3e} (tol {LOSS_TOL})")
+    if not all(np.isfinite(losses_k + losses_p)):
+        raise AssertionError("non-finite loss")
+    if max(diffs) > LOSS_TOL:
+        raise AssertionError(f"kernel and plain runs differ: {diffs}")
+    if not losses_k[-1] < losses_k[0]:
+        raise AssertionError(f"loss did not fall: {losses_k}")
+    del plain_trainer
+
+    # the kernel run again with the model's matmuls on TF32 (after the
+    # counts were read): the loss limit must tell it from fp32
+    restore_weights()
+    del w0
+    tf32_trainer = SpmdTrainer(model, AdamW(learning_rate=TRAIN_LR,
+                                            fused=True))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        losses_t = [float(tf32_trainer.step(tokens, targets))
+                    for _ in range(TRAIN_STEPS)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_diffs = [abs(a - b) for a, b in zip(losses_t, losses_p)]
+    check_tf32_fails("the losses", {"max_diff": max(tf32_diffs),
+                                    "diffs": tf32_diffs},
+                     max(tf32_diffs) <= LOSS_TOL, LOSS_TOL)
+    del tf32_trainer
+
+    # where a step's time goes (after the counts were read)
+    state = trainer.opt_state
+    opt = trainer.optim
+
+    def part_times():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = model.loss(params, tok_d, tgt_d, training=True)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        it = iter(grads)
+        tree = {n: {k: next(it) for k in sub} for n, sub in params.items()}
+        opt.update(tree, params, state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    parts = [part_times() for _ in range(3)]
+    fwd_ms, bwd_ms, opt_ms = (float(np.median([p[i] for p in parts]))
+                              for i in range(3))
+    profile = profile_steps(trainer, tokens, targets)
+    time_adam(k4, leaves, card)
+    step_ms = float(np.median(step_s)) * 1e3
+    out = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": SEQ,
+           "tokens_per_step": TRAIN_BATCH * SEQ,
+           "step_ms_median": step_ms,
+           "step_ms": [x * 1e3 for x in step_s],
+           "tokens_per_s": TRAIN_BATCH * SEQ / (step_ms / 1e3),
+           "losses": losses_k, "losses_plain": losses_p,
+           "max_loss_diff": max(diffs), "loss_tol": LOSS_TOL,
+           "grad_max_rel_diff": worst_rel, "grad_worst_leaf": worst_leaf,
+           "grad_rel_tol": GRAD_REL_TOL, "launches": got,
+           "tf32": {"grad_max_rel_diff": tf32_rel, "grad_worst_leaf":
+                    tf32_leaf, "step1_loss": loss_t.item(),
+                    "losses": losses_t, "max_loss_diff": max(tf32_diffs)},
+           "peak_mem_gb": peak_gb, "resident_before_gb": resident_gb,
+           "breakdown_ms": {"forward": fwd_ms, "backward": bwd_ms,
+                            "optimizer": opt_ms},
+           "profile": profile,
+           "layer_case": layer_case, "card": card}
+    log(f"training: {json.dumps(out)}")
+    del trainer, model, params, leaves, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -368,14 +973,29 @@ def main() -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.monotonic()
     build_s = phase_build()
-    kernel = phase_kernels(card)
-    kernel["build_s"] = build_s
+    k1 = phase_kernels(card)
+    k1["build_s"] = build_s
+    k23 = phase_flash_bwd(card)
+    k4 = phase_adam(card)
     slice_ = phase_slice(card)
-    kernel["launches"] = slice_["launches"]
-    kernel["cases"].append(slice_["layer_case"])
+    k1["cases"].append(slice_["layer_case"])
+    train = phase_training(card, k4)
+    if train["profile"]:
+        # K4's own device time a step (111 launches), without host gaps
+        k4["device_ms_per_step"] = train["profile"]["device_ms_by_class"] \
+            .get("K4 fused_adam")
+    for k in k23:
+        k["cases"].append(train["layer_case"])
+    by_path = {"serving": {"flash_fwd": slice_["launches"]},
+               "training": train["launches"]}
+    for k in [k1, *k23, k4]:
+        k["launches_by_path"] = {path: counts.get(k["name"], 0)
+                                 for path, counts in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
     log(f"total {time.monotonic() - t0:.1f} s")
     print(json.dumps({"slice": slice_}), flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"training": train}), flush=True)
+    print(json.dumps({"kernels": [k1, *k23, k4]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,214 @@
+"""The port's Adam/AdamW (bigdl_tpu_torch.optim) and the plain version of
+its fused Adam kernel (bigdl_tpu_torch.kernels.fused_optim) held against
+the reference's tree-map update on the CPU.
+
+Both sides start from the same numpy leaves and gradients and run five
+steps.  The reference runs ``Adam.update`` / ``AdamW.update`` with
+``fused=False``: its Pallas-vs-tree-map parity does not hold under the
+installed jax, so the port is held to the tree-map math.  On the CPU the
+port's ``fused=True`` takes the plain version for every leaf; the kernel
+is held against it, bitwise, on the card by chip_smoke.py.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from bigdl_tpu.optim import optim_method as JO
+from bigdl_tpu_torch.kernels import fused_optim as fo
+from bigdl_tpu_torch.optim import Adam, AdamW, Default, make_accum_grads
+
+# the reference's own bound for its fused update against the tree-map
+# one (tests/test_fused_optim.py): one-op-at-a-time fp32 on both sides
+TOL = dict(rtol=1e-6, atol=1e-7)
+SIZES = (1, 127, 3 * 256, 0)
+
+
+def _tree(seed, scale):
+    rs = np.random.RandomState(seed)
+    return {"a": {"w": (rs.randn(SIZES[0]) * scale).astype(np.float32),
+                  "b": (rs.randn(SIZES[1]) * scale).astype(np.float32)},
+            "c": {"w": (rs.randn(8, 96) * scale).astype(np.float32),
+                  "e": np.zeros((0,), np.float32)}}
+
+
+def _to_torch(tree):
+    return {k: {kk: torch.from_numpy(v.copy()) for kk, v in sub.items()}
+            for k, sub in tree.items()}
+
+
+def _to_jax(tree):
+    return {k: {kk: jnp.asarray(v) for kk, v in sub.items()}
+            for k, sub in tree.items()}
+
+
+def _methods(kind, fused, lr_decay):
+    kw = dict(learning_rate=1e-2, learning_rate_decay=lr_decay)
+    if kind == "adam":
+        return JO.Adam(**kw), Adam(fused=fused, **kw)
+    return (JO.AdamW(weight_decay=0.05, **kw),
+            AdamW(weight_decay=0.05, fused=fused, **kw))
+
+
+@pytest.mark.parametrize("lr_decay", [0.0, 0.1])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kind", ["adam", "adamw"])
+def test_matches_reference_tree_map_update(kind, fused, lr_decay):
+    jm, tm = _methods(kind, fused, lr_decay)
+    params = _tree(0, 0.5)
+    jp, tp = _to_jax(params), _to_torch(params)
+    js, ts = jm.init_state(jp), tm.init_state(tp)
+    for step in range(5):
+        g = _tree(10 + step, 0.1)
+        jp, js = jm.update(_to_jax(g), jp, js)
+        tp_out, ts = tm.update(_to_torch(g), tp, ts)
+        assert tp_out is tp                       # updated in place
+        np.testing.assert_allclose(
+            float(tm.get_learning_rate(ts)),
+            float(jm.get_learning_rate(js)), rtol=1e-7)
+    assert ts["step"].dtype == torch.int32 and int(ts["step"]) == 5
+    for name in ("a", "c"):
+        for leaf in params[name]:
+            for a, b in ((tp, jp), (ts["m"], js["m"]), (ts["v"], js["v"])):
+                np.testing.assert_allclose(
+                    a[name][leaf].numpy(), np.asarray(b[name][leaf]), **TOL,
+                    err_msg=f"{kind} fused={fused} {name}.{leaf}")
+
+
+def test_update_scalars_are_device_scalars_in_fp32():
+    m = AdamW(learning_rate=3e-4)
+    st = m.init_state({"x": torch.zeros(3)})
+    kw = m.update_scalars(st)
+    for key in ("clr", "bc1", "bc2"):
+        assert kw[key].dtype == torch.float32 and kw[key].numel() == 1
+    # 1 - beta^1 with beta rounded to fp32 first, as the reference does
+    assert float(kw["bc1"]) == np.float32(1) - np.float32(0.9)
+    assert float(kw["bc2"]) == np.float32(1) - np.float32(0.999)
+    assert kw["weight_decay"] == 0.01 and float(kw["clr"]) == np.float32(3e-4)
+    assert isinstance(m.schedule, Default)
+
+
+def test_fused_on_cpu_is_the_plain_version_bitwise():
+    params = _tree(1, 0.3)
+    grads = _to_torch(_tree(2, 0.1))
+    out = []
+    for fused in (True, False):
+        m = AdamW(learning_rate=1e-2, fused=fused)
+        p = _to_torch(params)
+        st = m.init_state(p)
+        for _ in range(3):
+            p, st = m.update(grads, p, st)
+        out.append(p)
+    for name in ("a", "c"):
+        for leaf in out[0][name]:
+            assert torch.equal(out[0][name][leaf], out[1][name][leaf])
+
+
+def test_non_f32_leaves_take_the_reference_math():
+    p = {"x": torch.ones(5, dtype=torch.bfloat16)}
+    g = {"x": torch.full((5,), 0.5, dtype=torch.bfloat16)}
+    m = Adam(learning_rate=0.1, fused=True)
+    st = m.init_state(p)
+    m.update(g, p, st)
+    assert p["x"].dtype == torch.bfloat16
+    np.testing.assert_allclose(p["x"].float().numpy(), 0.9, rtol=1e-2)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to drive the routing of
+    fused_adam_update without a card (the kernel itself is replaced)."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("case,expect", [
+    ("f32", "kernel"),
+    ("empty", "skipped"),
+    ("bf16", "raises"),
+    ("bf16 grad", "raises"),
+    ("f32 then bf16", "raises"),
+])
+def test_cuda_leaves_go_to_the_kernel_or_raise(monkeypatch, case, expect):
+    """On the card a leaf goes to the kernel, is skipped when empty, or
+    raises: it never takes the plain version unasked (fused=False asks)."""
+    launched = []
+    monkeypatch.setattr(fo, "_adam_cuda",
+                        lambda leaves, **kw: launched.extend(leaves))
+
+    def leaf(n, dtype=torch.float32, g_dtype=None):
+        p = torch.ones(n, dtype=dtype).as_subclass(_OnCard)
+        g = torch.ones(n, dtype=g_dtype or dtype).as_subclass(_OnCard)
+        return p, g, torch.zeros_like(p), torch.zeros_like(p)
+
+    leaves = {"f32": [leaf(4)], "empty": [leaf(0)],
+              "bf16": [leaf(4, torch.bfloat16)],
+              "bf16 grad": [leaf(4, g_dtype=torch.bfloat16)],
+              "f32 then bf16": [leaf(4), leaf(4, torch.bfloat16)]}[case]
+    trees = [{f"x{i}": lf[j] for i, lf in enumerate(leaves)}
+             for j in range(4)]
+    kw = dict(clr=None, bc1=None, bc2=None, beta1=0.9, beta2=0.999, eps=1e-8)
+    if expect == "raises":
+        with pytest.raises(NotImplementedError,
+                           match="takes float32 leaves.*fused=False"):
+            fo.fused_adam_update(*trees, **kw)
+        assert launched == []           # checked before any launch
+    else:
+        fo.fused_adam_update(*trees, **kw)
+        assert len(launched) == (1 if expect == "kernel" else 0)
+        assert torch.equal(trees[0]["x0"], torch.ones(len(trees[0]["x0"])))
+
+
+def test_no_silent_fallback_on_other_devices():
+    t = torch.empty(4, device="meta")
+    kw = dict(clr=t, bc1=t, bc2=t, beta1=0.9, beta2=0.999, eps=1e-8)
+    with pytest.raises(RuntimeError, match="no implementation"):
+        fo.fused_adam_update({"x": t}, {"x": t}, {"x": t}, {"x": t}, **kw)
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("shape", "does not match"),
+    ("strided", "contiguous"),
+    ("scalar", "clr must be one float32"),
+])
+def test_kernel_input_checks_raise(bad, match):
+    p = torch.zeros(8, 4)
+    if bad == "strided":
+        p = p.t()
+    g = torch.zeros(3) if bad == "shape" else torch.zeros_like(p)
+    clr = torch.zeros((), dtype=torch.float64 if bad == "scalar"
+                      else torch.float32)
+    one = torch.ones(())
+    with pytest.raises(ValueError, match=match):
+        fo._adam_cuda([(p, g, torch.zeros_like(p), torch.zeros_like(p))],
+                      clr=clr, bc1=one, bc2=one, beta1=0.9, beta2=0.999,
+                      eps=1e-8, weight_decay=0.0)
+
+
+def test_make_accum_grads_weights_microbatches():
+    """Two microbatches weighted by their valid count give the gradient of
+    the masked mean over the whole batch."""
+    w = torch.tensor([1.5, -2.0], requires_grad=True)
+    params = {"lin": {"w": w}}
+    x = torch.tensor([[1.0, 2.0], [3.0, 4.0], [5.0, 6.0], [7.0, 8.0]])
+    y = torch.tensor([1, -1, 1, 1])
+
+    def loss_fn(p, st, xb, yb):
+        mask = (yb != -1).float()
+        per = (xb @ p["lin"]["w"]) ** 2
+        return (per * mask).sum() / mask.sum().clamp(min=1.0), st
+
+    (l1, _), g1 = make_accum_grads(loss_fn, 1)(params, {}, x, y)
+    (l2, _), g2 = make_accum_grads(
+        loss_fn, 2, weight_fn=lambda xb, yb: (yb != -1).sum())(
+            params, {}, x, y)
+    torch.testing.assert_close(l2, l1)
+    torch.testing.assert_close(g2["lin"]["w"], g1["lin"]["w"])
+    assert w.grad is None                       # no .grad side effect
+    with pytest.raises(ValueError, match="not divisible"):
+        make_accum_grads(loss_fn, 3)(params, {}, x, y)

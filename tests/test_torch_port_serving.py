@@ -284,7 +284,9 @@ def test_import_leaves_jax_and_reference_out():
     code = (
         "import sys, runpy\n"
         "import bigdl_tpu_torch, bigdl_tpu_torch.serving, "
-        "bigdl_tpu_torch.models.transformer, bigdl_tpu_torch.models.convert\n"
+        "bigdl_tpu_torch.models.transformer, bigdl_tpu_torch.models.convert, "
+        "bigdl_tpu_torch.optim, bigdl_tpu_torch.kernels, "
+        "bigdl_tpu_torch.parallel\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
