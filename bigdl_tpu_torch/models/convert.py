@@ -1,5 +1,13 @@
 """Load the reference's weights into the port's models.
 
+Two ways, for two kinds of model:
+
+  * :func:`from_jax_params` matches the reference's flat param dict by
+    module name, for models whose modules are named after their root
+    (the TransformerLM);
+  * :func:`from_jax_weights` matches by position, for models whose
+    modules are named after a global uid (the image classifiers).
+
 ``bigdl_tpu`` keeps a model's weights as a flat dict
 ``{module_name: {"weight": array, ...}}`` (``Module.init_params``).  The
 port's modules carry the same names after the root, and the same
@@ -14,12 +22,12 @@ copied.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..nn.module import Module
+from ..nn.module import Module, _check_shapes, _copy_into
 
 
 def _suffix(name: str) -> str:
@@ -41,7 +49,14 @@ def _by_suffix(tree: Mapping[str, Mapping], side: str) -> Dict[str, tuple]:
 def from_jax_params(params: Mapping[str, Mapping[str, np.ndarray]],
                     model: Module) -> None:
     """Copy the reference's flat param dict into ``model`` in place (each
-    array is cast to the parameter's dtype and moved to its device)."""
+    array is cast to the parameter's dtype and moved to its device).
+
+    Keys are matched by the part after the root name.  That cannot serve a
+    model whose modules are named after the global uid counter
+    (``SpatialConvolution_00000006``, as every unnamed layer of the
+    reference's ResNet is): such a key has no ``.``, every one gives the
+    same empty suffix, and this raises "share the suffix".  Use
+    :func:`from_jax_weights` for those."""
     theirs = _by_suffix(params, "reference")
     ours = _by_suffix(model.param_dict(), "port")
     missing = sorted(set(ours) - set(theirs))
@@ -66,3 +81,21 @@ def from_jax_params(params: Mapping[str, Mapping[str, np.ndarray]],
     with torch.no_grad():
         for p, arr in plan:
             p.copy_(torch.from_numpy(np.array(arr, copy=True)))
+
+
+def from_jax_weights(weights: Sequence[np.ndarray], model: Module,
+                     state: Optional[Sequence[np.ndarray]] = None) -> None:
+    """Copy the reference's ``get_weights()`` list into ``model`` in place,
+    by position: modules depth first, each module's keys weight first,
+    then bias, then the rest (the order of :meth:`Module.get_weights`).
+    ``state`` is the reference's batch-norm state as a list in the same
+    module order, each module's keys alphabetically (``running_mean``,
+    ``running_var``; :meth:`Module.state_list`).  The counts at both ends
+    and every shape are checked before anything is copied."""
+    ours = model.get_weights()
+    weights = _check_shapes(ours, weights, "from_jax_weights (weights)")
+    if state is not None:
+        mine = model.state_list()
+        state = _check_shapes(mine, state, "from_jax_weights (state)")
+        _copy_into(mine, state, "from_jax_weights (state)")
+    _copy_into(ours, weights, "from_jax_weights (weights)")

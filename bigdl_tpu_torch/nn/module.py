@@ -1,7 +1,9 @@
 """Core module abstraction — the functional core of the port.
 
-Port of ``bigdl_tpu/nn/module.py``, the part the serving and training
-slices need.
+Port of ``bigdl_tpu/nn/module.py``, the part the serving, training and
+image-classifier slices need (the Torch shell — ``forward``/``backward``/
+``update_parameters`` on cached activity — is not ported yet, ROADMAP
+queue A, item 10).
 A module is a ``torch.nn.Module`` that also keeps the reference's
 functional core:
 
@@ -20,12 +22,20 @@ Weights live as ``nn.Parameter`` s on the module, so ``.to(device)``,
 Module names follow the reference's scheme: ``f"{Type}_{uid:08d}"`` for
 an unnamed module, and children named after their parent
 (``f"{root}.block{i}.attn"``).
+
+Persistent non-trainable state (batch norm's running statistics) lives in
+buffers on the module; :meth:`Module.initial_state` hands them out in the
+reference's flat layout, ``apply`` reads them from ``ctx.state`` and
+writes new values to ``ctx.new_state`` (:meth:`Ctx.get_state` /
+:meth:`Ctx.put_state`), and :meth:`Module.set_state` copies a trained
+state back into the buffers.
 """
 from __future__ import annotations
 
 import itertools
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 _uid_counter = itertools.count()
@@ -47,9 +57,45 @@ class Ctx:
         self.new_state: Dict[str, Any] = {}
         self.side_losses: List[torch.Tensor] = []
 
+    def get_state(self, module):
+        return self.state.get(module.name)
+
+    def put_state(self, module, value):
+        self.new_state[module.name] = value
+
+
+def _weights_order(sub) -> List[str]:
+    """Per-module key order of get/set_weights: weight* first, bias*
+    second, the rest alphabetically (the reference's
+    ``Module._weights_order``)."""
+    def rank(k):
+        if k.startswith("weight"):
+            return (0, k)
+        if k.startswith("bias"):
+            return (1, k)
+        return (2, k)
+    return sorted(sub, key=rank)
+
+
+def regularizer_unported(module, w_regularizer, b_regularizer) -> None:
+    """Raise if a layer is built with a per-layer regularizer."""
+    if w_regularizer is not None or b_regularizer is not None:
+        raise NotImplementedError(
+            f"{type(module).__name__}: w_regularizer/b_regularizer are not "
+            f"ported yet (ROADMAP queue A, item 10: regularizers)")
+
 
 class Module(torch.nn.Module):
-    """Base class of the port's layers and models."""
+    """Base class of the port's layers and models.
+
+    Children are walked in registration order, depth first, which is the
+    reference's ``modules()`` order when a container registers its
+    children in the reference's order."""
+
+    # init-method overrides read by ``nn.init.init_tensor`` (the
+    # reference's ``set_init_method``): None takes the layer's default
+    weight_init = None
+    bias_init = None
 
     def __init__(self, name: Optional[str] = None):
         super().__init__()
@@ -71,6 +117,11 @@ class Module(torch.nn.Module):
         out_state = dict(state or {})
         out_state.update(ctx.new_state)
         return y, out_state
+
+    def _ref_modules(self) -> List["Module"]:
+        """This module and its descendants, depth first (the reference's
+        ``Module.modules()``)."""
+        return [m for m in self.modules() if isinstance(m, Module)]
 
     # -- parameters in the reference's flat layout ---------------------- #
     def param_dict(self) -> Params:
@@ -99,6 +150,101 @@ class Module(torch.nn.Module):
                 mod._parameters[pname] = torch.nn.Parameter(
                     t, requires_grad=old.requires_grad)
 
+    def regularization_loss(self, params):
+        """The per-layer regularizers' penalty: 0, since a layer built with
+        one raises (ROADMAP queue A, item 10)."""
+        return 0.0
+
+    # -- weights as a flat list (pyspark Layer.get_weights) -------------- #
+    def get_weights(self) -> List[torch.Tensor]:
+        """This model's weights as a flat list: modules depth first, each
+        module's keys weight first, then bias, then the rest alphabetically
+        (≙ the reference's ``get_weights``; tensors, detached, no copy)."""
+        out = []
+        for m in self._ref_modules():
+            own = dict(m.named_parameters(recurse=False))
+            out.extend(own[k].detach() for k in _weights_order(own))
+        return out
+
+    def set_weights(self, weights: Sequence) -> "Module":
+        """Inverse of :meth:`get_weights` (arrays or tensors).  The count
+        and every shape are checked before anything is copied."""
+        _copy_into(self.get_weights(), weights, "set_weights")
+        return self
+
+    # -- persistent state (batch-norm running statistics) ---------------- #
+    def initial_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """``{module_name: {buffer_name: tensor}}`` over this module and its
+        descendants: the module's own buffers (no copy), which hold the
+        reference's ``initial_state()`` values until :meth:`set_state`
+        writes a trained state into them."""
+        out = {}
+        for m in self._ref_modules():
+            own = dict(m.named_buffers(recurse=False))
+            if own:
+                out[m.name] = own
+        return out
+
+    def state_list(self) -> List[torch.Tensor]:
+        """:meth:`initial_state` as a flat list, modules depth first, each
+        module's keys in alphabetical order."""
+        return [sub[k] for sub in self.initial_state().values()
+                for k in sorted(sub)]
+
+    def set_state(self, state) -> "Module":
+        """Copy ``state`` (the layout of :meth:`initial_state`, as a train
+        step returns it) into the module's buffers."""
+        mine = self.initial_state()
+        if set(state) != set(mine) or any(set(state[k]) != set(mine[k])
+                                          for k in mine):
+            raise ValueError(f"set_state: state has modules {sorted(state)},"
+                             f" the model {sorted(mine)}")
+        _copy_into([mine[n][k] for n in mine for k in sorted(mine[n])],
+                   [state[n][k] for n in mine for k in sorted(mine[n])],
+                   "set_state")
+        return self
+
     def forward(self, x):
-        y, _ = self.run(self.param_dict(), x)
+        y, _ = self.run(self.param_dict(), x, state=self.initial_state())
         return y
+
+
+def _check_shapes(dst: List[torch.Tensor], src: Sequence, what: str) -> list:
+    """``src`` as a list, after checking that it has ``dst``'s count and
+    every entry ``dst``'s shape."""
+    src = list(src)
+    if len(src) != len(dst):
+        raise ValueError(f"{what}: {len(src)} arrays given, the model has "
+                         f"{len(dst)}")
+    for i, (d, s) in enumerate(zip(dst, src)):
+        if tuple(np.shape(s)) != tuple(d.shape):
+            raise ValueError(f"{what}: entry {i} has shape "
+                             f"{tuple(np.shape(s))}, the model's "
+                             f"{tuple(d.shape)}")
+    return src
+
+
+@torch.no_grad()
+def _copy_into(dst: List[torch.Tensor], src: Sequence, what: str) -> None:
+    """Copy ``src[i]`` into ``dst[i]`` for every i (casting to its dtype and
+    moving to its device), after checking the count and every shape."""
+    for d, s in zip(dst, _check_shapes(dst, src, what)):
+        d.copy_(s if isinstance(s, torch.Tensor)
+                else torch.from_numpy(np.array(s, copy=True)))
+
+
+class Criterion:
+    """Base of the losses (≙ the reference's ``Criterion``):
+    ``loss(output, target) -> scalar``.  The gradient comes from autograd
+    through ``loss``; the Torch shell (``forward``/``backward``) is not
+    ported yet (ROADMAP queue A, item 10)."""
+
+    def __init__(self, name: Optional[str] = None):
+        self._uid = next(_uid_counter)
+        self.name = name or f"{type(self).__name__}_{self._uid:08d}"
+
+    def loss(self, output, target):
+        raise NotImplementedError
+
+    def __repr__(self):
+        return f"{type(self).__name__}()"

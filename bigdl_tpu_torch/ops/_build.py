@@ -31,10 +31,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# fused_adam: no FMA contraction, so that every multiply and add rounds on
-# its own as in the plain PyTorch version (IEEE / and sqrt are nvcc's
-# default and stay on)
-EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"fused_adam": ("-fmad=false",)}
+# fused_adam, fused_sgd: no FMA contraction, so that every multiply and add
+# rounds on its own as in the plain PyTorch version (IEEE / and sqrt are
+# nvcc's default and stay on)
+EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"fused_adam": ("-fmad=false",),
+                                           "fused_sgd": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,12 @@
 """Optimization of the port (≙ ``bigdl_tpu/optim``): the optimization
-methods, learning-rate schedules and gradient accumulation that the
-training slice runs."""
+methods, learning-rate schedules, triggers, gradient accumulation and the
+``LocalOptimizer`` loop that the ported slices run."""
 from .lr_schedule import Default, LearningRateSchedule
-from .optim_method import Adam, AdamW, OptimMethod
-from .optimizer import make_accum_grads
+from .optim_method import SGD, Adam, AdamW, OptimMethod
+from .optimizer import (LocalOptimizer, Optimizer, TrainingState,
+                        make_accum_grads, make_train_step)
+from .trigger import Trigger
 
 __all__ = ["Adam", "AdamW", "Default", "LearningRateSchedule",
-           "OptimMethod", "make_accum_grads"]
+           "LocalOptimizer", "OptimMethod", "Optimizer", "SGD",
+           "TrainingState", "Trigger", "make_accum_grads", "make_train_step"]

@@ -1,5 +1,6 @@
 """Optimization methods (≙ ``bigdl_tpu/optim/optim_method.py``): the
-:class:`OptimMethod` contract, :class:`Adam` and :class:`AdamW`.
+:class:`OptimMethod` contract, :class:`SGD`, :class:`Adam` and
+:class:`AdamW`.
 
 The reference's contract, on nested dicts of tensors::
 
@@ -12,18 +13,18 @@ with two differences that PyTorch allows and the training step wants:
     was given and returns them: the counterpart of the reference trainer
     donating its parameter and optimizer buffers (``donate_argnums``).
   * ``state["step"]`` is a device ``int32`` tensor, and the step's
-    learning rate ``clr`` and bias corrections ``bc1 = 1 - beta1^t`` and
-    ``bc2`` are fp32 device scalars, computed in the reference's order.
-    An update makes no host sync.
+    learning rate ``clr = rate(step) / (1 + step * lr_decay)`` (and Adam's
+    bias corrections ``bc1 = 1 - beta1^t`` and ``bc2``) are fp32 device
+    scalars, computed in the reference's order.  An update makes no host
+    sync.
 
 ``fused=True`` sends every f32 leaf on a CUDA tensor to the hand-written
-kernel (``kernels.fused_optim``, K4) and every CPU leaf to its plain
-version; a CUDA leaf that is not f32 raises.  ``fused=False`` is the
-reference's tree-map math in plain PyTorch ops, which is the same plain
-version, on any device.
+kernel (``kernels.fused_optim``: K4 for Adam, K5 for SGD with momentum,
+K6 for SGD without) and every CPU leaf to its plain version; a CUDA leaf
+that is not f32 raises.  ``fused=False`` is the reference's tree-map math
+in plain PyTorch ops, which is the same plain version, on any device.
 
-``SGD`` comes with the image-classifier slice (ROADMAP queue A, item 3);
-the reference's other methods are listed under item 2.
+The reference's other methods are listed under ROADMAP queue A, item 2.
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from typing import Any, Dict
 import torch
 
 from ..kernels.fused_optim import (fused_adam_update,
-                                   fused_adam_update_plain, zip_leaves)
+                                   fused_adam_update_plain, fused_sgd_update,
+                                   fused_sgd_update_plain, zip_leaves)
 from .lr_schedule import Default
 
 
@@ -62,6 +64,61 @@ class OptimMethod:
         return 0.0
 
 
+def _current_lr(method, state):
+    """``rate(step) / (1 + step * lr_decay)``: an fp32 device scalar."""
+    step = state["step"]
+    rate = torch.as_tensor(method.schedule.rate(method, step),
+                           dtype=torch.float32, device=step.device)
+    return rate / (1.0 + step * method.lr_decay)
+
+
+class SGD(OptimMethod):
+    """optim/SGD.scala: learning-rate schedule and per-step decay, weight
+    decay, momentum with dampening (which defaults to ``momentum``, not to
+    0 as in ``torch.optim.SGD``) and Nesterov.  The velocity starts at 0
+    and exists only when ``momentum > 0``."""
+
+    def __init__(self, learning_rate=1e-3, learning_rate_decay=0.0,
+                 weight_decay=0.0, momentum=0.0, dampening=None,
+                 nesterov=False, learning_rate_schedule=None,
+                 learning_rates=None, weight_decays=None, fused=False):
+        if learning_rates is not None or weight_decays is not None:
+            raise NotImplementedError(
+                "SGD: per-parameter learning_rates / weight_decays are not "
+                "ported yet (ROADMAP queue A, item 10)")
+        self.lr = learning_rate
+        self.lr_decay = learning_rate_decay
+        self.weight_decay = weight_decay
+        self.momentum = momentum
+        self.dampening = momentum if dampening is None else dampening
+        self.nesterov = nesterov
+        self.schedule = learning_rate_schedule or Default()
+        self.fused = bool(fused)
+        if nesterov and (momentum <= 0 or self.dampening != 0):
+            raise ValueError(
+                "Nesterov momentum requires momentum > 0 and dampening = 0")
+
+    def init_state(self, params):
+        st = super().init_state(params)
+        if self.momentum > 0:
+            st["velocity"] = _tmap(torch.zeros_like, params)
+        return st
+
+    def get_learning_rate(self, state):
+        return _current_lr(self, state)
+
+    def update(self, grads, params, state):
+        fn = fused_sgd_update if self.fused else fused_sgd_update_plain
+        _, vel = fn(params, grads, state.get("velocity"),
+                    clr=self.get_learning_rate(state), momentum=self.momentum,
+                    dampening=self.dampening, nesterov=self.nesterov,
+                    weight_decay=self.weight_decay)
+        new_state = {"step": state["step"] + 1}
+        if vel is not None:
+            new_state["velocity"] = vel
+        return params, new_state
+
+
 class Adam(OptimMethod):
     """optim/Adam.scala, in the reference's op order."""
 
@@ -82,11 +139,7 @@ class Adam(OptimMethod):
                 "v": _tmap(torch.zeros_like, params)}
 
     def get_learning_rate(self, state):
-        """``rate(step) / (1 + step * lr_decay)``: an fp32 device scalar."""
-        step = state["step"]
-        rate = torch.as_tensor(self.schedule.rate(self, step),
-                               dtype=torch.float32, device=step.device)
-        return rate / (1.0 + step * self.lr_decay)
+        return _current_lr(self, state)
 
     def update_scalars(self, state):
         """The keyword arguments of one leaf's update at ``state["step"]``:

@@ -1,17 +1,48 @@
-"""Gradient accumulation (≙ ``make_accum_grads`` of
-``bigdl_tpu/optim/optimizer.py``).
+"""The training loop (≙ ``bigdl_tpu/optim/optimizer.py``): the train
+step, gradient accumulation and the ``Optimizer`` / ``LocalOptimizer``
+host loop.
 
 The reference's step is functional: ``jax.value_and_grad`` of a loss of
-the params.  Here the gradients come from ``torch.autograd.grad`` over
-the leaves of the param dict, so nothing is left in ``.grad`` and the
-returned gradients have the param dict's structure.  The ``Optimizer`` /
-``LocalOptimizer`` host loop of that module is ROADMAP queue A, item 3.
+the params, jitted with its buffers donated.  Here the step runs eagerly
+and the gradients come from ``torch.autograd.grad`` over the leaves of
+the param dict, so nothing is left in ``.grad`` and the returned
+gradients have the param dict's structure; the optimizer then updates the
+parameters in place (the counterpart of donation).
+
+``LocalOptimizer`` trains on one device (``cuda`` unless the caller
+passes ``device="cpu"``): per batch, the copy of the host arrays to the
+device, one step, the iteration and epoch counters and the end trigger.
+The loss stays on the device until the epoch ends.  Not ported yet
+(ROADMAP queue A, item 10): validation, checkpoints, telemetry and
+health, retries, the trace context, prefetch and the device loader,
+device augment, gradient accumulation, clipping, mixed precision,
+regularizers and ``freeze``; each ``set_*`` of those raises.
 """
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
 import torch
 
+from .._device import DeviceLike, resolve_device
+from ..data.dataset import DataSet
 from ..kernels.fused_optim import zip_leaves
+from ..nn.module import Ctx
+from .optim_method import SGD, OptimMethod
+from .trigger import Trigger, _MaxEpoch
+
+
+@dataclass
+class TrainingState:
+    epoch: int = 1
+    iteration: int = 0
+    loss: Optional[float] = None
+    score: Optional[float] = None
+    epoch_finished: bool = False
+    batch_in_epoch: int = 0      # completed batches within current epoch
 
 
 def _unflatten(like, leaves):
@@ -84,3 +115,193 @@ def make_accum_grads(loss_fn, n_accum: int, weight_fn=None):
         return (loss_acc / w_acc, state), grads
 
     return grads_fn
+
+
+def make_train_step(model, criterion, optim_method: OptimMethod):
+    """The train step ``step(params, opt_state, model_state, x, y) ->
+    (params, opt_state, model_state, loss)``: the forward in training mode,
+    ``criterion.loss`` on the fp32 output plus the side losses and
+    ``model.regularization_loss``, the gradients over the param dict's
+    leaves, and ``optim_method.update`` (in place).  The returned model
+    state is ``model_state`` with the forward's new state merged in; the
+    loss is a device tensor."""
+
+    def loss_fn(params, model_state, x, y):
+        ctx = Ctx(state=model_state, training=True)
+        out = model.apply(params, x, ctx)
+        if torch.is_floating_point(out):
+            out = out.float()
+        loss = criterion.loss(out, y)
+        for sl in ctx.side_losses:
+            loss = loss + sl
+        loss = loss + model.regularization_loss(params)
+        return loss, ctx.new_state
+
+    def step(params, opt_state, model_state, x, y):
+        (loss, updates), grads = _value_and_grad(loss_fn, params,
+                                                 model_state, x, y)
+        params, opt_state = optim_method.update(_unflatten(params, grads),
+                                                params, opt_state)
+        merged = dict(model_state)
+        merged.update(updates)
+        return params, opt_state, merged, loss
+
+    return step
+
+
+# set_* of the reference that are not ported: name -> what it sets
+_UNPORTED_SETTERS = {
+    "set_validation": "validation (validation.py, Evaluator)",
+    "set_checkpoint": "checkpointing",
+    "set_train_summary": "training summaries",
+    "set_val_summary": "validation summaries",
+    "set_weight_stream": "the train-to-serve weight stream",
+    "set_gradient_accumulation": "gradient accumulation in LocalOptimizer",
+    "set_mixed_precision": "mixed precision (bf16 autocast, fp32 master "
+                           "weights)",
+    "set_prefetch": "prefetch (DeviceLoader, pinned non_blocking H2D)",
+    "set_device_augment": "device-side augmentation",
+    "set_telemetry": "telemetry",
+    "set_trace_context": "the trace context",
+    "set_trace_every": "profiler traces",
+    "set_health": "training health",
+    "set_auto_retry": "retries",
+    "set_gradient_clipping_by_l2_norm": "gradient clipping",
+    "set_constant_gradient_clipping": "gradient clipping",
+}
+
+
+class Optimizer:
+    """The host training loop on one device (≙ the reference's
+    ``Optimizer``): ``training_set`` is a :class:`DataSet` whose ``data``
+    yields ``MiniBatch`` es, or an ``(x, y)`` pair of arrays (then
+    ``batch_size`` is required; labels 1-based as
+    ``ClassNLLCriterion`` takes them).  The default method is ``SGD()``,
+    the default end one epoch.
+
+    :meth:`optimize` trains the model's current parameters (in place) and
+    its current batch-norm state (written back at the end); it does not
+    redraw them.  ``seed`` other than 0 raises: the reference's seed draws
+    the initial parameters (here the model's own are taken) and the steps'
+    random keys (no ported layer draws any)."""
+
+    def __init__(self, model, training_set, criterion,
+                 batch_size: Optional[int] = None, seed: int = 0, *,
+                 device: DeviceLike = None):
+        if isinstance(training_set, tuple):
+            x, y = training_set
+            if batch_size is None:
+                raise ValueError("batch_size required for array data")
+            training_set = DataSet.minibatch_arrays(x, y, batch_size)
+        if seed != 0:
+            raise NotImplementedError(
+                f"{type(self).__name__}: seed={seed!r} seeds nothing yet: "
+                f"the parameters are the model's own (build(seed=)) and no "
+                f"ported layer draws random numbers in a step (ROADMAP "
+                f"queue A, item 10)")
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        self.model = model
+        self.dataset: DataSet = training_set
+        self.criterion = criterion
+        self.optim_method: OptimMethod = SGD()
+        self.end_when: Trigger = Trigger.max_epoch(1)
+        self.state = TrainingState()
+
+    # -- fluent config, reference API ----------------------------------- #
+    def set_optim_method(self, method):
+        self.optim_method = method
+        return self
+
+    def set_end_when(self, trigger):
+        self.end_when = trigger
+        return self
+
+    # -- main loop ------------------------------------------------------- #
+    def _place_batch(self, x, y):
+        """The host batch copied to the optimizer's device."""
+        return tuple(None if a is None else torch.as_tensor(
+            np.asarray(a)).to(self.device) for a in (x, y))
+
+    def optimize(self):
+        params = self.model.param_dict()
+        bad = sorted({str(p.device) for (p,) in zip_leaves(params)
+                      if p.device != self.device})
+        if bad:
+            raise ValueError(f"{type(self).__name__}: the model's parameters"
+                             f" are on {bad}, the optimizer's device is "
+                             f"{self.device}; move the model first")
+        model_state = self.model.initial_state()
+        opt_state = self.optim_method.init_state(params)
+        step_fn = make_train_step(self.model, self.criterion,
+                                  self.optim_method)
+        stop = False
+        while not stop:
+            params, opt_state, model_state, stop = self._run_epoch(
+                params, opt_state, model_state, step_fn)
+        self.model.set_state(model_state)
+        return self.model
+
+    def _run_epoch(self, params, opt_state, model_state, step_fn):
+        """One epoch; returns the updated carry and whether to stop."""
+        stop = False
+        st = self.state
+        st.epoch_finished = False
+        st.batch_in_epoch = 0
+        epoch_start = time.time()
+        n_seen = 0
+        for mb in self.dataset.data(train=True, epoch=st.epoch):
+            size = mb.size()
+            x, y = self._place_batch(mb.get_input(), mb.get_target())
+            params, opt_state, model_state, loss = step_fn(
+                params, opt_state, model_state, x, y)
+            st.iteration += 1
+            st.batch_in_epoch += 1
+            # kept on the device: a float() here would sync the host with
+            # the device every step
+            st.loss = loss
+            n_seen += size
+            if self._fire_mid_epoch():
+                stop = True
+                break
+        else:
+            st.epoch_finished = True
+            if n_seen == 0:
+                raise ValueError(
+                    "dataset produced no batches (batch_size larger "
+                    "than the dataset with drop_last, or empty data)")
+            st.loss = float(st.loss)
+            dur = time.time() - epoch_start
+            print(f"[epoch {st.epoch}] loss={st.loss:.4f} ({n_seen} samples "
+                  f"in {dur:.1f}s, {n_seen / max(dur, 1e-9):.1f}/s)")
+            st.epoch += 1
+            st.batch_in_epoch = 0
+            if self.end_when(st):
+                stop = True
+        return params, opt_state, model_state, stop
+
+    def _fire_mid_epoch(self) -> bool:
+        """Iteration-level triggers, after each step; True ends training
+        (an epoch-count end trigger is read at the epoch's end)."""
+        return (not isinstance(self.end_when, _MaxEpoch)
+                and self.end_when(self.state))
+
+
+def _unported_setter(name, what):
+    def setter(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{type(self).__name__}.{name}: {what} is not ported yet "
+            f"(ROADMAP queue A, item 10)")
+    setter.__name__ = name
+    return setter
+
+
+for _name, _what in _UNPORTED_SETTERS.items():
+    setattr(Optimizer, _name, _unported_setter(_name, _what))
+
+
+class LocalOptimizer(Optimizer):
+    """Training on one device (≙ the reference's ``LocalOptimizer``: its
+    multi-threaded subbatching is one step on the device here)."""

@@ -12,7 +12,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 kernel, the plain version and one PyTorch library call,
                 and the bound for the work at the main path's shape:
                 K1 flash_fwd; K2 flash_bwd_dkv and K3 flash_bwd_dq; K4
-                fused_adam (bitwise).
+                fused_adam (bitwise); K5 fused_sgd_mom and K6
+                fused_sgd_plain (bitwise, over every static choice:
+                dampening, nesterov, weight decay).
   3. serving  — TransformerLM ``base`` (d_model 768, 12 layers, 6 heads of
                 128, vocab 32000, fp32, weights from a seed) registered in
                 a ``ModelRegistry`` and served by ``ServingEngine(max_batch=8)``
@@ -31,15 +33,31 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 leaf.  The same steps with the matmuls on TF32 must fall
                 outside the limits, so that the limits can see a drop
                 below fp32.
+  5. classifier — ResNet-50 (ImageNet, NHWC, 1000 classes, full width and
+                depth, fp32, weights from a seed) trained by
+                ``LocalOptimizer`` with ``SGD(learning_rate=0.1,
+                momentum=0.9, weight_decay=1e-4, fused=True)`` for 6 steps
+                on one repeated batch of 64 synthetic 224x224x3 images,
+                and again from the same weights with ``fused=False`` (twice,
+                for the run-to-run noise) and with TF32 convolutions, which
+                must fall outside the training phase's loss limit (2e-5);
+                the fp32 runs must agree to the last bit.  K5 must launch
+                once a leaf a step (161) and the loss must fall; K5 is also held
+                bitwise on the model's own step-1 gradients.  Then LeNet-5
+                with ``SGD(learning_rate=0.05, fused=True)`` at batch 128
+                over 512 images for 2 epochs on K6 (8 launches a step),
+                against ``fused=False`` (bitwise).  cuDNN runs deterministic
+                algorithms chosen without benchmarking.
 
 Output: a ``{"slice": {...}}`` line, a ``{"training": {...}}`` line, a
-``{"kernels": [...]}`` line, the card's name and power limit as nvidia-smi
-gives them, and last ``{"ok": true, "device": {...}}``.
+``{"classifier": {...}}`` line, a ``{"kernels": [...]}`` line (all six
+kernels), the card's name and power limit as nvidia-smi gives them, and
+last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits with
 another code and prints no result.
 
-fp32 matmuls run in full fp32: TF32 is switched off explicitly for
-cuBLAS and cuDNN (the model's dtype is float32).
+fp32 matmuls and convolutions run in full fp32: TF32 is switched off
+explicitly for cuBLAS and cuDNN (the models' dtype is float32).
 """
 from __future__ import annotations
 
@@ -124,7 +142,7 @@ def attention_bound(b, h, sq, sk, d, causal, dtype):
 
 
 # --------------------------------------------------------------------- #
-SOURCES = ("flash_fwd", "flash_bwd", "fused_adam")
+SOURCES = ("flash_fwd", "flash_bwd", "fused_adam", "fused_sgd")
 
 
 def phase_build():
@@ -699,29 +717,37 @@ KERNEL_CLASSES = (("flash_fwd", "K1 flash_fwd"),
                   ("reduce", "reductions"), ("elementwise", "elementwise"))
 
 
-def profile_steps(trainer, tokens, targets, steps: int = 2):
+def _device_us(ev):
+    us = getattr(ev, "device_time_total", None)
+    if us is None:
+        us = getattr(ev, "cuda_time_total", 0.0)
+    return us if ev.device_type == torch.autograd.DeviceType.CUDA else 0.0
+
+
+def profile_steps(run_steps, steps: int = 2, classes=KERNEL_CLASSES,
+                  top: int = 0):
     """Device time by kernel class and the device's busy share over
-    ``steps`` training steps, from torch.profiler (CUPTI)."""
+    ``run_steps()``, which runs ``steps`` training steps, from
+    torch.profiler (CUPTI); with ``top``, also the ``top`` kernels by
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(steps):
-            trainer.step(tokens, targets)
+        run_steps()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    by_class, device_us = {}, 0.0
+    by_class, by_name, device_us = {}, {}, 0.0
     for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        if not us or ev.device_type != torch.autograd.DeviceType.CUDA:
+        us = _device_us(ev)
+        if not us:
             continue
         device_us += us
         name = ev.key.lower()
-        cls = next((c for key, c in KERNEL_CLASSES if key in name), "other")
+        cls = next((c for key, c in classes if key in name), "other")
         by_class[cls] = by_class.get(cls, 0.0) + us / 1e3 / steps
+        by_name[ev.key[:120]] = us / 1e3 / steps
     if device_us == 0.0:
         log("profile: the profiler saw no device time (not measured)")
         return None
@@ -731,8 +757,28 @@ def profile_steps(trainer, tokens, targets, steps: int = 2):
            "device_busy_share": busy,
            "device_ms_by_class": dict(sorted(by_class.items(),
                                              key=lambda kv: -kv[1]))}
+    if top:
+        out["top_kernels_ms_per_step"] = dict(sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:top])
     log(f"profile: {json.dumps(out)}")
     return out
+
+
+def device_ms(fn, key: str, iters: int = 5) -> float:
+    """Device time of the kernels whose name holds ``key``, per call of
+    ``fn`` (after one warm call), from torch.profiler (CUPTI); None when
+    the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(ev) for ev in prof.key_averages()
+             if key in ev.key.lower())
+    return us / 1e3 / iters if us else None
 
 
 def phase_training(card: str, k4: dict):
@@ -934,7 +980,8 @@ def phase_training(card: str, k4: dict):
     parts = [part_times() for _ in range(3)]
     fwd_ms, bwd_ms, opt_ms = (float(np.median([p[i] for p in parts]))
                               for i in range(3))
-    profile = profile_steps(trainer, tokens, targets)
+    profile = profile_steps(lambda: [trainer.step(tokens, targets)
+                                     for _ in range(2)])
     time_adam(k4, leaves, card)
     step_ms = float(np.median(step_s)) * 1e3
     out = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": SEQ,
@@ -959,6 +1006,470 @@ def phase_training(card: str, k4: dict):
     torch.cuda.empty_cache()
     return out
 
+# --------------------------------------------------------------------- #
+SGD_CONFIGS = (
+    # (label, SGD keywords without weight decay); K5 when momentum > 0
+    ("K5 momentum 0.9, dampening 0.9 (default)", dict(momentum=0.9)),
+    ("K5 momentum 0.9, dampening 0", dict(momentum=0.9, dampening=0.0)),
+    ("K5 nesterov", dict(momentum=0.9, dampening=0.0, nesterov=True)),
+    ("K6", dict()),
+)
+SGD_SHAPES = ((1,), (127,), (768,), (3072 * 768,), (64, 3, 7, 7),
+              (2048, 512, 1, 1))
+
+
+def _sgd_both(fo, method, clr, p0, g0, v0):
+    """The fused update (the kernel, on the card) and the plain one of
+    ``method`` on copies of (p0, v0) with gradient g0: ([p, v] kernel,
+    [p, v] plain)."""
+    kw = dict(clr=clr, momentum=method.momentum,
+              dampening=method.dampening, nesterov=method.nesterov,
+              weight_decay=method.weight_decay)
+    out = []
+    for fn in (fo.fused_sgd_update, fo.fused_sgd_update_plain):
+        p, v = p0.clone(), v0.clone()
+        fn({"x": p}, {"x": g0}, {"x": v} if method.momentum > 0 else None,
+           **kw)
+        torch.cuda.synchronize()
+        out.append([p, v])
+    return out
+
+
+def _bitwise(label, kern, plain, results):
+    ulps = {name: _ulps(a, b) for name, a, b in zip(("p", "v"), kern, plain)}
+    err = max((a - b).abs().max().item() for a, b in zip(kern, plain))
+    ok = all(torch.equal(a, b) for a, b in zip(kern, plain))
+    results.append({"case": label, "max_abs_err": err, "ulps": ulps,
+                    "bitwise": ok, "ok": ok})
+    log(f"SGD kernel vs plain [{label}]: max_abs_err {err:.3e} ulps {ulps}"
+        f" -> {'bitwise' if ok else 'FAIL'}")
+
+
+def phase_sgd(card: str):
+    """K5 and K6 against the plain update, bitwise: momentum with the
+    reference's default dampening, dampening 0 and nesterov (K5), none
+    (K6); weight decay 0 and 1e-4; leaf sizes 1, 127, 768, 3072*768 and
+    ResNet-50's (64, 3, 7, 7) and (2048, 512, 1, 1); steps 1 and 1000
+    (a per-step learning-rate decay makes clr differ)."""
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.optim import SGD
+    results = {fo.SGD_MOM: [], fo.SGD_PLAIN: []}
+    for label, kw in SGD_CONFIGS:
+        for wd in (0.0, 1e-4):
+            method = SGD(learning_rate=0.1, learning_rate_decay=1e-4,
+                         weight_decay=wd, **kw)
+            kernel = fo.SGD_MOM if method.momentum > 0 else fo.SGD_PLAIN
+            for step in (1, 1000):
+                clr = method.get_learning_rate({"step": torch.tensor(
+                    step - 1, dtype=torch.int32, device="cuda")})
+                for i, shape in enumerate(SGD_SHAPES):
+                    g = torch.Generator(device="cuda").manual_seed(
+                        step * 10 + i)
+
+                    def rnd(scale):
+                        return torch.randn(shape, generator=g,
+                                           device="cuda") * scale
+                    p0, g0, v0 = rnd(0.05), rnd(1e-2), rnd(1e-3)
+                    kern, plain = _sgd_both(fo, method, clr, p0, g0, v0)
+                    _bitwise(f"{label} wd {wd} step {step} "
+                             f"{list(shape)}", kern, plain,
+                             results[kernel])
+    bad = [r["case"] for rs in results.values() for r in rs if not r["ok"]]
+    if bad:
+        raise AssertionError(f"fused_sgd is not bitwise equal to its plain "
+                             f"version: {bad}")
+    # a leaf the kernels do not take raises on the card, before any launch
+    xb = torch.ones(8, dtype=torch.bfloat16, device="cuda")
+    clr = torch.ones((), device="cuda")
+    for kernel, vel in ((fo.SGD_MOM, {"x": xb.clone()}),
+                        (fo.SGD_PLAIN, None)):
+        before = fo._build.launch_counts().get(kernel, 0)
+        try:
+            fo.fused_sgd_update({"x": xb}, {"x": xb}, vel, clr=clr,
+                                momentum=0.9 if vel else 0.0)
+        except NotImplementedError as e:
+            log(f"{kernel} on a bf16 leaf raises: {e}")
+        else:
+            raise AssertionError(f"{kernel} took a bf16 leaf on the card")
+        if fo._build.launch_counts().get(kernel, 0) != before \
+                or not torch.equal(xb, torch.ones_like(xb)):
+            raise AssertionError(f"{kernel} touched a bf16 leaf it refused")
+    replaces = {fo.SGD_MOM: "bigdl_tpu/kernels/fused_optim.py:174",
+                fo.SGD_PLAIN: "bigdl_tpu/kernels/fused_optim.py:186"}
+    return [{"name": name, "route": "cuda",
+             "source": "bigdl_tpu_torch/csrc/fused_sgd.cu",
+             "replaces": replaces[name], "launches": None,
+             "max_abs_err": max(r["max_abs_err"] for r in results[name]),
+             "tolerance": "bitwise", "cases": results[name], "card": card}
+            for name in (fo.SGD_MOM, fo.SGD_PLAIN)]
+
+
+def time_sgd(k5: dict, k6: dict, resnet_shapes, lenet_shapes, card: str):
+    """K5 and K6, their plain versions and torch.optim.SGD(fused=True)
+    over leaves of ResNet-50's shapes (one update each: K5 with momentum
+    0.9, dampening 0.9, wd 1e-4; K6 with none), by CUDA events and by
+    device time; and K6's time per launch at LeNet-5's 8 leaves."""
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.optim import SGD
+    n = sum(int(np.prod(s)) for s in resnet_shapes)
+    g = torch.Generator(device="cuda").manual_seed(12)
+
+    def trees(shapes):
+        p = {f"l{i}": {"w": torch.randn(s, generator=g, device="cuda")
+                       * 0.05} for i, s in enumerate(shapes)}
+        grads = {k: {"w": torch.randn_like(v["w"]) * 1e-2}
+                 for k, v in p.items()}
+        return p, grads
+
+    for k, kw, lib_kw, nbytes in (
+            (k5, dict(learning_rate=0.1, momentum=0.9, weight_decay=1e-4),
+             dict(lr=0.1, momentum=0.9, dampening=0.9, weight_decay=1e-4),
+             20),
+            (k6, dict(learning_rate=0.05), dict(lr=0.05), 12)):
+        method = SGD(fused=True, **kw)
+        params, grads = trees(resnet_shapes)
+        state = method.init_state(params)
+        clr = method.get_learning_rate(state)
+        upd = dict(clr=clr, momentum=method.momentum,
+                   dampening=method.dampening, nesterov=method.nesterov,
+                   weight_decay=method.weight_decay)
+        vel = state.get("velocity")
+
+        def kernel_run():
+            fo.fused_sgd_update(params, grads, vel, **upd)
+        ms = cuda_ms(kernel_run, iters=10)
+        dev_ms = device_ms(kernel_run, "sgd_")
+        plain_ms = cuda_ms(lambda: fo.fused_sgd_update_plain(
+            params, grads, vel, **upd), iters=3)
+        flat = [t["w"].requires_grad_() for t in params.values()]
+        for p_, gt in zip(flat, (t["w"] for t in grads.values())):
+            p_.grad = gt
+        ref = torch.optim.SGD(flat, fused=True, **lib_kw)
+        ref.step()                               # builds its momentum buffers
+        library_ms = cuda_ms(ref.step, iters=10)
+        del ref, flat, params, grads, state, vel
+        bound_ms = n * nbytes / H100_HBM_BYTES_S * 1e3
+        k.update(ms=ms, kernel_ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+                 library_call=f"torch.optim.SGD({lib_kw}, fused=True)"
+                              f".step(), f32",
+                 leaves=len(resnet_shapes), params=n)
+        log(f"{k['name']} over {len(resnet_shapes)} leaves, {n} params: "
+            f"kernel {ms:.4f} ms by events, {dev_ms} ms on the device, "
+            f"plain {plain_ms:.4f} ms, torch.optim.SGD(fused) "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes); {card}")
+    params, grads = trees(lenet_shapes)
+    clr = torch.full((), 0.05, device="cuda")
+    lenet_ms = cuda_ms(lambda: fo.fused_sgd_update(params, grads, clr=clr),
+                       iters=50)
+    k6["lenet_ms_per_update"] = lenet_ms
+    k6["lenet_ms_per_launch"] = lenet_ms / len(lenet_shapes)
+    k6["lenet_bound_ms"] = sum(int(np.prod(s)) for s in lenet_shapes) \
+        * 12 / H100_HBM_BYTES_S * 1e3
+    log(f"fused_sgd_plain at LeNet-5's {len(lenet_shapes)} leaves: "
+        f"{lenet_ms:.4f} ms an update, {k6['lenet_ms_per_launch']:.4f} ms a "
+        f"launch (bound {k6['lenet_bound_ms']:.6f} ms); {card}")
+
+
+# --------------------------------------------------------------------- #
+CLS_BATCH, CLS_EPOCHS = 64, 6          # ResNet-50: 6 steps on one batch
+LENET_BATCH, LENET_ROWS, LENET_EPOCHS = 128, 512, 2
+RESNET_SGD = dict(learning_rate=0.1, momentum=0.9, weight_decay=1e-4)
+LENET_SGD = dict(learning_rate=0.05)
+# kernel run against plain run of a classifier (fp32, TF32 off,
+# deterministic cuDNN): K5/K6 are bitwise equal to the plain update and
+# every other op is deterministic, so the runs must agree to the last bit
+# (they did on an H100: 0.0 between kernel and plain, and between two
+# plain runs).  The TF32 run is read against the training phase's loss
+# limit, about 20x a sound fp32 reading there, and must fall outside it.
+CLS_LOSS_TOL = 2e-5                  # |loss_tf32 - loss_plain|, some step
+CLS_CLASSES = (("sgd_mom", "K5 fused_sgd_mom"),
+               ("sgd_plain", "K6 fused_sgd_plain"),
+               ("memcpy htod", "memcpy H2D"), ("memcpy", "memcpy, other"),
+               ("dgrad", "cuDNN conv backward"),
+               ("wgrad", "cuDNN conv backward"),
+               ("bprop", "cuDNN conv backward"),
+               ("fprop", "cuDNN conv forward"),
+               ("conv", "cuDNN conv, other"), ("gemm", "matmul (cuBLAS)"),
+               ("reduce", "reductions"), ("pool", "pooling"),
+               ("elementwise", "elementwise (BN, ReLU, add)"))
+
+
+def _classifier_run(model, data, method, epochs, w0, s0):
+    """Train ``model`` from the weights ``w0`` and BN state ``s0`` with
+    LocalOptimizer and ``method`` for ``epochs`` epochs; returns (losses,
+    step ms by CUDA events between the ends of consecutive steps)."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import LocalOptimizer, Trigger
+
+    class Recording(LocalOptimizer):
+        """Keeps each step's loss (on the device) and an event at its
+        end."""
+        def _fire_mid_epoch(self):
+            self.losses.append(self.state.loss)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.events.append(ev)
+            return super()._fire_mid_epoch()
+
+    with torch.no_grad():
+        for dst, src in zip(model.get_weights() + model.state_list(),
+                            w0 + s0):
+            dst.copy_(src)
+    x, y, batch = data
+    opt = Recording(model, (x, y), ClassNLLCriterion(), batch_size=batch)
+    opt.losses, opt.events = [], [torch.cuda.Event(enable_timing=True)]
+    opt.set_optim_method(method).set_end_when(Trigger.max_epoch(epochs))
+    opt.events[0].record()
+    opt.optimize()
+    torch.cuda.synchronize()
+    ev = opt.events
+    return ([float(v) for v in opt.losses],
+            [ev[i].elapsed_time(ev[i + 1]) for i in range(len(ev) - 1)])
+
+
+def _check_losses(what, losses_k, losses_p, limit):
+    diffs = [abs(a - b) for a, b in zip(losses_k, losses_p)]
+    log(f"{what}: losses {losses_k}; against {losses_p}; max |diff| "
+        f"{max(diffs):.3e} ({limit})")
+    if not all(np.isfinite(losses_k + losses_p)):
+        raise AssertionError(f"{what}: non-finite loss")
+    return diffs
+
+
+def phase_classifier(card: str, k5: dict, k6: dict):
+    """ResNet-50 (ImageNet, NHWC, fp32) through LocalOptimizer with
+    SGD(momentum, fused=True) on K5, and LeNet-5 with SGD(fused=True) on
+    K6; each against the same run with fused=False, with exact launch
+    counts, and ResNet-50's breakdown."""
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.models import lenet, resnet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, Ctx
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import SGD
+
+    t0 = time.monotonic()
+    model = resnet.build(class_num=1000, depth=50, dataset="imagenet",
+                         format="NHWC", seed=0)
+    w0 = [w.clone() for w in model.get_weights()]
+    s0 = [s.clone() for s in model.state_list()]
+    n_leaves, n_params = len(w0), sum(w.numel() for w in w0)
+    log(f"ResNet-50 built: {n_leaves} leaves, {n_params} params, "
+        f"{len(s0)} BN state tensors, {time.monotonic() - t0:.1f} s")
+    rs = np.random.RandomState(2)
+    x = rs.randn(CLS_BATCH, 224, 224, 3).astype(np.float32)
+    y = (rs.randint(0, 1000, CLS_BATCH) + 1).astype(np.float32)
+    data = (x, y, CLS_BATCH)
+
+    # the main path: counts from 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses_k, step_ms = _classifier_run(
+        model, data, SGD(fused=True, **RESNET_SGD), CLS_EPOCHS, w0, s0)
+    launches = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {fo.SGD_MOM: n_leaves * CLS_EPOCHS, fo.SGD_PLAIN: 0}
+    got = {name: launches.get(name, 0) for name in want}
+    log(f"ResNet-50 launches {launches}, expected {want}")
+    if got != want or sum(launches.values()) != sum(want.values()):
+        raise AssertionError(f"ResNet-50 launches {launches}, expected "
+                             f"{want}")
+
+    # the same steps on the plain update, twice (run-to-run noise), and
+    # with TF32 convolutions and matmuls
+    losses_p, _ = _classifier_run(model, data, SGD(**RESNET_SGD),
+                                  CLS_EPOCHS, w0, s0)
+    losses_p2, _ = _classifier_run(model, data, SGD(**RESNET_SGD),
+                                   CLS_EPOCHS, w0, s0)
+    if _build.launch_counts() != launches:
+        raise AssertionError("the plain runs launched a kernel")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        losses_t, _ = _classifier_run(model, data,
+                                      SGD(fused=True, **RESNET_SGD),
+                                      CLS_EPOCHS, w0, s0)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    noise = _check_losses("ResNet-50 plain vs plain", losses_p2, losses_p,
+                          "bitwise")
+    diffs = _check_losses("ResNet-50 kernel vs plain", losses_k, losses_p,
+                          "bitwise")
+    tf32_diffs = _check_losses("ResNet-50 TF32 vs plain", losses_t,
+                               losses_p, f"must exceed {CLS_LOSS_TOL}")
+    bitwise_runs = {"plain_vs_plain": losses_p2 == losses_p,
+                    "kernel_vs_plain": losses_k == losses_p}
+    log(f"ResNet-50 losses bitwise equal: {bitwise_runs}")
+
+    # K5 on the model's own step-1 gradients (channels-last conv weight
+    # gradients included), two updates, against the plain update
+    with torch.no_grad():
+        for dst, src in zip(model.get_weights() + model.state_list(),
+                            w0 + s0):
+            dst.copy_(src)
+    params = model.param_dict()
+    leaves = [p for sub in params.values() for p in sub.values()]
+    xd = torch.from_numpy(x).cuda()
+    yd = torch.from_numpy(y).cuda()
+    crit = ClassNLLCriterion()
+
+    def loss_and_grads():
+        ctx = Ctx(state=model.initial_state(), training=True)
+        loss = crit.loss(model.apply(params, xd, ctx), yd)
+        return loss, torch.autograd.grad(loss, leaves)
+    _, grads = loss_and_grads()
+    layouts = sum(not gr.is_contiguous() for gr in grads)
+    method = SGD(**RESNET_SGD)
+    clr = method.get_learning_rate(method.init_state(params))
+    upd = dict(clr=clr, momentum=method.momentum, dampening=method.dampening,
+               nesterov=method.nesterov, weight_decay=method.weight_decay)
+    runs = []
+    for fn in (fo.fused_sgd_update, fo.fused_sgd_update_plain):
+        p = {f"l{i}": {"w": w.detach().clone()} for i, w in enumerate(leaves)}
+        v = {k: {"w": torch.zeros_like(t["w"])} for k, t in p.items()}
+        gtree = {f"l{i}": {"w": gr} for i, gr in enumerate(grads)}
+        for _ in range(2):
+            fn(p, gtree, v, **upd)
+        torch.cuda.synchronize()
+        runs.append([t["w"] for t in p.values()] + [t["w"] for t in
+                                                    v.values()])
+    step1_ok = all(torch.equal(a, b) for a, b in zip(*runs))
+    step1_err = max((a - b).abs().max().item() for a, b in zip(*runs))
+    log(f"K5 vs plain on ResNet-50's step-1 gradients ({layouts} of "
+        f"{len(grads)} not contiguous), two updates: max_abs_err "
+        f"{step1_err:.3e} -> {'bitwise' if step1_ok else 'FAIL'}")
+    k5["cases"].append({"case": "ResNet-50 step-1 gradients, two updates",
+                        "max_abs_err": step1_err, "bitwise": step1_ok,
+                        "ok": step1_ok,
+                        "non_contiguous_grads": layouts})
+    del runs, grads
+
+    # where a step's time goes (after the counts were read)
+    opt = SGD(fused=True, **RESNET_SGD)
+    opt_state = opt.init_state(params)
+
+    def part_times():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        xb = torch.from_numpy(x).to("cuda")
+        yb = torch.from_numpy(y).to("cuda")
+        ev[1].record()
+        ctx = Ctx(state=model.initial_state(), training=True)
+        loss = crit.loss(model.apply(params, xb, ctx), yb)
+        ev[2].record()
+        gr = torch.autograd.grad(loss, leaves)
+        ev[3].record()
+        it = iter(gr)
+        gtree = {n: {k: next(it) for k in sub} for n, sub in params.items()}
+        opt.update(gtree, params, opt_state)
+        ev[4].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+    parts = [part_times() for _ in range(3)]
+    h2d_ms, fwd_ms, bwd_ms, opt_ms = (float(np.median([p[i] for p in parts]))
+                                      for i in range(4))
+    profile = profile_steps(
+        lambda: _classifier_run(model, data, SGD(fused=True, **RESNET_SGD),
+                                2, w0, s0),
+        steps=2, classes=CLS_CLASSES, top=15)
+    shapes = [tuple(w.shape) for w in w0]
+    del model, params, leaves, opt_state, xd, yd, w0, s0
+    torch.cuda.empty_cache()
+
+    # LeNet-5 on K6: labels a fixed function of the images, so that two
+    # epochs can lower the loss
+    lnet = lenet.build(10, seed=0)
+    lw0 = [w.clone() for w in lnet.get_weights()]
+    rs = np.random.RandomState(3)
+    lx = rs.randn(LENET_ROWS, 1, 28, 28).astype(np.float32)
+    proj = rs.randn(784, 10).astype(np.float32)
+    ly = (np.argmax(lx.reshape(LENET_ROWS, -1) @ proj, 1) + 1).astype(
+        np.float32)
+    ldata = (lx, ly, LENET_BATCH)
+    lenet_steps = LENET_EPOCHS * LENET_ROWS // LENET_BATCH
+    _build.reset_launch_counts()
+    l_losses_k, l_step_ms = _classifier_run(
+        lnet, ldata, SGD(fused=True, **LENET_SGD), LENET_EPOCHS, lw0, [])
+    l_launches = _build.launch_counts()
+    l_want = {fo.SGD_PLAIN: len(lw0) * lenet_steps}
+    log(f"LeNet-5 launches {l_launches}, expected {l_want}")
+    if l_launches != l_want:
+        raise AssertionError(f"LeNet-5 launches {l_launches}, expected "
+                             f"{l_want}")
+    l_losses_p, _ = _classifier_run(lnet, ldata, SGD(**LENET_SGD),
+                                    LENET_EPOCHS, lw0, [])
+    if _build.launch_counts() != l_launches:
+        raise AssertionError("the plain LeNet-5 run launched a kernel")
+    l_diffs = _check_losses("LeNet-5 kernel vs plain", l_losses_k,
+                            l_losses_p, "bitwise")
+    lenet_shapes = [tuple(w.shape) for w in lw0]
+    del lnet, lw0
+
+    time_sgd(k5, k6, shapes, lenet_shapes, card)
+    if profile:
+        k5["device_ms_per_step"] = profile["device_ms_by_class"].get(
+            "K5 fused_sgd_mom")
+
+    # every check, after every reading was taken
+    fails = []
+    if not all(bitwise_runs.values()):
+        fails.append(f"ResNet-50 runs are not bitwise equal: {bitwise_runs}"
+                     f"; kernel vs plain {diffs}, plain vs plain {noise}")
+    if max(tf32_diffs) <= CLS_LOSS_TOL:
+        fails.append(f"ResNet-50: the limit {CLS_LOSS_TOL} does not tell a "
+                     f"TF32 run from fp32: {tf32_diffs}")
+    if not losses_k[-1] < losses_k[0]:
+        fails.append(f"ResNet-50 loss did not fall: {losses_k}")
+    if not step1_ok:
+        fails.append("K5 is not bitwise equal to the plain update on "
+                     "ResNet-50's step-1 gradients")
+    if l_losses_k != l_losses_p:
+        fails.append(f"LeNet-5 kernel and plain runs are not bitwise equal:"
+                     f" {l_diffs}")
+    if not l_losses_k[-1] < l_losses_k[0]:
+        fails.append(f"LeNet-5 loss did not fall: {l_losses_k}")
+
+    step_med = float(np.median(step_ms))
+    out = {"resnet50": {
+               "config": "resnet.build(class_num=1000, depth=50, dataset="
+                         "'imagenet', format='NHWC', seed=0), fp32, "
+                         "LocalOptimizer, SGD(learning_rate=0.1, momentum="
+                         "0.9, weight_decay=1e-4, fused=True)",
+               "leaves": n_leaves, "params": n_params, "batch": CLS_BATCH,
+               "steps": CLS_EPOCHS, "step_ms": step_ms,
+               "step_ms_median": step_med,
+               "images_per_s": CLS_BATCH / (step_med / 1e3),
+               "losses": losses_k, "losses_plain": losses_p,
+               "losses_plain_again": losses_p2,
+               "max_loss_diff": max(diffs),
+               "max_loss_noise_plain_vs_plain": max(noise),
+               "bitwise": bitwise_runs, "loss_limit": "bitwise",
+               "tf32": {"losses": losses_t, "max_loss_diff":
+                        max(tf32_diffs), "must_exceed": CLS_LOSS_TOL},
+               "launches": got, "peak_mem_gb": peak_gb,
+               "breakdown_ms": {"h2d": h2d_ms, "forward": fwd_ms,
+                                "backward": bwd_ms, "optimizer": opt_ms},
+               "profile": profile},
+           "lenet5": {
+               "config": "lenet.build(10, seed=0), LocalOptimizer, "
+                         "SGD(learning_rate=0.05, fused=True)",
+               "batch": LENET_BATCH, "rows": LENET_ROWS,
+               "steps": lenet_steps, "step_ms": l_step_ms,
+               "step_ms_median": float(np.median(l_step_ms)),
+               "losses": l_losses_k, "losses_plain": l_losses_p,
+               "max_loss_diff": max(l_diffs),
+               "bitwise": l_losses_k == l_losses_p,
+               "launches": l_launches},
+           "launches": {fo.SGD_MOM: got[fo.SGD_MOM],
+                        fo.SGD_PLAIN: l_launches.get(fo.SGD_PLAIN, 0)},
+           "card": card}
+    log(f"classifier: {json.dumps(out)}")
+    if fails:
+        raise AssertionError("classifier phase: " + "; ".join(fails))
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -977,6 +1488,7 @@ def main() -> int:
     k1["build_s"] = build_s
     k23 = phase_flash_bwd(card)
     k4 = phase_adam(card)
+    k5, k6 = phase_sgd(card)
     slice_ = phase_slice(card)
     k1["cases"].append(slice_["layer_case"])
     train = phase_training(card, k4)
@@ -986,16 +1498,24 @@ def main() -> int:
             .get("K4 fused_adam")
     for k in k23:
         k["cases"].append(train["layer_case"])
+    # image classifiers: deterministic cuDNN algorithms, chosen without
+    # benchmarking, so that two runs can be compared step by step
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    classifier = phase_classifier(card, k5, k6)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
-               "training": train["launches"]}
-    for k in [k1, *k23, k4]:
+               "training": train["launches"],
+               "classifier": classifier["launches"]}
+    kernels = [k1, *k23, k4, k5, k6]
+    for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
                                  for path, counts in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
     log(f"total {time.monotonic() - t0:.1f} s")
     print(json.dumps({"slice": slice_}), flush=True)
     print(json.dumps({"training": train}), flush=True)
-    print(json.dumps({"kernels": [k1, *k23, k4]}), flush=True)
+    print(json.dumps({"classifier": classifier}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
-"""The port's Adam/AdamW (bigdl_tpu_torch.optim) and the plain version of
-its fused Adam kernel (bigdl_tpu_torch.kernels.fused_optim) held against
-the reference's tree-map update on the CPU.
+"""The port's SGD, Adam and AdamW (bigdl_tpu_torch.optim) and the plain
+versions of its fused kernels (bigdl_tpu_torch.kernels.fused_optim) held
+against the reference's tree-map update on the CPU.
 
 Both sides start from the same numpy leaves and gradients and run five
 steps.  The reference runs ``Adam.update`` / ``AdamW.update`` with
@@ -16,7 +16,8 @@ import torch
 
 from bigdl_tpu.optim import optim_method as JO
 from bigdl_tpu_torch.kernels import fused_optim as fo
-from bigdl_tpu_torch.optim import Adam, AdamW, Default, make_accum_grads
+from bigdl_tpu_torch.optim import (SGD, Adam, AdamW, Default,
+                                   make_accum_grads)
 
 # the reference's own bound for its fused update against the tree-map
 # one (tests/test_fused_optim.py): one-op-at-a-time fp32 on both sides
@@ -212,3 +213,134 @@ def test_make_accum_grads_weights_microbatches():
     assert w.grad is None                       # no .grad side effect
     with pytest.raises(ValueError, match="not divisible"):
         make_accum_grads(loss_fn, 3)(params, {}, x, y)
+
+
+# --------------------------------------------------------------------- #
+# SGD (K5 / K6's plain versions)                                        #
+# --------------------------------------------------------------------- #
+# every static choice of the reference's SGD.update: momentum (K5) or not
+# (K6), dampening = momentum (the default) or 0, nesterov, weight decay,
+# and a per-step learning-rate decay
+SGD_CASES = {
+    "plain": dict(),
+    "plain wd": dict(weight_decay=1e-4),
+    "momentum": dict(momentum=0.9),
+    "momentum wd": dict(momentum=0.9, weight_decay=1e-4),
+    "momentum dampening 0": dict(momentum=0.9, dampening=0.0),
+    "momentum dampening 0 wd": dict(momentum=0.9, dampening=0.0,
+                                    weight_decay=1e-4),
+    "nesterov": dict(momentum=0.9, dampening=0.0, nesterov=True),
+    "nesterov wd": dict(momentum=0.9, dampening=0.0, nesterov=True,
+                        weight_decay=1e-4),
+}
+
+
+@pytest.mark.parametrize("lr_decay", [0.0, 0.1])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("case", sorted(SGD_CASES))
+def test_sgd_matches_reference_tree_map_update_bitwise(case, fused,
+                                                       lr_decay):
+    """Three steps of every combination against the reference's
+    ``SGD.update`` (fused=False, its tree-map math), bitwise: both sides
+    round the scalars to fp32 and run one fp32 op at a time in the same
+    order (the reference eagerly, op by op)."""
+    kw = dict(learning_rate=0.1, learning_rate_decay=lr_decay,
+              **SGD_CASES[case])
+    jm, tm = JO.SGD(**kw), SGD(fused=fused, **kw)
+    params = _tree(0, 0.5)
+    jp, tp = _to_jax(params), _to_torch(params)
+    js, ts = jm.init_state(jp), tm.init_state(tp)
+    assert set(ts) == set(js)           # velocity only with momentum
+    for step in range(3):
+        g = _tree(10 + step, 0.1)
+        jp, js = jm.update(_to_jax(g), jp, js)
+        tp_out, ts = tm.update(_to_torch(g), tp, ts)
+        assert tp_out is tp                       # updated in place
+        assert float(tm.get_learning_rate(ts)) == float(
+            jm.get_learning_rate(js))
+    assert int(ts["step"]) == 3
+    trees = [(tp, jp)]
+    if "velocity" in ts:
+        trees.append((ts["velocity"], js["velocity"]))
+    for name in ("a", "c"):
+        for leaf in params[name]:
+            for a, b in trees:
+                np.testing.assert_array_equal(
+                    a[name][leaf].numpy(), np.asarray(b[name][leaf]),
+                    err_msg=f"{case} fused={fused} {name}.{leaf}")
+
+
+def test_sgd_reference_defaults_and_checks():
+    m = SGD(momentum=0.9)
+    assert m.dampening == 0.9            # dampening defaults to momentum
+    assert SGD().lr == 1e-3 and SGD().momentum == 0.0
+    st = m.init_state({"x": torch.ones(3)})
+    assert torch.equal(st["velocity"]["x"], torch.zeros(3))   # starts at 0
+    assert "velocity" not in SGD().init_state({"x": torch.ones(3)})
+    for bad in (dict(nesterov=True), dict(momentum=0.9, nesterov=True)):
+        with pytest.raises(ValueError, match="Nesterov"):
+            SGD(**bad)
+    for bad in (dict(learning_rates=[0.1]), dict(weight_decays=[0.1])):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            SGD(**bad)
+    clr = m.get_learning_rate(st)
+    assert clr.dtype == torch.float32 and clr.numel() == 1
+    assert float(clr) == np.float32(1e-3)
+
+
+@pytest.mark.parametrize("case,expect", [
+    ("momentum f32", "kernel"),
+    ("plain f32", "kernel"),
+    ("momentum empty", "skipped"),
+    ("momentum bf16", "raises"),
+    ("plain bf16", "raises"),
+    ("momentum bf16 velocity", "raises"),
+])
+def test_sgd_cuda_leaves_go_to_the_kernel_or_raise(monkeypatch, case,
+                                                   expect):
+    """On the card an SGD leaf goes to K5 (momentum) or K6, is skipped when
+    empty, or raises before any launch: never the plain version unasked."""
+    launched = []
+    monkeypatch.setattr(fo, "_sgd_cuda",
+                        lambda leaves, **kw: launched.extend(leaves))
+    n = 0 if "empty" in case else 4
+    dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
+    p = torch.ones(n, dtype=dtype).as_subclass(_OnCard)
+    g = torch.ones(n, dtype=dtype).as_subclass(_OnCard)
+    v = torch.zeros(n, dtype=torch.bfloat16 if "velocity" in case
+                    else dtype).as_subclass(_OnCard)
+    mom = case.startswith("momentum")
+    kw = dict(clr=None, momentum=0.9 if mom else 0.0, dampening=0.9)
+    vel = {"x": v} if mom else None
+    if expect == "raises":
+        with pytest.raises(NotImplementedError,
+                           match=f"fused_sgd_{'mom' if mom else 'plain'}: "
+                                 f"the kernel takes float32.*fused=False"):
+            fo.fused_sgd_update({"x": p}, {"x": g}, vel, **kw)
+        assert launched == []
+        return
+    _, v_out = fo.fused_sgd_update({"x": p}, {"x": g}, vel, **kw)
+    assert len(launched) == (1 if expect == "kernel" else 0)
+    if expect == "kernel":
+        assert len(launched[0]) == (3 if mom else 2)     # (p, g[, v])
+    assert (v_out is vel) if mom else v_out is None
+    assert torch.equal(p, torch.ones(n))
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("shape", "does not match"),
+    ("strided", "contiguous"),
+    ("scalar", "clr must be one float32"),
+])
+@pytest.mark.parametrize("mom", [True, False])
+def test_sgd_kernel_input_checks_raise(bad, match, mom):
+    p = torch.zeros(8, 4)
+    if bad == "strided":
+        p = p.t()
+    g = torch.zeros(3) if bad == "shape" else torch.zeros_like(p)
+    clr = torch.zeros((), dtype=torch.float64 if bad == "scalar"
+                      else torch.float32)
+    leaf = (p, g, torch.zeros_like(p)) if mom else (p, g)
+    with pytest.raises(ValueError, match=match):
+        fo._sgd_cuda([leaf], clr=clr, momentum=0.9 if mom else 0.0,
+                     dampening=0.0, nesterov=False, weight_decay=0.0)
