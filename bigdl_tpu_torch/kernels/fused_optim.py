@@ -6,9 +6,11 @@ Port of ``bigdl_tpu/kernels/fused_optim.py``: Adam/AdamW (K4,
 in ``csrc/fused_sgd.cu``.  For each leaf:
 
   * an f32 leaf on a CUDA tensor — the kernel, which replaces the
-    reference's Pallas kernel: one launch per leaf, one pass that reads
-    each input once and writes the parameter (and its moments or
-    velocity) in place.
+    reference's Pallas kernel: one pass that reads each input once and
+    writes the parameter (and its moments or velocity) in place.  K4
+    launches once per leaf; K5 and K6 launch once per update over a table
+    of all the leaves of one device (:func:`leaf_tables`), split into
+    ``ceil(leaves / SGD_CAPACITY)`` launches only past the table's size.
   * a leaf on a CPU tensor, of any dtype — the plain version
     (:func:`adam_leaf_plain`, :func:`sgd_leaf_plain`), the reference's
     per-leaf math in plain PyTorch ops.  It is also ``fused=False``'s
@@ -33,7 +35,10 @@ host sync.
 from __future__ import annotations
 
 import ctypes
-from typing import Iterator, Mapping, Tuple
+from array import array
+from itertools import accumulate
+from operator import attrgetter, or_
+from typing import List, Mapping, Optional, Tuple
 
 import torch
 
@@ -44,33 +49,61 @@ SGD_MOM = "fused_sgd_mom"
 SGD_PLAIN = "fused_sgd_plain"
 
 
-def _kernel_takes(*leaf, kernel=KERNEL_NAME) -> bool:
-    """Whether ``kernel`` takes a CUDA leaf ``(p, g, ...)``: True for a
-    non-empty f32 leaf, False for an empty one (nothing to update); raises
-    for any other."""
-    p = leaf[0]
-    if p.numel() == 0:
-        return False
-    dtypes = {str(t.dtype).replace("torch.", "") for t in leaf}
-    if dtypes != {"float32"}:
-        raise NotImplementedError(
-            f"{kernel}: the kernel takes float32 leaves; this leaf "
-            f"{tuple(p.shape)} on {p.device} has dtypes "
-            f"{sorted(dtypes)}.  A kernel for other dtypes is not ported "
-            f"yet (ROADMAP queue A, item 2); use fused=False for the "
-            f"plain update")
-    return True
+_F32 = torch.float32
+# per-tensor reads, mapped over a column of leaves
+_dtype, _shape = attrgetter("dtype"), attrgetter("shape")
+_numel, _data_ptr = torch.Tensor.numel, torch.Tensor.data_ptr
+_get_device, _is_contiguous = (torch.Tensor.get_device,
+                               torch.Tensor.is_contiguous)
+_is_cuda = attrgetter("is_cuda")
 
 
-def zip_leaves(*trees) -> Iterator[Tuple[torch.Tensor, ...]]:
+def _kernel_takes(leaves, kernel=KERNEL_NAME):
+    """The CUDA ``leaves`` (each ``(p, g, ...)``) that ``kernel`` takes:
+    the non-empty ones (nothing to update in an empty one), each f32
+    throughout; raises for a leaf of any other dtype.  Checked one column
+    of leaves at a time."""
+    numels = list(map(_numel, (leaf[0] for leaf in leaves)))
+    if 0 in numels:
+        leaves = [leaf for leaf, n in zip(leaves, numels) if n]
+    for col in zip(*leaves):
+        if set(map(_dtype, col)) != {_F32}:
+            leaf = next(leaf for leaf in leaves
+                        if any(t.dtype is not _F32 for t in leaf))
+            p = leaf[0]
+            dtypes = sorted({str(t.dtype).replace("torch.", "")
+                             for t in leaf})
+            raise NotImplementedError(
+                f"{kernel}: the kernel takes float32 leaves; this leaf "
+                f"{tuple(p.shape)} on {p.device} has dtypes {dtypes}.  A "
+                f"kernel for other dtypes is not ported yet (ROADMAP queue "
+                f"A, item 2); use fused=False for the plain update")
+    return leaves
+
+
+def zip_leaves(*trees) -> List[Tuple[torch.Tensor, ...]]:
     """The leaves of same-structure nested dicts, one tuple per leaf, in
     the first tree's order."""
-    first = trees[0]
-    if isinstance(first, Mapping):
-        for key in first:
-            yield from zip_leaves(*(t[key] for t in trees))
-    else:
-        yield tuple(trees)
+    if not _is_node(trees[0]):
+        return [trees]
+    out: List[Tuple[torch.Tensor, ...]] = []
+    _zip_into(trees, out)
+    return out
+
+
+def _is_node(x) -> bool:
+    # a dict first: the ABC check alone costs a few hundred ns a leaf
+    return isinstance(x, dict) or (not isinstance(x, torch.Tensor)
+                                   and isinstance(x, Mapping))
+
+
+def _zip_into(nodes, out) -> None:
+    for key in nodes[0]:
+        child = tuple([t[key] for t in nodes])
+        if _is_node(child[0]):
+            _zip_into(child, out)
+        else:
+            out.append(child)
 
 
 # --------------------------------------------------------------------- #
@@ -103,8 +136,8 @@ _C_FUNCS = {
     "bigdl_fused_adam": ("fused_adam",
                          [_P] * 4 + [_I64] + [_P] * 3 + [_F] * 6 + [_I, _P]),
     "bigdl_fused_sgd_mom": ("fused_sgd",
-                            [_P] * 3 + [_I64, _P] + [_F] * 3 + [_I, _I, _P]),
-    "bigdl_fused_sgd_plain": ("fused_sgd", [_P, _P, _I64, _P, _F, _I, _P]),
+                            [_P, _P, _I, _P] + [_F] * 3 + [_I, _I, _P]),
+    "bigdl_fused_sgd_plain": ("fused_sgd", [_P, _P, _I, _P, _F, _I, _P]),
 }
 
 
@@ -128,17 +161,23 @@ def _device_scalar(x, name, dev, kernel=KERNEL_NAME):
 def _check_leaves(leaves, kernel, in_place):
     """Every tensor of each leaf ``(p, g, ...)`` on p's device and of p's
     shape, and the tensors updated in place (p and the state after g)
-    contiguous; raises before any launch otherwise."""
-    for leaf in leaves:
-        p, g, state = leaf[0], leaf[1], leaf[2:]
-        for name, t in zip(("g",) + in_place[1:], (g,) + state):
-            if t.device != p.device or t.shape != p.shape:
-                raise ValueError(f"{kernel}: {name} {tuple(t.shape)} on "
-                                 f"{t.device} does not match p "
-                                 f"{tuple(p.shape)} on {p.device}")
-        if not all(t.is_contiguous() for t in (p,) + state):
-            raise ValueError(f"{kernel}: {', '.join(in_place)} are updated "
-                             f"in place and must be contiguous")
+    contiguous; raises before any launch otherwise.  Checked one column of
+    leaves at a time."""
+    cols = list(zip(*leaves))
+    ps, state = cols[0], cols[2:]
+    shapes, devs = list(map(_shape, ps)), list(map(_get_device, ps))
+    for name, col in zip(("g",) + tuple(in_place[1:]), cols[1:]):
+        if (list(map(_shape, col)) != shapes
+                or list(map(_get_device, col)) != devs):
+            p, t = next((p, t) for p, t in zip(ps, col)
+                        if t.shape != p.shape
+                        or t.get_device() != p.get_device())
+            raise ValueError(f"{kernel}: {name} {tuple(t.shape)} on "
+                             f"{t.device} does not match p "
+                             f"{tuple(p.shape)} on {p.device}")
+    if not all(all(map(_is_contiguous, col)) for col in (ps, *state)):
+        raise ValueError(f"{kernel}: {', '.join(in_place)} are updated "
+                         f"in place and must be contiguous")
 
 
 def _adam_cuda(leaves, *, clr, bc1, bc2, beta1, beta2, eps,
@@ -186,13 +225,15 @@ def fused_adam_update(params, grads, m, v, *, clr, bc1, bc2, beta1, beta2,
         if p_.device.type == "cpu":
             adam_leaf_plain(*leaf, **kw)
         elif p_.device.type == "cuda":
-            if _kernel_takes(*leaf):
-                by_device.setdefault(p_.device, []).append(leaf)
+            by_device.setdefault(p_.device, []).append(leaf)
         else:
             raise RuntimeError(f"fused_adam: no implementation for device "
                                f"{p_.device}")
-    for leaves in by_device.values():
-        _adam_cuda(leaves, **kw)
+    # every CUDA leaf is checked before the first launch
+    groups = [_kernel_takes(leaves) for leaves in by_device.values()]
+    for leaves in groups:
+        if leaves:
+            _adam_cuda(leaves, **kw)
     return params, m, v
 
 
@@ -225,35 +266,133 @@ def sgd_leaf_plain(p, g, v=None, *, clr, momentum=0.0, dampening=0.0,
     p.copy_(p - clr * g.to(p.dtype))
 
 
+# csrc/fused_sgd.cu's table: leaves a launch and elements a block (the
+# library's own values are checked against these when it is loaded)
+SGD_CAPACITY = 720
+SGD_CHUNK = 4096
+# slot of each pointer of a leaf in the table: p, g, then the state
+# updated in place (K5's velocity; 0 for K6)
+_SGD_SLOTS = 3
+# meta of a leaf in the table: n, first chunk, I and H*W of a
+# channels-last gradient (0, 0 when it is contiguous), float4 flag
+_META = 5
+
+
+def grad_layout(g) -> Optional[Tuple[int, int]]:
+    """How the kernel reads a gradient ``g`` beside its contiguous leaf:
+    ``(0, 0)`` when g is contiguous; ``(I, H*W)`` when g lies in the
+    channels-last order of an OIHW leaf below 2**31 elements (cuDNN's
+    weight gradient of an NHWC conv), which the kernel reads in place;
+    None when g has to be made contiguous first (a copy)."""
+    if g.is_contiguous():
+        return 0, 0
+    if (g.dim() == 4 and g.numel() < 2 ** 31
+            and g.is_contiguous(memory_format=torch.channels_last)):
+        return g.shape[1], g.shape[2] * g.shape[3]
+    return None
+
+
+def leaf_tables(leaves, kernel, in_place):
+    """The launch tables of K5 or K6 over ``leaves`` (each ``(p, g,
+    *state)``, non-empty), built column by column after
+    :func:`_check_leaves` (raises before any launch).
+
+    Returns ``(tables, kept)``.  Each table is ``(ptrs, meta, count)``
+    for up to :data:`SGD_CAPACITY` leaves, as int64 arrays in leaf order:
+    ``ptrs`` three a leaf, the addresses of p, g and the state (0 where
+    K6 has none); ``meta`` five a leaf: n, the leaf's first chunk of
+    :data:`SGD_CHUNK` elements within the table (a prefix sum), the
+    gradient's layout (:func:`grad_layout`) and 1 when every pointer the
+    kernel reads as float4 is 16-byte aligned.  ``kept`` holds the
+    contiguous copies of the gradients that needed one; they must stay
+    alive until the launches are made."""
+    _check_leaves(leaves, kernel, in_place)
+    cols = list(zip(*leaves))
+    ps, gs, state = cols[0], list(cols[1]), cols[2:]
+    count = len(ps)
+    cin, hw, kept = [0] * count, [0] * count, []
+    for i, contiguous in enumerate(map(_is_contiguous, gs)):
+        if not contiguous:
+            tag = grad_layout(gs[i])
+            if tag is None:
+                gs[i] = gs[i].contiguous()
+                kept.append(gs[i])
+            else:
+                cin[i], hw[i] = tag
+    addr = [list(map(_data_ptr, col)) for col in (ps, gs, *state)]
+    # the low bits of every pointer read as float4: a channels-last g is
+    # gathered element by element, so its own do not matter
+    low = addr[1] if not any(cin) else [0 if c else a for a, c in
+                                        zip(addr[1], cin)]
+    for col in (addr[0], *addr[2:]):
+        low = list(map(or_, low, col))
+    vec = [a & 15 == 0 for a in low]
+    ns = list(map(_numel, ps))
+    nch = [-(-n // SGD_CHUNK) for n in ns]
+    tables = []
+    for lo in range(0, count, SGD_CAPACITY):
+        hi = min(lo + SGD_CAPACITY, count)
+        # interleaved by slice assignment: the fastest way to an array
+        ptrs = [0] * (_SGD_SLOTS * (hi - lo))
+        for j, col in enumerate(addr):
+            ptrs[j::_SGD_SLOTS] = col[lo:hi]
+        meta = [0] * (_META * (hi - lo))
+        meta[0::_META] = ns[lo:hi]
+        meta[1::_META] = accumulate(nch[lo:hi - 1], initial=0)
+        meta[2::_META] = cin[lo:hi]
+        meta[3::_META] = hw[lo:hi]
+        meta[4::_META] = vec[lo:hi]
+        tables.append((array("q", ptrs), array("q", meta), hi - lo))
+    return tables, kept
+
+
+_SGD_FNS = {}
+
+
+def _sgd_fn(mom: bool):
+    """K5's (``mom``) or K6's C function, its library's table checked
+    against :data:`SGD_CAPACITY` and :data:`SGD_CHUNK` on first use."""
+    fn = _SGD_FNS.get(mom)
+    if fn is None:
+        lib = _build.load("fused_sgd")
+        got = (lib.bigdl_fused_sgd_capacity(), lib.bigdl_fused_sgd_chunk())
+        if got != (SGD_CAPACITY, SGD_CHUNK):
+            raise RuntimeError(f"csrc/fused_sgd.cu has (capacity, chunk) "
+                               f"{got}; the wrapper expects "
+                               f"{(SGD_CAPACITY, SGD_CHUNK)}")
+        fn = _SGD_FNS[mom] = _kernel_fn("bigdl_fused_sgd_mom" if mom
+                                        else "bigdl_fused_sgd_plain")
+    return fn
+
+
 def _sgd_cuda(leaves, *, clr, momentum, dampening, nesterov,
               weight_decay) -> None:
-    """Launch K5 (leaves ``(p, g, v)``) or K6 (leaves ``(p, g)``) once for
-    each leaf (f32, all on one CUDA device), on the current stream.  All
+    """Launch K5 (leaves ``(p, g, v)``) or K6 (leaves ``(p, g)``) over all
+    ``leaves`` (f32, non-empty, all on one CUDA device) on the current
+    stream: one launch per table of :data:`SGD_CAPACITY` leaves.  All
     inputs are checked before the first launch."""
     dev = leaves[0][0].device
     mom = len(leaves[0]) == 3
     kernel = SGD_MOM if mom else SGD_PLAIN
     clr_t = _device_scalar(clr, "clr", dev, kernel)
-    _check_leaves(leaves, kernel, ("p", "v") if mom else ("p",))
+    tables, kept = leaf_tables(leaves, kernel, ("p", "v") if mom else ("p",))
+    fn = _sgd_fn(mom)
     decay = int(weight_decay > 0)
     if mom:
-        fn = _kernel_fn("bigdl_fused_sgd_mom")
         tail = (clr_t.data_ptr(), momentum, 1.0 - dampening,
                 float(weight_decay), decay, int(bool(nesterov)))
     else:
-        fn = _kernel_fn("bigdl_fused_sgd_plain")
         tail = (clr_t.data_ptr(), float(weight_decay), decay)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for leaf in leaves:
-            p, g = leaf[0], leaf[1].contiguous()
-            ptrs = (p.data_ptr(), leaf[2].data_ptr()) if mom \
-                else (p.data_ptr(),)
-            rc = fn(*ptrs, g.data_ptr(), p.numel(), *tail, stream)
+        for ptrs, meta, count in tables:
+            rc = fn(ptrs.buffer_info()[0], meta.buffer_info()[0], count,
+                    *tail, stream)
             if rc != 0:
                 raise RuntimeError(f"{kernel} kernel launch failed: "
-                                   f"cudaError {rc} (leaf {tuple(p.shape)})")
+                                   f"cudaError {rc} ({count} leaves)")
             _build.count_launch(kernel)
+    del kept
 
 
 def fused_sgd_update(params, grads, velocity=None, *, clr, momentum=0.0,
@@ -270,19 +409,26 @@ def fused_sgd_update(params, grads, velocity=None, *, clr, momentum=0.0,
     kw = dict(clr=clr, momentum=momentum, dampening=dampening,
               nesterov=nesterov, weight_decay=weight_decay)
     trees = (params, grads, velocity) if mom else (params, grads)
-    by_device = {}
-    for leaf in zip_leaves(*trees):
-        p_ = leaf[0]
-        if p_.device.type == "cpu":
+    leaves = zip_leaves(*trees)
+    on_card = list(map(_is_cuda, (leaf[0] for leaf in leaves)))
+    if not all(on_card):
+        for leaf, cuda in zip(leaves, on_card):
+            if cuda:
+                continue
+            if leaf[0].device.type != "cpu":
+                raise RuntimeError(f"{kernel}: no implementation for "
+                                   f"device {leaf[0].device}")
             sgd_leaf_plain(*leaf, **kw)
-        elif p_.device.type == "cuda":
-            if _kernel_takes(*leaf, kernel=kernel):
-                by_device.setdefault(p_.device, []).append(leaf)
-        else:
-            raise RuntimeError(f"{kernel}: no implementation for device "
-                               f"{p_.device}")
-    for leaves in by_device.values():
-        _sgd_cuda(leaves, **kw)
+        leaves = [leaf for leaf, cuda in zip(leaves, on_card) if cuda]
+    devs = list(map(_get_device, (leaf[0] for leaf in leaves)))
+    groups = [[leaf for leaf, d in zip(leaves, devs) if d == dev]
+              for dev in dict.fromkeys(devs)] if len(set(devs)) > 1 \
+        else [leaves]
+    # every CUDA leaf is checked before the first launch
+    groups = [_kernel_takes(group, kernel) for group in groups]
+    for group in groups:
+        if group:
+            _sgd_cuda(group, **kw)
     return params, (velocity if mom else None)
 
 

@@ -14,7 +14,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 K1 flash_fwd; K2 flash_bwd_dkv and K3 flash_bwd_dq; K4
                 fused_adam (bitwise); K5 fused_sgd_mom and K6
                 fused_sgd_plain (bitwise, over every static choice:
-                dampening, nesterov, weight decay).
+                dampening, nesterov, weight decay; one leaf at a time,
+                and trees of many leaves with their launch counts: six
+                shapes in one launch, leaves at a 4-byte offset,
+                channels-last conv gradients read in place, and more
+                leaves than one launch's table holds).  K5, K6 and their
+                library call are also timed on the device with a cold
+                L2 (a 256 MB read before each call), beside the rate a
+                plain copy reaches.
   3. serving  — TransformerLM ``base`` (d_model 768, 12 layers, 6 heads of
                 128, vocab 32000, fp32, weights from a seed) registered in
                 a ``ModelRegistry`` and served by ``ServingEngine(max_batch=8)``
@@ -42,12 +49,15 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 for the run-to-run noise) and with TF32 convolutions, which
                 must fall outside the training phase's loss limit (2e-5);
                 the fp32 runs must agree to the last bit.  K5 must launch
-                once a leaf a step (161) and the loss must fall; K5 is also held
-                bitwise on the model's own step-1 gradients.  Then LeNet-5
-                with ``SGD(learning_rate=0.05, fused=True)`` at batch 128
-                over 512 images for 2 epochs on K6 (8 launches a step),
-                against ``fused=False`` (bitwise).  cuDNN runs deterministic
-                algorithms chosen without benchmarking.
+                once a step over all 161 leaves (one multi-tensor launch
+                per table of fused_optim.SGD_CAPACITY leaves) and the loss
+                must fall; K5 is also held bitwise on the model's own
+                step-1 gradients, whose 17 channels-last conv gradients
+                must be read in place (no copy).  Then LeNet-5 with
+                ``SGD(learning_rate=0.05, fused=True)`` at batch 128 over
+                512 images for 2 epochs on K6 (one launch a step over its
+                8 leaves), against ``fused=False`` (bitwise).  cuDNN runs
+                deterministic algorithms chosen without benchmarking.
 
 Output: a ``{"slice": {...}}`` line, a ``{"training": {...}}`` line, a
 ``{"classifier": {...}}`` line, a ``{"kernels": [...]}`` line (all six
@@ -66,6 +76,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -764,6 +775,50 @@ def profile_steps(run_steps, steps: int = 2, classes=KERNEL_CLASSES,
     return out
 
 
+L2_FLUSH_BYTES = 256 << 20   # read before each cold call: > 5x the 50 MB L2
+SPIN_CYCLES = 6_000_000      # ~3 ms at the H100's clock: the host gets ahead
+
+
+def cold_ms(fn, key: Optional[str] = None, iters: int = 10) -> dict:
+    """Device time of one call of ``fn`` with a cold L2.  Before each call
+    the card spins (so that the host queues the rest ahead of the card)
+    and then reads a 256 MB buffer, which evicts every line the previous
+    call left in L2 (writing back the dirty ones) and leaves only clean
+    lines there.  ``events_ms``: median by CUDA events around the call.
+    With ``key``, also ``profiler_ms``: the device time per call of the
+    kernels whose name holds ``key``, from torch.profiler (CUPTI), and
+    ``records``, the kernel records it saw.  What the call leaves dirty in
+    L2 when it ends is written back outside its time, as in any kernel
+    timing: at most 50 MB."""
+    from torch.profiler import ProfilerActivity, profile
+    buf = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    out = torch.empty((), device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for e0, e1 in pairs:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(SPIN_CYCLES)
+            torch.sum(buf, dim=0, out=out)
+            e0.record()
+            fn()
+            e1.record()
+        torch.cuda.synchronize()
+    res = {"events_ms": float(np.median([e0.elapsed_time(e1)
+                                         for e0, e1 in pairs]))}
+    if key is not None:
+        evs = [ev for ev in prof.key_averages()
+               if key in ev.key.lower() and _device_us(ev)]
+        res["profiler_ms"] = (sum(map(_device_us, evs)) / 1e3 / iters
+                              if evs else None)
+        res["records"] = sum(ev.count for ev in evs)
+    del buf
+    return res
+
+
 def device_ms(fn, key: str, iters: int = 5) -> float:
     """Device time of the kernels whose name holds ``key``, per call of
     ``fn`` (after one warm call), from torch.profiler (CUPTI); None when
@@ -1018,21 +1073,75 @@ SGD_SHAPES = ((1,), (127,), (768,), (3072 * 768,), (64, 3, 7, 7),
               (2048, 512, 1, 1))
 
 
-def _sgd_both(fo, method, clr, p0, g0, v0):
-    """The fused update (the kernel, on the card) and the plain one of
-    ``method`` on copies of (p0, v0) with gradient g0: ([p, v] kernel,
-    [p, v] plain)."""
+def _copy_at(t):
+    """A contiguous copy of ``t`` at ``t``'s offset from a 16-byte
+    boundary (a fresh tensor is aligned; a view need not be)."""
+    shift = (t.data_ptr() % 16) // t.element_size()
+    base = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    out = base[shift:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _sgd_trees(fo, method, clr, p0s, g0s, v0s):
+    """The fused update (the kernel) and the plain one of ``method`` over
+    one tree of leaves, on copies of (p0s, v0s) at their offsets, with
+    the gradients g0s as they are: ([p, v] kernel, [p, v] plain, the
+    kernel's launches), each p and v all the tree's leaves end to end."""
     kw = dict(clr=clr, momentum=method.momentum,
               dampening=method.dampening, nesterov=method.nesterov,
               weight_decay=method.weight_decay)
-    out = []
+    name = fo.SGD_MOM if method.momentum > 0 else fo.SGD_PLAIN
+    out, launches = [], None
     for fn in (fo.fused_sgd_update, fo.fused_sgd_update_plain):
-        p, v = p0.clone(), v0.clone()
-        fn({"x": p}, {"x": g0}, {"x": v} if method.momentum > 0 else None,
-           **kw)
+        ps = {f"l{i}": _copy_at(t) for i, t in enumerate(p0s)}
+        vs = {f"l{i}": _copy_at(t) for i, t in enumerate(v0s)}
+        gs = {f"l{i}": t for i, t in enumerate(g0s)}
+        before = fo._build.launch_counts().get(name, 0)
+        fn(ps, gs, vs if method.momentum > 0 else None, **kw)
         torch.cuda.synchronize()
-        out.append([p, v])
-    return out
+        if launches is None:
+            launches = fo._build.launch_counts().get(name, 0) - before
+        out.append([torch.cat([t.flatten() for t in tree.values()])
+                    for tree in (ps, vs)])
+    return out[0], out[1], launches
+
+
+def _meta_rows(tables):
+    """fused_optim.leaf_tables' meta of every leaf, one row a leaf: n,
+    first chunk, I and H*W of a channels-last gradient, float4 flag."""
+    return np.concatenate([np.asarray(m).reshape(-1, 5)
+                           for _, m, _ in tables])
+
+
+def _sgd_tree_cases(fo, rnd):
+    """The multi-leaf trees of phase_sgd: (label, p0s, g0s, v0s, leaves
+    that must take the scalar path, leaves whose channels-last gradient
+    is read in place, launches)."""
+    cap = fo.SGD_CAPACITY
+    p_off = [rnd((1_000_003,), 0.05, 1), rnd((768,), 0.05),
+             rnd((127,), 0.05, 1)]
+    cl = [(512, 512, 3, 3), (64, 3, 7, 7)]
+    sizes = np.random.RandomState(5).randint(1, 301, size=2000)
+    return [
+        ("six SGD_SHAPES in one tree", [rnd(s, 0.05) for s in SGD_SHAPES],
+         [rnd(s, 1e-2) for s in SGD_SHAPES],
+         [rnd(s, 1e-3) for s in SGD_SHAPES], 0, 0, 1),
+        ("4-byte offsets (two of three leaves)", p_off,
+         [rnd(t.shape, 1e-2, 1 if t.data_ptr() % 16 else 0)
+          for t in p_off],
+         [rnd(t.shape, 1e-3, 1 if t.data_ptr() % 16 else 0)
+          for t in p_off], 2, 0, 1),
+        ("channels-last 3x3 and 7x7 conv gradients",
+         [rnd(s, 0.05) for s in cl],
+         [rnd(s, 1e-2).contiguous(memory_format=torch.channels_last)
+          for s in cl], [rnd(s, 1e-3) for s in cl], 0, 2, 1),
+        (f"{len(sizes)} leaves of 1-300 values (capacity {cap})",
+         [rnd((int(n),), 0.05) for n in sizes],
+         [rnd((int(n),), 1e-2) for n in sizes],
+         [rnd((int(n),), 1e-3) for n in sizes], 0, 0,
+         -(-len(sizes) // cap)),
+    ]
 
 
 def _bitwise(label, kern, plain, results):
@@ -1043,14 +1152,19 @@ def _bitwise(label, kern, plain, results):
                     "bitwise": ok, "ok": ok})
     log(f"SGD kernel vs plain [{label}]: max_abs_err {err:.3e} ulps {ulps}"
         f" -> {'bitwise' if ok else 'FAIL'}")
+    return results[-1]
 
 
 def phase_sgd(card: str):
     """K5 and K6 against the plain update, bitwise: momentum with the
     reference's default dampening, dampening 0 and nesterov (K5), none
-    (K6); weight decay 0 and 1e-4; leaf sizes 1, 127, 768, 3072*768 and
-    ResNet-50's (64, 3, 7, 7) and (2048, 512, 1, 1); steps 1 and 1000
-    (a per-step learning-rate decay makes clr differ)."""
+    (K6); weight decay 0 and 1e-4.  One leaf at a time: sizes 1, 127,
+    768, 3072*768 and ResNet-50's (64, 3, 7, 7) and (2048, 512, 1, 1),
+    steps 1 and 1000 (a per-step learning-rate decay makes clr differ).
+    Then trees of many leaves, with their launch counts: the six shapes
+    in one launch; leaves at a 4-byte offset (the scalar path); conv
+    leaves whose gradient is channels-last (read in place, no copy); and
+    more leaves than one table holds (ceil(leaves / capacity) launches)."""
     from bigdl_tpu_torch.kernels import fused_optim as fo
     from bigdl_tpu_torch.optim import SGD
     results = {fo.SGD_MOM: [], fo.SGD_PLAIN: []}
@@ -1070,14 +1184,46 @@ def phase_sgd(card: str):
                         return torch.randn(shape, generator=g,
                                            device="cuda") * scale
                     p0, g0, v0 = rnd(0.05), rnd(1e-2), rnd(1e-3)
-                    kern, plain = _sgd_both(fo, method, clr, p0, g0, v0)
+                    kern, plain, _ = _sgd_trees(fo, method, clr, [p0],
+                                                [g0], [v0])
                     _bitwise(f"{label} wd {wd} step {step} "
                              f"{list(shape)}", kern, plain,
                              results[kernel])
+            gen = torch.Generator(device="cuda").manual_seed(77)
+
+            def rnd(shape, scale, shift=0):
+                """randn of ``shape`` at ``shift`` floats past an aligned
+                address."""
+                n = int(np.prod(shape))
+                base = torch.randn(n + shift, generator=gen, device="cuda")
+                return base[shift:].mul_(scale).view(shape)
+            for case, p0s, g0s, v0s, scalar, in_place, want in \
+                    _sgd_tree_cases(fo, rnd):
+                leaves = list(zip(p0s, g0s, v0s))
+                tables, kept = fo.leaf_tables(leaves, kernel, ("p", "v"))
+                meta = _meta_rows(tables)
+                plan = {"tables": len(tables),
+                        "scalar_path": int((meta[:, 4] == 0).sum()),
+                        "channels_last_in_place": int((meta[:, 2] > 0)
+                                                      .sum()),
+                        "copies": len(kept)}
+                kern, plain, launches = _sgd_trees(fo, method, clr, p0s,
+                                                   g0s, v0s)
+                r = _bitwise(f"{label} wd {wd} {case}", kern, plain,
+                             results[kernel])
+                r.update(plan, launches=launches, launches_expected=want)
+                if (launches, plan["tables"], plan["scalar_path"],
+                        plan["channels_last_in_place"], plan["copies"]) \
+                        != (want, want, scalar, in_place, 0):
+                    r["ok"] = False
+                    log(f"  FAIL: {launches} launches, plan {plan}; "
+                        f"expected {want} launches, {scalar} scalar, "
+                        f"{in_place} channels-last in place, 0 copies")
     bad = [r["case"] for rs in results.values() for r in rs if not r["ok"]]
     if bad:
         raise AssertionError(f"fused_sgd is not bitwise equal to its plain "
-                             f"version: {bad}")
+                             f"version, or did not launch as planned: "
+                             f"{bad}")
     # a leaf the kernels do not take raises on the card, before any launch
     xb = torch.ones(8, dtype=torch.bfloat16, device="cuda")
     clr = torch.ones((), device="cuda")
@@ -1104,11 +1250,32 @@ def phase_sgd(card: str):
             for name in (fo.SGD_MOM, fo.SGD_PLAIN)]
 
 
+def _host_us(fn, iters: int = 200, idle: bool = False) -> float:
+    """Host time of ``fn`` in µs a call (host clock); with ``idle``, the
+    median of calls each made on an idle device, so that a launch is not
+    held back by the ones queued before it."""
+    fn()
+    if idle:
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e6
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
 def time_sgd(k5: dict, k6: dict, resnet_shapes, lenet_shapes, card: str):
     """K5 and K6, their plain versions and torch.optim.SGD(fused=True)
     over leaves of ResNet-50's shapes (one update each: K5 with momentum
     0.9, dampening 0.9, wd 1e-4; K6 with none), by CUDA events and by
-    device time; and K6's time per launch at LeNet-5's 8 leaves."""
+    device time, with the launches an update makes and the host time of
+    the wrapper's parts; and K6 against the library at LeNet-5's 8
+    leaves."""
     from bigdl_tpu_torch.kernels import fused_optim as fo
     from bigdl_tpu_torch.optim import SGD
     n = sum(int(np.prod(s)) for s in resnet_shapes)
@@ -1120,6 +1287,28 @@ def time_sgd(k5: dict, k6: dict, resnet_shapes, lenet_shapes, card: str):
         grads = {k: {"w": torch.randn_like(v["w"]) * 1e-2}
                  for k, v in p.items()}
         return p, grads
+
+    def library_ms(params, grads, lib_kw, iters, cold=False):
+        """torch.optim.SGD(fused=True).step() on copies of params: (ms by
+        events, ms on the device of its kernels, named *FusedSgd*, and
+        with ``cold`` its :func:`cold_ms`)."""
+        flat = [t["w"].clone().requires_grad_() for t in params.values()]
+        for p_, gt in zip(flat, (t["w"] for t in grads.values())):
+            p_.grad = gt
+        ref = torch.optim.SGD(flat, fused=True, **lib_kw)
+        ref.step()                               # builds its momentum buffers
+        return (cuda_ms(ref.step, iters=iters), device_ms(ref.step, "sgd"),
+                cold_ms(ref.step, "sgd") if cold else None)
+
+    # the rate a plain copy reaches on this card, cold: what the bound's
+    # data-sheet rate is worth in practice
+    src = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = cold_ms(lambda: dst.copy_(src))["events_ms"]
+    copy_tb_s = 2 * L2_FLUSH_BYTES / copy_ms / 1e9
+    del src, dst
+    log(f"copy of {L2_FLUSH_BYTES >> 20} MB, cold: {copy_ms:.4f} ms, "
+        f"{copy_tb_s:.3f} TB/s read + write; {card}")
 
     for k, kw, lib_kw, nbytes in (
             (k5, dict(learning_rate=0.1, momentum=0.9, weight_decay=1e-4),
@@ -1137,38 +1326,67 @@ def time_sgd(k5: dict, k6: dict, resnet_shapes, lenet_shapes, card: str):
 
         def kernel_run():
             fo.fused_sgd_update(params, grads, vel, **upd)
+        before = fo._build.launch_counts().get(k["name"], 0)
+        kernel_run()
+        per_update = fo._build.launch_counts().get(k["name"], 0) - before
         ms = cuda_ms(kernel_run, iters=10)
         dev_ms = device_ms(kernel_run, "sgd_")
+        cold = cold_ms(kernel_run, "sgd_")
         plain_ms = cuda_ms(lambda: fo.fused_sgd_update_plain(
             params, grads, vel, **upd), iters=3)
-        flat = [t["w"].requires_grad_() for t in params.values()]
-        for p_, gt in zip(flat, (t["w"] for t in grads.values())):
-            p_.grad = gt
-        ref = torch.optim.SGD(flat, fused=True, **lib_kw)
-        ref.step()                               # builds its momentum buffers
-        library_ms = cuda_ms(ref.step, iters=10)
-        del ref, flat, params, grads, state, vel
+        lib_ms, lib_dev_ms, lib_cold = library_ms(params, grads, lib_kw, 10,
+                                                  cold=True)
+        # the wrapper's host time, part by part (the launch is the rest)
+        trs = (params, grads, vel) if vel is not None else (params, grads)
+        leaves = fo.zip_leaves(*trs)
+        in_place = ("p", "v") if vel is not None else ("p",)
+        (ptrs, meta, count), = fo.leaf_tables(leaves, k["name"],
+                                              in_place)[0]
+        fn = fo._sgd_fn(vel is not None)
+        stream = torch.cuda.current_stream().cuda_stream
+        args = (clr.data_ptr(), *((0.9, 0.1, 1e-4, 1, 0) if vel is not None
+                                  else (0.0, 0)), stream)
+
+        def c_call():
+            fn(ptrs.buffer_info()[0], meta.buffer_info()[0], count, *args)
+        host = {"update": _host_us(kernel_run),
+                "zip_leaves": _host_us(lambda: fo.zip_leaves(*trs)),
+                "f32_check": _host_us(lambda: fo._kernel_takes(
+                    leaves, k["name"])),
+                "leaf_tables": _host_us(lambda: fo.leaf_tables(
+                    leaves, k["name"], in_place)),
+                "c_call_and_launch": _host_us(c_call, 50, idle=True)}
+        torch.cuda.synchronize()
+        del params, grads, state, vel, leaves
         bound_ms = n * nbytes / H100_HBM_BYTES_S * 1e3
         k.update(ms=ms, kernel_ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms,
+                 device_cold=cold, bound_ms=bound_ms, bound_by="bytes",
+                 copy_tb_s=copy_tb_s, library_ms=lib_ms,
+                 library_device_ms=lib_dev_ms, library_cold=lib_cold,
                  library_call=f"torch.optim.SGD({lib_kw}, fused=True)"
                               f".step(), f32",
-                 leaves=len(resnet_shapes), params=n)
+                 leaves=len(resnet_shapes), params=n,
+                 launches_per_update=per_update, host_us=host)
         log(f"{k['name']} over {len(resnet_shapes)} leaves, {n} params: "
-            f"kernel {ms:.4f} ms by events, {dev_ms} ms on the device, "
-            f"plain {plain_ms:.4f} ms, torch.optim.SGD(fused) "
-            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes); {card}")
+            f"{per_update} launch(es) an update; kernel {ms:.4f} ms by "
+            f"events, {dev_ms} ms on the device back to back, cold L2 "
+            f"{cold}, plain {plain_ms:.4f} ms, torch.optim.SGD(fused) "
+            f"{lib_ms:.4f} ms ({lib_dev_ms} on the device, cold L2 "
+            f"{lib_cold}), bound "
+            f"{bound_ms:.4f} ms (bytes); host µs {host}; {card}")
     params, grads = trees(lenet_shapes)
     clr = torch.full((), 0.05, device="cuda")
     lenet_ms = cuda_ms(lambda: fo.fused_sgd_update(params, grads, clr=clr),
                        iters=50)
     k6["lenet_ms_per_update"] = lenet_ms
-    k6["lenet_ms_per_launch"] = lenet_ms / len(lenet_shapes)
+    k6["lenet_library_ms"] = library_ms(params, grads, dict(lr=0.05),
+                                        50)[0]
     k6["lenet_bound_ms"] = sum(int(np.prod(s)) for s in lenet_shapes) \
         * 12 / H100_HBM_BYTES_S * 1e3
     log(f"fused_sgd_plain at LeNet-5's {len(lenet_shapes)} leaves: "
-        f"{lenet_ms:.4f} ms an update, {k6['lenet_ms_per_launch']:.4f} ms a "
-        f"launch (bound {k6['lenet_bound_ms']:.6f} ms); {card}")
+        f"{lenet_ms:.4f} ms an update, torch.optim.SGD(fused) "
+        f"{k6['lenet_library_ms']:.4f} ms (bound "
+        f"{k6['lenet_bound_ms']:.6f} ms); {card}")
 
 
 # --------------------------------------------------------------------- #
@@ -1269,7 +1487,9 @@ def phase_classifier(card: str, k5: dict, k6: dict):
         model, data, SGD(fused=True, **RESNET_SGD), CLS_EPOCHS, w0, s0)
     launches = _build.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = {fo.SGD_MOM: n_leaves * CLS_EPOCHS, fo.SGD_PLAIN: 0}
+    # one K5 launch an update per table of SGD_CAPACITY leaves
+    per_update = -(-n_leaves // fo.SGD_CAPACITY)
+    want = {fo.SGD_MOM: per_update * CLS_EPOCHS, fo.SGD_PLAIN: 0}
     got = {name: launches.get(name, 0) for name in want}
     log(f"ResNet-50 launches {launches}, expected {want}")
     if got != want or sum(launches.values()) != sum(want.values()):
@@ -1321,6 +1541,12 @@ def phase_classifier(card: str, k5: dict, k6: dict):
         return loss, torch.autograd.grad(loss, leaves)
     _, grads = loss_and_grads()
     layouts = sum(not gr.is_contiguous() for gr in grads)
+    # the channels-last conv gradients are read in place: no copy
+    tables, kept = fo.leaf_tables(
+        [(w, gr, w) for w, gr in zip(leaves, grads)], fo.SGD_MOM, ("p", "v"))
+    in_place = int((_meta_rows(tables)[:, 2] > 0).sum())
+    copies = len(kept)
+    del tables, kept
     method = SGD(**RESNET_SGD)
     clr = method.get_learning_rate(method.init_state(params))
     upd = dict(clr=clr, momentum=method.momentum, dampening=method.dampening,
@@ -1338,12 +1564,15 @@ def phase_classifier(card: str, k5: dict, k6: dict):
     step1_ok = all(torch.equal(a, b) for a, b in zip(*runs))
     step1_err = max((a - b).abs().max().item() for a, b in zip(*runs))
     log(f"K5 vs plain on ResNet-50's step-1 gradients ({layouts} of "
-        f"{len(grads)} not contiguous), two updates: max_abs_err "
-        f"{step1_err:.3e} -> {'bitwise' if step1_ok else 'FAIL'}")
+        f"{len(grads)} not contiguous, {in_place} read in place, {copies} "
+        f"copied), two updates: max_abs_err {step1_err:.3e} -> "
+        f"{'bitwise' if step1_ok else 'FAIL'}")
     k5["cases"].append({"case": "ResNet-50 step-1 gradients, two updates",
                         "max_abs_err": step1_err, "bitwise": step1_ok,
                         "ok": step1_ok,
-                        "non_contiguous_grads": layouts})
+                        "non_contiguous_grads": layouts,
+                        "channels_last_in_place": in_place,
+                        "copies": copies})
     del runs, grads
 
     # where a step's time goes (after the counts were read)
@@ -1393,7 +1622,7 @@ def phase_classifier(card: str, k5: dict, k6: dict):
     l_losses_k, l_step_ms = _classifier_run(
         lnet, ldata, SGD(fused=True, **LENET_SGD), LENET_EPOCHS, lw0, [])
     l_launches = _build.launch_counts()
-    l_want = {fo.SGD_PLAIN: len(lw0) * lenet_steps}
+    l_want = {fo.SGD_PLAIN: -(-len(lw0) // fo.SGD_CAPACITY) * lenet_steps}
     log(f"LeNet-5 launches {l_launches}, expected {l_want}")
     if l_launches != l_want:
         raise AssertionError(f"LeNet-5 launches {l_launches}, expected "
@@ -1425,6 +1654,9 @@ def phase_classifier(card: str, k5: dict, k6: dict):
     if not step1_ok:
         fails.append("K5 is not bitwise equal to the plain update on "
                      "ResNet-50's step-1 gradients")
+    if copies or in_place != layouts or not layouts:
+        fails.append(f"ResNet-50's {layouts} non-contiguous gradients: "
+                     f"{in_place} read in place, {copies} copied")
     if l_losses_k != l_losses_p:
         fails.append(f"LeNet-5 kernel and plain runs are not bitwise equal:"
                      f" {l_diffs}")
