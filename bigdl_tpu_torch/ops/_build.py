@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # fused_adam, fused_sgd: no FMA contraction, so that every multiply and add
 # rounds on its own as in the plain PyTorch version (IEEE / and sqrt are
-# nvcc's default and stay on)
+# nvcc's default and stay on).  flash_fwd and flash_bwd keep nvcc's default
+# contraction: they are held to a tolerance, not bitwise.
 EXTRA_FLAGS: Dict[str, Tuple[str, ...]] = {"fused_adam": ("-fmad=false",),
                                            "fused_sgd": ("-fmad=false",)}
 

@@ -4,7 +4,9 @@ Port of ``bigdl_tpu/ops/flash_attention.py``.  Layout (B, H, S, D) as in
 the reference.
 
   * forward on a CUDA tensor — ``csrc/flash_fwd.cu`` (K1), which replaces
-    the reference's Pallas ``_fwd_kernel``.
+    the reference's Pallas ``_fwd_kernel``: tensor-core MMAs, three TF32
+    products each for f32 (split TF32, fp32 accuracy) and bf16 products
+    with P split into two bf16 halves.
   * backward on a CUDA tensor — ``csrc/flash_bwd.cu``: K2
     (``flash_bwd_dkv``, replaces ``_bwd_kernel_dkv``) writes dk and dv,
     K3 (``flash_bwd_dq``, replaces ``_bwd_kernel_dq``) writes dq.
@@ -222,11 +224,44 @@ def _check_kernel_inputs(q, k, v):
                          f"q {tuple(q.shape)}, k {tuple(k.shape)}")
 
 
+def _aligned4(t):
+    """``t`` when its base and its (batch, head, seq) strides are 4-byte
+    aligned, as the forward kernel's narrowest copy of a row needs;
+    otherwise (only bf16 at an odd element offset or stride) a contiguous
+    copy."""
+    item = t.element_size()
+    if t.data_ptr() % 4 == 0 and all(st * item % 4 == 0
+                                     for st in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _fwd_operands(q, k, v):
+    """q, k, v as the forward kernel takes them: D dense (any (batch, head,
+    seq) strides) and 4-byte aligned."""
+    return tuple(_aligned4(_unit_d(t)) for t in (q, k, v))
+
+
+def copy_bytes(q, k, v) -> int:
+    """The width of the forward kernel's copies of q, k and v tiles for
+    these inputs: 16 bytes when all three and their strides are 16-byte
+    aligned, else 4.  The kernel's own launcher applies the same rule
+    (``bigdl_flash_fwd_copy_bytes``)."""
+    q, k, v = _fwd_operands(q, k, v)
+    fn = _build.load(KERNEL_NAME).bigdl_flash_fwd_copy_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 9 + [
+            ctypes.c_int]
+        fn.restype = ctypes.c_int
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              *(st for t in (q, k, v) for st in t.stride()[:3]),
+              KERNEL_DTYPES[q.dtype])
+
+
 def _fwd_cuda(q, k, v, cfg: _Config):
     """Launch ``csrc/flash_fwd.cu`` on the current stream. -> (out, lse)"""
     _check_kernel_inputs(q, k, v)
-    # the kernel takes any (batch, head, seq) strides, but D must be dense
-    q, k, v = (_unit_d(t) for t in (q, k, v))
+    q, k, v = _fwd_operands(q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     # (B, S, H, D) storage seen as (B, H, S, D): the caller's transpose

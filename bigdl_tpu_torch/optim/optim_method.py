@@ -67,8 +67,9 @@ class OptimMethod:
 def _current_lr(method, state):
     """``rate(step) / (1 + step * lr_decay)``: an fp32 device scalar."""
     step = state["step"]
-    rate = torch.as_tensor(method.schedule.rate(method, step),
-                           dtype=torch.float32, device=step.device)
+    # a fill on the device, not a copy of a host value: no host sync
+    rate = torch.full((), method.schedule.rate(method, step),
+                      dtype=torch.float32, device=step.device)
     return rate / (1.0 + step * method.lr_decay)
 
 
@@ -148,8 +149,8 @@ class Adam(OptimMethod):
         computes them) and the host constants."""
         t = state["step"] + 1
         tf = t.to(torch.float32)
-        b1 = torch.tensor(self.beta1, dtype=torch.float32, device=t.device)
-        b2 = torch.tensor(self.beta2, dtype=torch.float32, device=t.device)
+        b1 = torch.full((), self.beta1, dtype=torch.float32, device=t.device)
+        b2 = torch.full((), self.beta2, dtype=torch.float32, device=t.device)
         return dict(clr=self.get_learning_rate(state),
                     bc1=1.0 - torch.pow(b1, tf), bc2=1.0 - torch.pow(b2, tf),
                     beta1=self.beta1, beta2=self.beta2, eps=self.eps,

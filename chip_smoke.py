@@ -6,12 +6,18 @@
 Phases (each raises on failure; the script exits 0 only if all pass):
 
   1. build    — compile every kernel of the port from ``bigdl_tpu_torch/csrc``
-                with nvcc for sm_90a (one nvcc per source, all at once).
+                with nvcc for sm_90a (one nvcc per source, all at once);
+                print ptxas's registers and spills (a spill in K1 fails)
+                and K1's HMMA instructions from ``cuobjdump -sass``.
   2. kernels  — each kernel against its plain PyTorch version on the card,
                 on the same inputs, with the tolerance stated; times of the
                 kernel, the plain version and one PyTorch library call,
                 and the bound for the work at the main path's shape:
-                K1 flash_fwd; K2 flash_bwd_dkv and K3 flash_bwd_dq; K4
+                K1 flash_fwd (ten cases, one with q/k/v one element into
+                their storage so that the kernel takes 4-byte copies; the
+                plain forward on TF32 must fail K1's f32 limit; f32 and
+                bf16 times beside SDPA's and the split-TF32 floor); K2
+                flash_bwd_dkv and K3 flash_bwd_dq; K4
                 fused_adam (bitwise); K5 fused_sgd_mom and K6
                 fused_sgd_plain (bitwise, over every static choice:
                 dampening, nesterov, weight decay; one leaf at a time,
@@ -21,7 +27,12 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 leaves than one launch's table holds).  K5, K6 and their
                 library call are also timed on the device with a cold
                 L2 (a 256 MB read before each call), beside the rate a
-                plain copy reaches.
+                plain copy reaches, back to back over two alternating
+                trees (events beside CUPTI), and the profiler's raw device
+                records of one cold call.  One SGD.update and one
+                AdamW.update run under
+                ``torch.cuda.set_sync_debug_mode("error")``: neither may
+                synchronize the host.
   3. serving  — TransformerLM ``base`` (d_model 768, 12 layers, 6 heads of
                 128, vocab 32000, fp32, weights from a seed) registered in
                 a ``ModelRegistry`` and served by ``ServingEngine(max_batch=8)``
@@ -60,7 +71,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 deterministic algorithms chosen without benchmarking.
 
 Output: a ``{"slice": {...}}`` line, a ``{"training": {...}}`` line, a
-``{"classifier": {...}}`` line, a ``{"kernels": [...]}`` line (all six
+``{"classifier": {...}}`` line, a ``{"host_sync": {...}}`` line, a
+``{"kernels": [...]}`` line (all six
 kernels), the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits with
@@ -72,6 +84,7 @@ explicitly for cuBLAS and cuDNN (the models' dtype is float32).
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -83,6 +96,7 @@ import torch
 
 H100_FP32_FLOPS = 67e12       # data sheet, SXM, CUDA cores, 700 W
 H100_BF16_FLOPS = 989e12      # data sheet, SXM, dense tensor cores, 700 W
+H100_TF32_FLOPS = 495e12      # data sheet, SXM, dense tensor cores, 700 W
 H100_HBM_BYTES_S = 3.35e12    # data sheet, SXM
 N_REQUESTS, N_CLIENTS, SEQ = 12, 3, 512
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 6, 3e-4
@@ -152,6 +166,13 @@ def attention_bound(b, h, sq, sk, d, causal, dtype):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def split_tf32_floor(b, h, sq, sk, d, causal):
+    """The least time of the f32 forward on the tensor cores as K1 does
+    it: three TF32 products for each fp32 one, at the TF32 peak."""
+    flops = 4 * b * h * d * _pairs(sq, sk, causal)
+    return 3 * flops / H100_TF32_FLOPS * 1e3
+
+
 # --------------------------------------------------------------------- #
 SOURCES = ("flash_fwd", "flash_bwd", "fused_adam", "fused_sgd")
 
@@ -159,25 +180,60 @@ SOURCES = ("flash_fwd", "flash_bwd", "fused_adam", "fused_sgd")
 def phase_build():
     from bigdl_tpu_torch.ops import _build
     t0 = time.monotonic()
-    _build.build_all(SOURCES)
+    libs = _build.build_all(SOURCES)
     secs = time.monotonic() - t0
     log(f"build: {secs:.1f} s")
+    spills = []
     for name in SOURCES:
         for line in _build.build_log(name).splitlines():
             if ("registers" in line or "spill" in line or "smem" in line
                     or "Compiling" in line):
                 log(f"  ptxas [{name}]: {line.strip()}")
+            found = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", line)
+            if name == "flash_fwd" and found and found.groups() != ("0", "0"):
+                spills.append(line.strip())
+    if spills:
+        raise AssertionError(f"flash_fwd spills registers: {spills}")
+    log(f"sass of flash_fwd: {sass_mma_counts(libs['flash_fwd'])}")
     return secs
+
+
+def sass_mma_counts(lib) -> dict:
+    """``{kernel: HMMA instructions}`` in the SASS of a built library, from
+    ``cuobjdump -sass``; raises if a kernel has none."""
+    import shutil
+    from pathlib import Path
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {"cuobjdump": "not found"}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"flash_fwd: a kernel without HMMA: {counts}")
+    return counts
 
 
 def _qkv(b, h, sq, sk, d, dtype, seed, layout="contig"):
     """q, k, v of shape (B, H, S, D).  ``layout``: "contig" (all three
     contiguous), "strided" (all three (B, S, H, D) storage seen as
-    (B, H, S, D)) or "main" (the model's own: RoPE hands q and k over
-    contiguous, v is the strided view of its projection)."""
+    (B, H, S, D)), "main" (the model's own: RoPE hands q and k over
+    contiguous, v is the strided view of its projection) or "offset"
+    (all three contiguous views one element into their storage)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def one(s, strided):
+        if layout == "offset":
+            n = b * h * s * d
+            flat = torch.randn(n + 1, generator=g, device="cuda").to(dtype)
+            return flat[1:].view(b, h, s, d)
         if strided:
             t = torch.randn((b, s, h, d), generator=g, device="cuda")
             return t.to(dtype).transpose(1, 2)
@@ -187,19 +243,39 @@ def _qkv(b, h, sq, sk, d, dtype, seed, layout="contig"):
     return (one(sq, qk_strided), one(sk, qk_strided), one(sk, v_strided))
 
 
+def fwd_ok(out, lse, ref, ref_lse):
+    """``out`` and ``lse`` within K1's limits of the plain forward's."""
+    return bool(torch.isfinite(out.float()).all().item()
+                and torch.allclose(out.float(), ref.float(),
+                                   **KERNEL_TOL[ref.dtype])
+                and torch.allclose(lse, ref_lse, **LSE_TOL))
+
+
 def _compare(fa, q, k, v, causal):
     """flash_fwd against its plain version on one input:
-    (max_abs_err, lse_max_abs_err, tolerance, ok)."""
+    (max_abs_err, lse_max_abs_err, tolerance, ok, plain out and lse)."""
     out, lse = fa.flash_forward(q, k, v, causal=causal)
     torch.cuda.synchronize()
     ref, ref_lse = fa.flash_forward_plain(q, k, v, causal=causal)
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
-    tol = KERNEL_TOL[q.dtype]
-    ok = (torch.isfinite(out.float()).all().item()
-          and torch.allclose(out.float(), ref.float(), **tol)
-          and torch.allclose(lse, ref_lse, **LSE_TOL))
-    return err, lse_err, tol, bool(ok)
+    return (err, lse_err, KERNEL_TOL[q.dtype],
+            fwd_ok(out, lse, ref, ref_lse), (ref, ref_lse))
+
+
+def tf32_fwd_reading(fa, q, k, v, causal, want):
+    """The plain forward with its matmuls on TF32 tensor cores (one pass),
+    read against K1's limits: a kernel that dropped below fp32 this way
+    must fail them.  Returns (max_abs_err, lse_max_abs_err, passes)."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out, lse = fa.flash_forward_plain(q, k, v, causal=causal)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ref, ref_lse = want
+    return ((out.float() - ref.float()).abs().max().item(),
+            (lse - ref_lse).abs().max().item(),
+            fwd_ok(out, lse, ref, ref_lse))
 
 
 def phase_kernels(card: str):
@@ -224,41 +300,59 @@ def phase_kernels(card: str):
          torch.bfloat16, True, "strided"),
         ("cross Sq=128 Sk=384 f32 causal", 2, 2, 128, 384, 128,
          torch.float32, True, "contig"),
+        ("slice f32 causal, q/k/v one element into their storage", 8, 6,
+         512, 512, 128, torch.float32, True, "offset"),
     ]
     results = []
     for i, (label, b, h, sq, sk, d, dt, causal, layout) in enumerate(cases):
         q, k, v = _qkv(b, h, sq, sk, d, dt, seed=100 + i, layout=layout)
-        err, lse_err, tol, ok = _compare(fa, q, k, v, causal)
-        results.append({"case": label, "shape": [b, h, sq, sk, d],
-                        "dtype": str(dt).replace("torch.", ""),
-                        "causal": causal, "layout": layout,
-                        "max_abs_err": err, "lse_max_abs_err": lse_err,
-                        "tolerance": tol, "ok": ok})
-        log(f"kernel vs plain [{label}]: max_abs_err {err:.3e} "
-            f"(lse {lse_err:.3e}) tol {tol} -> {'ok' if ok else 'FAIL'}")
+        width = fa.copy_bytes(q, k, v)
+        err, lse_err, tol, ok, want = _compare(fa, q, k, v, causal)
+        case = {"case": label, "shape": [b, h, sq, sk, d],
+                "dtype": str(dt).replace("torch.", ""), "causal": causal,
+                "layout": layout, "copy_bytes": width, "max_abs_err": err,
+                "lse_max_abs_err": lse_err, "tolerance": tol, "ok": ok}
+        if i == 0:
+            case["tf32"] = tf32_fwd_reading(fa, q, k, v, causal, want)
+        results.append(case)
+        log(f"kernel vs plain [{label}]: {width}-byte copies, max_abs_err "
+            f"{err:.3e} (lse {lse_err:.3e}) tol {tol} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        del want
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"flash_fwd disagrees with its plain version: "
                              f"{bad}")
+    widths = {r["copy_bytes"] for r in results}
+    if widths != {4, 16}:
+        raise AssertionError(f"flash_fwd cases took copy widths {widths}, "
+                             f"not both 16 and 4 bytes")
+    tf32_err, tf32_lse_err, tf32_passes = results[0]["tf32"]
+    check_tf32_fails("K1 [slice f32 causal]",
+                     {"max_abs_err": tf32_err, "lse_max_abs_err":
+                      tf32_lse_err}, tf32_passes,
+                     {"out": KERNEL_TOL[torch.float32], "lse": LSE_TOL})
 
     # times at the serving shape (B=8 bucket, H=6, S=512, D=128, causal)
     q, k, v = _qkv(8, 6, SEQ, SEQ, 128, torch.float32, seed=7, layout="main")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     ms = cuda_ms(lambda: fa.flash_forward(q, k, v, causal=True))
     plain_ms = cuda_ms(lambda: fa.flash_forward_plain(q, k, v, causal=True),
                        iters=5)
-    library_ms = cuda_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(q, k, v,
-                                                       is_causal=True))
+    library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True))
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     bf16_ms = cuda_ms(lambda: fa.flash_forward(qb, kb, vb, causal=True))
+    bf16_library_ms = cuda_ms(lambda: sdpa(qb, kb, vb, is_causal=True))
     bound_ms, bound_by = attention_bound(8, 6, SEQ, SEQ, 128, True,
                                          torch.float32)
+    tc_floor_ms = split_tf32_floor(8, 6, SEQ, SEQ, 128, True)
     bf16_bound, bf16_by = attention_bound(8, 6, SEQ, SEQ, 128, True,
                                           torch.bfloat16)
     log(f"flash_fwd f32 (8,6,512,128) causal: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms ({bound_by}); bf16 kernel {bf16_ms:.4f} ms, bound "
-        f"{bf16_bound:.4f} ms ({bf16_by}); {card}")
+        f"ms ({bound_by}), split-TF32 tensor-core floor {tc_floor_ms:.4f} "
+        f"ms; bf16 kernel {bf16_ms:.4f} ms, sdpa {bf16_library_ms:.4f} ms, "
+        f"bound {bf16_bound:.4f} ms ({bf16_by}); {card}")
     main = results[0]
     return {"name": "flash_fwd", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/flash_fwd.cu",
@@ -270,7 +364,9 @@ def phase_kernels(card: str):
             "library_call": "torch.nn.functional.scaled_dot_product_attention"
                             "(is_causal=True), f32",
             "shape": [8, 6, SEQ, SEQ, 128], "dtype": "float32",
+            "split_tf32_floor_ms": tc_floor_ms,
             "bf16_ms": bf16_ms, "bf16_bound_ms": bf16_bound,
+            "bf16_library_ms": bf16_library_ms,
             "cases": results, "card": card}
 
 
@@ -677,7 +773,7 @@ def phase_slice(card: str):
         blk.attn.attention_fn = None
     q, k, v = captured["q"], captured["k"], captured["v"]
     with torch.inference_mode():
-        err, lse_err, tol, ok = _compare(fa, q, k, v, causal=True)
+        err, lse_err, tol, ok, _ = _compare(fa, q, k, v, causal=True)
     layer_case = {"case": "served layer 0 q/k/v",
                   "shape": [q.shape[0], q.shape[1], SEQ, SEQ, q.shape[3]],
                   "dtype": "float32", "causal": True,
@@ -729,6 +825,11 @@ KERNEL_CLASSES = (("flash_fwd", "K1 flash_fwd"),
 
 
 def _device_us(ev):
+    if getattr(ev, "is_user_annotation", False):
+        # a range the profiler draws on the GPU's track (for example
+        # torch.optim's "Optimizer.step#SGD.step"), not device work: it
+        # spans the kernels it holds, which count on their own
+        return 0.0
     us = getattr(ev, "device_time_total", None)
     if us is None:
         us = getattr(ev, "cuda_time_total", 0.0)
@@ -819,21 +920,73 @@ def cold_ms(fn, key: Optional[str] = None, iters: int = 10) -> dict:
     return res
 
 
-def device_ms(fn, key: str, iters: int = 5) -> float:
-    """Device time of the kernels whose name holds ``key``, per call of
-    ``fn`` (after one warm call), from torch.profiler (CUPTI); None when
-    the profiler saw none."""
+def device_ms(fns, key: str, iters: int = 6) -> dict:
+    """Time per call of ``fns`` (a callable, or a list of callables run in
+    turn, so that consecutive calls can touch disjoint bytes), back to
+    back after one warm call of each: ``cupti_ms``, the device time of the
+    kernels whose name holds ``key`` from torch.profiler (CUPTI; None when
+    it saw none), and ``events_ms``, CUDA events around the same calls."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    fns = fns if isinstance(fns, (list, tuple)) else [fns]
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+        e0.record()
+        for i in range(iters):
+            fns[i % len(fns)]()
+        e1.record()
         torch.cuda.synchronize()
     us = sum(_device_us(ev) for ev in prof.key_averages()
              if key in ev.key.lower())
-    return us / 1e3 / iters if us else None
+    return {"cupti_ms": us / 1e3 / iters if us else None,
+            "events_ms": e0.elapsed_time(e1) / iters}
+
+
+def kernel_records(fn, key: str) -> dict:
+    """One call of ``fn`` with a cold L2 (as :func:`cold_ms` makes it)
+    under torch.profiler: the raw device records it saw (name, stream,
+    start and end in µs), and for the records whose name holds ``key``
+    the sum of their durations (annotations left out), the span from the
+    first start to the last end and what ``key_averages()`` makes of them,
+    beside CUDA events around the call."""
+    from torch.profiler import ProfilerActivity, profile
+    buf = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
+    out = torch.empty((), device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SPIN_CYCLES)
+        torch.sum(buf, dim=0, out=out)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+    del buf
+    recs = sorted(({"name": ev.name, "stream": getattr(
+                        ev, "device_resource_id", None),
+                    "annotation": getattr(ev, "is_user_annotation", None),
+                    "start_us": ev.time_range.start,
+                    "end_us": ev.time_range.end}
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: r["start_us"])
+    mine = [r for r in recs if key in r["name"].lower()
+            and not r["annotation"]]
+    for r in recs:
+        r["name"] = r["name"][:60]
+    avg_us = sum(_device_us(ev) for ev in prof.key_averages()
+                 if key in ev.key.lower())
+    return {"events_ms": e0.elapsed_time(e1),
+            "records_sum_ms": sum(r["end_us"] - r["start_us"]
+                                  for r in mine) / 1e3,
+            "records_span_ms": (mine[-1]["end_us"] - mine[0]["start_us"])
+            / 1e3 if mine else None,
+            "key_averages_ms": avg_us / 1e3, "records": recs}
 
 
 def phase_training(card: str, k4: dict):
@@ -1288,17 +1441,24 @@ def time_sgd(k5: dict, k6: dict, resnet_shapes, lenet_shapes, card: str):
                  for k, v in p.items()}
         return p, grads
 
-    def library_ms(params, grads, lib_kw, iters, cold=False):
-        """torch.optim.SGD(fused=True).step() on copies of params: (ms by
-        events, ms on the device of its kernels, named *FusedSgd*, and
-        with ``cold`` its :func:`cold_ms`)."""
+    def library_step(params, grads, lib_kw):
+        """torch.optim.SGD(fused=True).step on copies of params."""
         flat = [t["w"].clone().requires_grad_() for t in params.values()]
         for p_, gt in zip(flat, (t["w"] for t in grads.values())):
             p_.grad = gt
         ref = torch.optim.SGD(flat, fused=True, **lib_kw)
         ref.step()                               # builds its momentum buffers
-        return (cuda_ms(ref.step, iters=iters), device_ms(ref.step, "sgd"),
-                cold_ms(ref.step, "sgd") if cold else None)
+        return ref.step
+
+    def library_ms(params, grads, other, lib_kw):
+        """The library step on copies of params: (ms by events, its
+        :func:`device_ms` (its kernels are named *FusedSgd*) alternating
+        with the second tree ``other``, its :func:`cold_ms` and the raw
+        records of one cold call)."""
+        step = library_step(params, grads, lib_kw)
+        return (cuda_ms(step, iters=10),
+                device_ms([step, library_step(*other, lib_kw)], "sgd"),
+                cold_ms(step, "sgd"), kernel_records(step, "sgd"))
 
     # the rate a plain copy reaches on this card, cold: what the bound's
     # data-sheet rate is worth in practice
@@ -1323,19 +1483,28 @@ def time_sgd(k5: dict, k6: dict, resnet_shapes, lenet_shapes, card: str):
                    dampening=method.dampening, nesterov=method.nesterov,
                    weight_decay=method.weight_decay)
         vel = state.get("velocity")
+        # a second tree, so that back-to-back calls can alternate between
+        # disjoint bytes
+        params_b, grads_b = trees(resnet_shapes)
+        vel_b = method.init_state(params_b).get("velocity")
 
         def kernel_run():
             fo.fused_sgd_update(params, grads, vel, **upd)
+
+        def kernel_run_b():
+            fo.fused_sgd_update(params_b, grads_b, vel_b, **upd)
         before = fo._build.launch_counts().get(k["name"], 0)
         kernel_run()
         per_update = fo._build.launch_counts().get(k["name"], 0) - before
         ms = cuda_ms(kernel_run, iters=10)
         dev_ms = device_ms(kernel_run, "sgd_")
+        dev_alt = device_ms([kernel_run, kernel_run_b], "sgd_")
         cold = cold_ms(kernel_run, "sgd_")
+        records = kernel_records(kernel_run, "sgd_")
         plain_ms = cuda_ms(lambda: fo.fused_sgd_update_plain(
             params, grads, vel, **upd), iters=3)
-        lib_ms, lib_dev_ms, lib_cold = library_ms(params, grads, lib_kw, 10,
-                                                  cold=True)
+        lib_ms, lib_dev_ms, lib_cold, lib_records = library_ms(
+            params, grads, (params_b, grads_b), lib_kw)
         # the wrapper's host time, part by part (the launch is the rest)
         trs = (params, grads, vel) if vel is not None else (params, grads)
         leaves = fo.zip_leaves(*trs)
@@ -1357,10 +1526,18 @@ def time_sgd(k5: dict, k6: dict, resnet_shapes, lenet_shapes, card: str):
                     leaves, k["name"], in_place)),
                 "c_call_and_launch": _host_us(c_call, 50, idle=True)}
         torch.cuda.synchronize()
-        del params, grads, state, vel, leaves
+        del params, grads, state, vel, leaves, params_b, grads_b, vel_b
         bound_ms = n * nbytes / H100_HBM_BYTES_S * 1e3
+        for who, rec in (("kernel", records), ("library", lib_records)):
+            log(f"{k['name']} raw device records of one cold {who} call: "
+                f"events {rec['events_ms']:.4f} ms, records sum "
+                f"{rec['records_sum_ms']:.4f} ms, span "
+                f"{rec['records_span_ms']} ms, key_averages "
+                f"{rec['key_averages_ms']:.4f} ms; {rec['records']}")
         k.update(ms=ms, kernel_ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                 device_cold=cold, bound_ms=bound_ms, bound_by="bytes",
+                 device_ms_alternating=dev_alt, device_cold=cold,
+                 cold_records=records, library_cold_records=lib_records,
+                 bound_ms=bound_ms, bound_by="bytes",
                  copy_tb_s=copy_tb_s, library_ms=lib_ms,
                  library_device_ms=lib_dev_ms, library_cold=lib_cold,
                  library_call=f"torch.optim.SGD({lib_kw}, fused=True)"
@@ -1369,24 +1546,82 @@ def time_sgd(k5: dict, k6: dict, resnet_shapes, lenet_shapes, card: str):
                  launches_per_update=per_update, host_us=host)
         log(f"{k['name']} over {len(resnet_shapes)} leaves, {n} params: "
             f"{per_update} launch(es) an update; kernel {ms:.4f} ms by "
-            f"events, {dev_ms} ms on the device back to back, cold L2 "
-            f"{cold}, plain {plain_ms:.4f} ms, torch.optim.SGD(fused) "
-            f"{lib_ms:.4f} ms ({lib_dev_ms} on the device, cold L2 "
-            f"{lib_cold}), bound "
+            f"events, back to back {dev_ms} on one tree and {dev_alt} "
+            f"alternating two, cold L2 {cold}, plain {plain_ms:.4f} ms, "
+            f"torch.optim.SGD(fused) {lib_ms:.4f} ms (back to back "
+            f"alternating two trees {lib_dev_ms}, cold L2 {lib_cold}), bound "
             f"{bound_ms:.4f} ms (bytes); host µs {host}; {card}")
     params, grads = trees(lenet_shapes)
     clr = torch.full((), 0.05, device="cuda")
     lenet_ms = cuda_ms(lambda: fo.fused_sgd_update(params, grads, clr=clr),
                        iters=50)
     k6["lenet_ms_per_update"] = lenet_ms
-    k6["lenet_library_ms"] = library_ms(params, grads, dict(lr=0.05),
-                                        50)[0]
+    k6["lenet_library_ms"] = cuda_ms(library_step(params, grads,
+                                                  dict(lr=0.05)), iters=50)
     k6["lenet_bound_ms"] = sum(int(np.prod(s)) for s in lenet_shapes) \
         * 12 / H100_HBM_BYTES_S * 1e3
     log(f"fused_sgd_plain at LeNet-5's {len(lenet_shapes)} leaves: "
         f"{lenet_ms:.4f} ms an update, torch.optim.SGD(fused) "
         f"{k6['lenet_library_ms']:.4f} ms (bound "
         f"{k6['lenet_bound_ms']:.6f} ms); {card}")
+
+
+def _syncs(fn) -> Optional[str]:
+    """None when ``fn()`` runs under ``torch.cuda.set_sync_debug_mode
+    ("error")`` without a synchronizing call, else the error it raised."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        return str(e).splitlines()[0][:200]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    return None
+
+
+def phase_host_sync() -> dict:
+    """One SGD.update (K5) and one AdamW.update (K4) on the card must make
+    no host sync: each runs under ``set_sync_debug_mode("error")`` after a
+    warm update.  The mode must catch a read of a device value
+    (``.item()``), so that the check can see a sync at all; whether it
+    also reports a device scalar made from a host float, as the updates
+    built theirs before (``torch.as_tensor(rate, device=...)``), is
+    logged."""
+    from bigdl_tpu_torch.optim import SGD, AdamW
+    g = torch.Generator(device="cuda").manual_seed(14)
+
+    def tree():
+        return {"a": {"w": torch.randn(4096, generator=g, device="cuda")},
+                "b": {"w": torch.randn(64, 64, generator=g, device="cuda")}}
+    out = {}
+    for name, method in (
+            ("SGD(0.1, momentum=0.9, weight_decay=1e-4, fused=True)",
+             SGD(learning_rate=0.1, momentum=0.9, weight_decay=1e-4,
+                 fused=True)),
+            ("AdamW(3e-4, fused=True)", AdamW(learning_rate=3e-4,
+                                              fused=True))):
+        params, grads = tree(), tree()
+        state = [method.init_state(params)]
+        state[0] = method.update(grads, params, state[0])[1]
+
+        def update():
+            state[0] = method.update(grads, params, state[0])[1]
+        out[name] = _syncs(update)
+    out["control: .item() of a device value"] = _syncs(
+        lambda: torch.ones((), device="cuda").item())
+    out["torch.as_tensor(0.1, device='cuda')"] = _syncs(
+        lambda: torch.as_tensor(0.1, dtype=torch.float32, device="cuda"))
+    log(f"host sync under set_sync_debug_mode('error') (None: no sync): "
+        f"{out}")
+    if out["control: .item() of a device value"] is None:
+        raise AssertionError("set_sync_debug_mode did not report .item()")
+    bad = [k for k in list(out)[:2] if out[k] is not None]
+    if bad:
+        raise AssertionError(f"an optimizer update synchronizes the host: "
+                             f"{ {k: out[k] for k in bad} }")
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -1721,6 +1956,7 @@ def main() -> int:
     k23 = phase_flash_bwd(card)
     k4 = phase_adam(card)
     k5, k6 = phase_sgd(card)
+    host_sync = phase_host_sync()
     slice_ = phase_slice(card)
     k1["cases"].append(slice_["layer_case"])
     train = phase_training(card, k4)
@@ -1747,6 +1983,7 @@ def main() -> int:
     print(json.dumps({"slice": slice_}), flush=True)
     print(json.dumps({"training": train}), flush=True)
     print(json.dumps({"classifier": classifier}), flush=True)
+    print(json.dumps({"host_sync": host_sync}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

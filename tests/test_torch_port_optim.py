@@ -344,3 +344,68 @@ def test_sgd_kernel_input_checks_raise(bad, match, mom):
     with pytest.raises(ValueError, match=match):
         fo._sgd_cuda([leaf], clr=clr, momentum=0.9 if mom else 0.0,
                      dampening=0.0, nesterov=False, weight_decay=0.0)
+
+
+# --------------------------------------------------------------------- #
+# no device scalar made from a host value (a copy that syncs the host)   #
+# --------------------------------------------------------------------- #
+class _TorchWithoutHostCopies:
+    """``torch`` as ``optim_method`` sees it, with the two calls that copy
+    a host value to the device refused."""
+
+    def __getattr__(self, name):
+        if name in ("as_tensor", "tensor"):
+            def refuse(*args, **kwargs):
+                raise AssertionError(f"optim_method called torch.{name}: a "
+                                     f"host value copied to the device")
+            return refuse
+        return getattr(torch, name)
+
+
+def _host_copy_scalars(method, step):
+    """clr, and Adam's bc1 and bc2, built from host floats with
+    torch.as_tensor / torch.tensor: the values the update must keep."""
+    rate = torch.as_tensor(method.schedule.rate(method, step),
+                           dtype=torch.float32)
+    clr = rate / (1.0 + step * method.lr_decay)
+    if isinstance(method, SGD):
+        return dict(clr=clr)
+    tf = (step + 1).to(torch.float32)
+    b1 = torch.tensor(method.beta1, dtype=torch.float32)
+    b2 = torch.tensor(method.beta2, dtype=torch.float32)
+    return dict(clr=clr, bc1=1.0 - torch.pow(b1, tf),
+                bc2=1.0 - torch.pow(b2, tf))
+
+
+@pytest.mark.parametrize("kind", ["sgd", "adamw"])
+def test_update_makes_no_device_scalar_from_a_host_value(monkeypatch, kind):
+    from bigdl_tpu_torch.optim import optim_method as om
+    kw = dict(learning_rate=3e-2, learning_rate_decay=0.1)
+    if kind == "sgd":
+        method = SGD(momentum=0.9, weight_decay=1e-4, fused=True, **kw)
+    else:
+        method = AdamW(weight_decay=0.05, fused=True, **kw)
+    params = _to_torch(_tree(1, 0.3))
+    want_p = _to_torch(_tree(1, 0.3))
+    state = method.init_state(params)
+    want_st = method.init_state(want_p)
+    monkeypatch.setattr(om, "torch", _TorchWithoutHostCopies())
+    for i in range(3):
+        grads = _to_torch(_tree(20 + i, 0.1))
+        step = torch.tensor(i, dtype=torch.int32)
+        sc = _host_copy_scalars(method, step)
+        if kind == "sgd":
+            fo.fused_sgd_update_plain(
+                want_p, grads, want_st["velocity"], momentum=0.9,
+                dampening=0.9, weight_decay=1e-4, **sc)
+        else:
+            fo.fused_adam_update_plain(
+                want_p, grads, want_st["m"], want_st["v"], beta1=0.9,
+                beta2=0.999, eps=1e-8, weight_decay=0.05, **sc)
+        params, state = method.update(grads, params, state)
+    assert int(state["step"]) == 3
+    moments = ("velocity",) if kind == "sgd" else ("m", "v")
+    for (got, want) in ([(params, want_p)]
+                        + [(state[k], want_st[k]) for k in moments]):
+        for (a, b) in fo.zip_leaves(got, want):
+            assert torch.equal(a, b)
