@@ -75,14 +75,14 @@
 // K-major, so P.V would need V transposed in shared memory, and it needs
 // descriptors and swizzled layouts.
 //
-// ptxas -v (nvcc 12.9, sm_90a), registers: bf16 D=64 136, bf16 D=128 179,
+// ptxas -v (nvcc 12.9, sm_90a), registers: bf16 D=64 136, bf16 D=128 178,
 // f32 D=64 168, f32 D=128 168; no instantiation spills (chip_smoke.py
 // prints the build log and fails on a spill).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_mma.cuh"
 
 namespace {
+
+using namespace fmma;
 
 constexpr int BQ = 64;          // q rows per block
 constexpr int NW = 4;           // warps per block, 16 q rows each
@@ -105,145 +105,6 @@ constexpr size_t smem_bytes() {
     constexpr int BK = Tile<T, D>::BK, DP = Tile<T, D>::DP;
     // Q once; K and V: two stages each
     return sizeof(T) * (size_t(BQ) * DP + size_t(4) * BK * DP);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// x = hi + lo, hi = x rounded to TF32 (nearest, ties away from zero) and
-// lo = x - hi exactly.  hi is rounded as cvt.rna.tf32.f32 rounds a finite
-// x, in 2 instructions (sm_90 lowers the cvt to 4: an inf test, this add,
-// a select and this mask).  lo goes to the MMA as it is: a TF32 operand
-// is read with its 13 low bits ignored, so lo enters truncated (CUTLASS's
-// round_toward_zero tf32 conversion), losing at most 2^-21 of x.  A NaN
-// in x stays NaN in lo.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-    hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-    lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// The MMAs are not volatile: they only read and write registers, so the
-// compiler may interleave independent ones.
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c[i] += a * b[i] for N accumulators in split TF32: lo*hi + hi*lo first,
-// then hi*hi.  Each pass runs over all N accumulators, so that an MMA
-// never waits for the one just before it.
-template <int N>
-__device__ __forceinline__ void mma_3xtf32(float (*c)[4], const uint32_t* ahi,
-                                           const uint32_t* alo,
-                                           const float (*b)[2]) {
-    uint32_t bh[N][2], bl[N][2];
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-        split(b[i][0], bh[i][0], bl[i][0]);
-        split(b[i][1], bh[i][1], bl[i][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < N; ++i) mma_tf32(c[i], alo, bh[i][0], bh[i][1]);
-#pragma unroll
-    for (int i = 0; i < N; ++i) mma_tf32(c[i], ahi, bl[i][0], bl[i][1]);
-#pragma unroll
-    for (int i = 0; i < N; ++i) mma_tf32(c[i], ahi, bh[i][0], bh[i][1]);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* p) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-        "{%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Start the copies of ROWS rows of q, k or v from row r0 into a shared
-// tile; rows at or past n are zero-filled (nothing is read for them).
-// Thread i copies chunks i, i + NT, ... of E elements (copy_chunks).
-template <typename T, int D, int ROWS, int BYTES>
-__device__ __forceinline__ void copy_chunks(T* dst, const T* src,
-                                            int64_t ss, int r0, int n) {
-    constexpr int DP = Tile<T, D>::DP;
-    constexpr int E = BYTES / sizeof(T), PER_ROW = D / E;
-    constexpr int STEP = NT / PER_ROW;          // rows between a thread's
-    static_assert(NT % PER_ROW == 0 && ROWS % STEP == 0, "copy layout");
-    const int r = threadIdx.x / PER_ROW, c = threadIdx.x % PER_ROW * E;
-    const T* from = src + (r0 + r) * ss + c;
-    T* to = dst + r * DP + c;
-#pragma unroll
-    for (int m = 0; m < ROWS / STEP; ++m) {
-        const bool in = r0 + r + m * STEP < n;
-        const T* f = in ? from + m * STEP * ss : src;
-        if constexpr (BYTES == 16)
-            cp_async16(to + m * STEP * DP, f, in ? 16 : 0);
-        else
-            cp_async4(to + m * STEP * DP, f, in ? 4 : 0);
-    }
-}
-
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int64_t ss,
-                                          int r0, int n, bool vec16) {
-    if (vec16)
-        copy_chunks<T, D, ROWS, 16>(dst, src, ss, r0, n);
-    else
-        copy_chunks<T, D, ROWS, 4>(dst, src, ss, r0, n);
 }
 
 // f32: the Q tile as it landed becomes Q * sm_scale, in place.  Each
@@ -371,17 +232,11 @@ __device__ __forceinline__ void accumulate_pv(float (*o)[4],
     for (int kk = 0; kk < BK / 16; ++kk) {
         const float* s0 = s[2 * kk];
         const float* s1 = s[2 * kk + 1];
-        const float p[8] = {s0[0], s0[1], s0[2], s0[3],
-                            s1[0], s1[1], s1[2], s1[3]};
         uint32_t phi[4], plo[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-            const __nv_bfloat162 h =
-                __floats2bfloat162_rn(p[2 * r], p[2 * r + 1]);
-            phi[r] = *reinterpret_cast<const uint32_t*>(&h);
-            plo[r] = pack_bf16(p[2 * r] - __low2float(h),
-                               p[2 * r + 1] - __high2float(h));
-        }
+        split_bf16(s0[0], s0[1], phi[0], plo[0]);
+        split_bf16(s0[2], s0[3], phi[1], plo[1]);
+        split_bf16(s1[0], s1[1], phi[2], plo[2]);
+        split_bf16(s1[2], s1[3], phi[3], plo[3]);
 #pragma unroll
         for (int g4 = 0; g4 < D / 16; g4 += 4) {
             uint32_t b[4][4];       // 8 n chunks: b0, b1 of n, then n + 1
@@ -435,9 +290,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         n_kt = min(n_kt, last_row / BK + 1);
     }
     // the Q tile (rows past Sq as 0) and key tile 0: one group
-    load_tile<T, D, BQ>(sQ, qp, qss, q0, Sq, vec16);
-    load_tile<T, D, BK>(sK, kp, kss, 0, Sk, vec16);
-    load_tile<T, D, BK>(sV, vp, vss, 0, Sk, vec16);
+    load_tile<T, D, DP, BQ, NT>(sQ, qp, qss, q0, Sq, vec16);
+    load_tile<T, D, DP, BK, NT>(sK, kp, kss, 0, Sk, vec16);
+    load_tile<T, D, DP, BK, NT>(sV, vp, vss, 0, Sk, vec16);
     cp_async_commit();
 
     // this warp's rows: g and g + 8 of its 16
@@ -454,10 +309,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int st = kt & 1;
         if (kt + 1 < n_kt) {
             const int nx = (kt + 1) & 1;
-            load_tile<T, D, BK>(sK + nx * BK * DP, kp, kss, (kt + 1) * BK,
-                                Sk, vec16);
-            load_tile<T, D, BK>(sV + nx * BK * DP, vp, vss, (kt + 1) * BK,
-                                Sk, vec16);
+            load_tile<T, D, DP, BK, NT>(sK + nx * BK * DP, kp, kss,
+                                        (kt + 1) * BK, Sk, vec16);
+            load_tile<T, D, DP, BK, NT>(sV + nx * BK * DP, vp, vss,
+                                        (kt + 1) * BK, Sk, vec16);
         }
         cp_async_commit();          // an empty group on the last tile
         cp_async_wait1();           // tile kt (and Q) landed: this thread's
@@ -534,13 +389,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-bool aligned16(const void* p, const int64_t* st, int item) {
-    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
-    for (int i = 0; i < 3; ++i)
-        if ((st[i] * item) % 16) return false;
-    return true;
-}
-
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int64_t B, int64_t H, int64_t Sq, int64_t Sk,
@@ -577,20 +425,10 @@ extern "C" int bigdl_flash_fwd_copy_bytes(
     int64_t qsb, int64_t qsh, int64_t qss,
     int64_t ksb, int64_t ksh, int64_t kss,
     int64_t vsb, int64_t vsh, int64_t vss, int dtype) {
-    const int item = dtype == 0 ? 4 : 2;
     const void* ptrs[3] = {q, k, v};
     const int64_t st[3][3] = {{qsb, qsh, qss}, {ksb, ksh, kss},
                               {vsb, vsh, vss}};
-    bool all16 = true;
-    for (int i = 0; i < 3; ++i) all16 = all16 && aligned16(ptrs[i], st[i],
-                                                          item);
-    if (all16) return 16;
-    for (int i = 0; i < 3; ++i) {
-        if (reinterpret_cast<uintptr_t>(ptrs[i]) % 4) return 0;
-        for (int j = 0; j < 3; ++j)
-            if ((st[i][j] * item) % 4) return 0;
-    }
-    return 4;
+    return fmma::copy_bytes(ptrs, st, 3, dtype == 0 ? 4 : 2);
 }
 
 // q, k, v: (B, H, S, D) with unit stride on D and the given (batch, head,

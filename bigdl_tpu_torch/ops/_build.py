@@ -5,7 +5,8 @@ Each source under ``bigdl_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``).  Every source gets :data:`NVCC_FLAGS`, and some get
 extra flags of their own (:data:`EXTRA_FLAGS`).  The library's file name
-carries a hash of its source and its flags, so an edited source or a
+carries a hash of its source, of every header under ``csrc/`` (which a
+source may include) and of its flags, so an edited source or header or a
 changed flag is rebuilt and an unchanged one is loaded as it is.
 Nothing is built when a module is imported: :func:`load` runs inside the
 wrapper that launches the kernel.  ``nvcc`` prints each kernel's
@@ -80,6 +81,8 @@ def _flags(name: str) -> Tuple[str, ...]:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update("\0".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -9,7 +9,8 @@ the reference.
     with P split into two bf16 halves.
   * backward on a CUDA tensor — ``csrc/flash_bwd.cu``: K2
     (``flash_bwd_dkv``, replaces ``_bwd_kernel_dkv``) writes dk and dv,
-    K3 (``flash_bwd_dq``, replaces ``_bwd_kernel_dq``) writes dq.
+    K3 (``flash_bwd_dq``, replaces ``_bwd_kernel_dq``) writes dq, on the
+    tensor cores as K1 (``csrc/flash_mma.cuh`` holds their shared helpers).
     ``delta = sum_d do * out`` stays a plain fp32 reduction in PyTorch
     between the two, as the reference leaves it to XLA.
   * the kernels take f32 or bf16 inputs and head dims 64 and 128, and mask
@@ -283,6 +284,27 @@ def _fwd_cuda(q, k, v, cfg: _Config):
     return out, lse
 
 
+def _bwd_operands(q, k, v, do):
+    """q, k, v, do as K2 and K3 take them: D dense (any (batch, head, seq)
+    strides) and 4-byte aligned."""
+    return tuple(_aligned4(_unit_d(t)) for t in (q, k, v, do))
+
+
+def bwd_copy_bytes(q, k, v, do) -> int:
+    """The width of K2's and K3's copies of q, k, v and do tiles for these
+    inputs: 16 bytes when all four and their strides are 16-byte aligned,
+    else 4.  The kernels' own launcher applies the same rule
+    (``bigdl_flash_bwd_copy_bytes``)."""
+    ts = _bwd_operands(q, k, v, do)
+    fn = _build.load(BWD_SOURCE).bigdl_flash_bwd_copy_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
+        fn.restype = ctypes.c_int
+    strides = (ctypes.c_int64 * 12)(
+        *(st for t in ts for st in t.stride()[:3]))
+    return fn(*(t.data_ptr() for t in ts), strides, KERNEL_DTYPES[q.dtype])
+
+
 def _bwd_lib():
     lib = _build.load(BWD_SOURCE)
     dkv, dq = lib.bigdl_flash_bwd_dkv, lib.bigdl_flash_bwd_dq
@@ -337,8 +359,7 @@ def _bwd_prepare(q, k, v, out, lse, do, cfg: _Config) -> _BwdCall:
         raise ValueError(f"flash_attention backward: lse must be float32 "
                          f"{tuple(q.shape[:3])}, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
-    # the kernels take any (batch, head, seq) strides, but D must be dense
-    q, k, v, do = (_unit_d(t) for t in (q, k, v, do))
+    q, k, v, do = _bwd_operands(q, k, v, do)
     # delta = rowsum(do * out) in fp32 from the input dtype, as the
     # reference's _bwd_pallas forms it with XLA outside its kernels
     delta = (do.float() * out.float()).sum(-1).contiguous()

@@ -7,8 +7,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
 
   1. build    — compile every kernel of the port from ``bigdl_tpu_torch/csrc``
                 with nvcc for sm_90a (one nvcc per source, all at once);
-                print ptxas's registers and spills (a spill in K1 fails)
-                and K1's HMMA instructions from ``cuobjdump -sass``.
+                print ptxas's registers and spills (a spill in K1, K2 or
+                K3 fails) and the HMMA instructions of K1, K2 and K3 from
+                ``cuobjdump -sass`` (a kernel without any fails).
   2. kernels  — each kernel against its plain PyTorch version on the card,
                 on the same inputs, with the tolerance stated; times of the
                 kernel, the plain version and one PyTorch library call,
@@ -17,7 +18,13 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 their storage so that the kernel takes 4-byte copies; the
                 plain forward on TF32 must fail K1's f32 limit; f32 and
                 bf16 times beside SDPA's and the split-TF32 floor); K2
-                flash_bwd_dkv and K3 flash_bwd_dq; K4
+                flash_bwd_dkv and K3 flash_bwd_dq (thirteen cases, three
+                with q/k/v/do one or two elements into their storage, so
+                that the kernels take 4-byte copies or the wrapper copies
+                a bf16 operand below 4-byte alignment; the plain backward
+                on TF32 must fail the f32 limit; two runs on the same
+                inputs must give the same bits; f32 and bf16 times beside
+                SDPA's backward and the split-TF32 floor); K4
                 fused_adam (bitwise); K5 fused_sgd_mom and K6
                 fused_sgd_plain (bitwise, over every static choice:
                 dampening, nesterov, weight decay; one leaf at a time,
@@ -149,6 +156,25 @@ def cuda_ms(fn, iters: int = 20, warm: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def queued_ms(fn, iters: int = 20, warm: int = 3) -> float:
+    """Device time per call of ``fn`` by CUDA events, with the host ahead:
+    the card first spins for ~30 ms, in which the host queues all ``iters``
+    calls, so the host's time between calls is not counted where it is
+    the slower side (as :func:`cuda_ms` counts it)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10 * SPIN_CYCLES)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
 def attention_bound(b, h, sq, sk, d, causal, dtype):
     """(bound_ms, bound_by): the larger of the bytes the function must
     move (q, k, v read once, out and lse written once) over the HBM rate
@@ -175,6 +201,7 @@ def split_tf32_floor(b, h, sq, sk, d, causal):
 
 # --------------------------------------------------------------------- #
 SOURCES = ("flash_fwd", "flash_bwd", "fused_adam", "fused_sgd")
+MMA_SOURCES = ("flash_fwd", "flash_bwd")     # on the tensor cores
 
 
 def phase_build():
@@ -191,15 +218,18 @@ def phase_build():
                 log(f"  ptxas [{name}]: {line.strip()}")
             found = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                               r"spill loads", line)
-            if name == "flash_fwd" and found and found.groups() != ("0", "0"):
-                spills.append(line.strip())
+            if (name in MMA_SOURCES and found
+                    and found.groups() != ("0", "0")):
+                spills.append(f"{name}: {line.strip()}")
     if spills:
-        raise AssertionError(f"flash_fwd spills registers: {spills}")
-    log(f"sass of flash_fwd: {sass_mma_counts(libs['flash_fwd'])}")
+        raise AssertionError(f"a tensor-core kernel spills registers: "
+                             f"{spills}")
+    for name in MMA_SOURCES:
+        log(f"sass of {name}: {sass_mma_counts(libs[name], name)}")
     return secs
 
 
-def sass_mma_counts(lib) -> dict:
+def sass_mma_counts(lib, name: str) -> dict:
     """``{kernel: HMMA instructions}`` in the SASS of a built library, from
     ``cuobjdump -sass``; raises if a kernel has none."""
     import shutil
@@ -217,23 +247,29 @@ def sass_mma_counts(lib) -> dict:
         elif fn is not None and "HMMA" in line:
             counts[fn] += 1
     if not counts or not all(counts.values()):
-        raise AssertionError(f"flash_fwd: a kernel without HMMA: {counts}")
+        raise AssertionError(f"{name}: a kernel without HMMA: {counts}")
     return counts
+
+
+def _offset_view(shape, dtype, g, offset):
+    """A contiguous randn tensor ``offset`` elements into its storage."""
+    n = int(np.prod(shape))
+    flat = torch.randn(n + offset, generator=g, device="cuda").to(dtype)
+    return flat[offset:].view(*shape)
 
 
 def _qkv(b, h, sq, sk, d, dtype, seed, layout="contig"):
     """q, k, v of shape (B, H, S, D).  ``layout``: "contig" (all three
     contiguous), "strided" (all three (B, S, H, D) storage seen as
     (B, H, S, D)), "main" (the model's own: RoPE hands q and k over
-    contiguous, v is the strided view of its projection) or "offset"
-    (all three contiguous views one element into their storage)."""
+    contiguous, v is the strided view of its projection), "offset" or
+    "offset2" (all three contiguous views one or two elements into their
+    storage)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def one(s, strided):
-        if layout == "offset":
-            n = b * h * s * d
-            flat = torch.randn(n + 1, generator=g, device="cuda").to(dtype)
-            return flat[1:].view(b, h, s, d)
+        if layout in OFFSETS:
+            return _offset_view((b, h, s, d), dtype, g, OFFSETS[layout])
         if strided:
             t = torch.randn((b, s, h, d), generator=g, device="cuda")
             return t.to(dtype).transpose(1, 2)
@@ -241,6 +277,9 @@ def _qkv(b, h, sq, sk, d, dtype, seed, layout="contig"):
     qk_strided = layout == "strided"
     v_strided = layout in ("strided", "main")
     return (one(sq, qk_strided), one(sk, qk_strided), one(sk, v_strided))
+
+
+OFFSETS = {"offset": 1, "offset2": 2}
 
 
 def fwd_ok(out, lse, ref, ref_lse):
@@ -402,6 +441,8 @@ def _grad_out(q, layout, seed):
     is the (B, S, H, D)-storage view autograd hands the backward."""
     b, h, s, d = q.shape
     g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout in OFFSETS:
+        return _offset_view(q.shape, q.dtype, g, OFFSETS[layout])
     if layout in ("main", "strided"):
         t = torch.randn((b, s, h, d), generator=g, device="cuda")
         return t.to(q.dtype).transpose(1, 2)
@@ -456,8 +497,49 @@ def tf32_bwd_reading(fa, q, k, v, do, causal, want, relative=False):
     return errs, bwd_ok(got, want, errs, relative)
 
 
+def bwd_split_tf32_floors(b, h, sq, sk, d, causal):
+    """{kernel: least time of the f32 backward on the tensor cores as K2
+    and K3 do it}: three TF32 products for each fp32 one (K2 8·D
+    operations a pair, K3 6·D), at the TF32 peak."""
+    pairs = _pairs(sq, sk, causal) * b * h
+    return {"flash_bwd_dkv": 3 * 8 * d * pairs / H100_TF32_FLOPS * 1e3,
+            "flash_bwd_dq": 3 * 6 * d * pairs / H100_TF32_FLOPS * 1e3}
+
+
+BWD_KERNELS = ("flash_bwd_dkv", "flash_bwd_dq")
+
+
+def bwd_times(fa, q, k, v, do):
+    """{kernel: ms} of K2 and K3 on one causal input, and what the library
+    takes for dq, dk and dv: SDPA's backward alone, through autograd from
+    one forward whose graph is kept; all by events with the host queued
+    ahead.  (By cuda_ms, SDPA's forward + backward less its forward, or
+    its backward alone, read 0.43 to 0.76 ms for f32 and 0.11 to 0.72 ms
+    for bf16 on one H100: the host's time through autograd, not SDPA's.)"""
+    out, lse = fa.flash_forward_plain(q, k, v, causal=True)
+    call = fa._bwd_prepare(q, k, v, out, lse, do, fa._config(q, True, None))
+    ms = {name: queued_ms(lambda n=name: fa._bwd_launch(call, n))
+          for name in BWD_KERNELS}
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg,
+                                                         is_causal=True)
+    library_ms = queued_ms(lambda: torch.autograd.grad(
+        o, (qg, kg, vg), do, retain_graph=True))
+    return ms, library_ms, (out, lse)
+
+
+def bwd_repeats_bitwise(fa, q, k, v, do):
+    """K2 + K3 twice on the same inputs: the same bits (no atomics)."""
+    out, lse = fa.flash_forward_plain(q, k, v, causal=True)
+    first = fa.flash_backward(q, k, v, out, lse, do, causal=True)
+    second = fa.flash_backward(q, k, v, out, lse, do, causal=True)
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def phase_flash_bwd(card: str):
-    """K2 and K3 against the plain backward, and their times."""
+    """K2 and K3 against the plain backward, their repeatability, and
+    their times."""
     from bigdl_tpu_torch.ops import flash_attention_mod as fa
     cases = [
         # (label, B, H, Sq, Sk, D, dtype, causal, layout)
@@ -481,27 +563,41 @@ def phase_flash_bwd(card: str):
          torch.float32, True, "contig"),
         ("cross Sq=200 Sk=328 bf16 non-causal", 2, 2, 200, 328, 64,
          torch.bfloat16, False, "contig"),
+        ("slice f32 causal, q/k/v/do one element into their storage", 8, 6,
+         512, 512, 128, torch.float32, True, "offset"),
+        ("ragged S=300 bf16 causal, q/k/v/do one element into their "
+         "storage (copied by the wrapper)", 2, 6, 300, 300, 128,
+         torch.bfloat16, True, "offset"),
+        ("ragged S=300 bf16 non-causal head_dim 64, q/k/v/do two elements "
+         "into their storage", 2, 4, 300, 300, 64, torch.bfloat16, False,
+         "offset2"),
     ]
     results = []
     for i, (label, b, h, sq, sk, d, dt, causal, layout) in enumerate(cases):
         q, k, v = _qkv(b, h, sq, sk, d, dt, seed=200 + i, layout=layout)
         do = _grad_out(q, layout, seed=300 + i)
+        width = fa.bwd_copy_bytes(q, k, v, do)
         err, errs, tol, ok, want = compare_bwd(fa, q, k, v, do, causal)
         case = {"case": label, "shape": [b, h, sq, sk, d],
                 "dtype": str(dt).replace("torch.", ""), "causal": causal,
-                "layout": layout, "max_abs_err": err,
+                "layout": layout, "copy_bytes": width, "max_abs_err": err,
                 "errors_and_max_ref": errs, "tolerance": tol, "ok": ok}
         if i == 0:
             case["tf32"], case["tf32_passes"] = tf32_bwd_reading(
                 fa, q, k, v, do, causal, want)
         results.append(case)
-        log(f"K2+K3 vs plain [{label}]: max_abs_err {err:.3e} "
-            f"(err, max|ref|) {errs} tol {tol} -> {'ok' if ok else 'FAIL'}")
+        log(f"K2+K3 vs plain [{label}]: {width}-byte copies, max_abs_err "
+            f"{err:.3e} (err, max|ref|) {errs} tol {tol} -> "
+            f"{'ok' if ok else 'FAIL'}")
         del want
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"flash_bwd disagrees with its plain version: "
                              f"{bad}")
+    widths = {r["copy_bytes"] for r in results}
+    if widths != {4, 16}:
+        raise AssertionError(f"flash_bwd cases took copy widths {widths}, "
+                             f"not both 16 and 4 bytes")
     check_tf32_fails("K2+K3 [slice f32 causal]", results[0]["tf32"],
                      results[0]["tf32_passes"], BWD_TOL[torch.float32])
 
@@ -509,29 +605,29 @@ def phase_flash_bwd(card: str):
     b, h, d = TRAIN_BATCH, 6, 128
     q, k, v = _qkv(b, h, SEQ, SEQ, d, torch.float32, seed=9, layout="main")
     do = _grad_out(q, "main", seed=10)
-    out, lse = fa.flash_forward_plain(q, k, v, causal=True)
-    cfg = fa._config(q, True, None)
-    call = fa._bwd_prepare(q, k, v, out, lse, do, cfg)
-    ms = {name: cuda_ms(lambda n=name: fa._bwd_launch(call, n))
-          for name in ("flash_bwd_dkv", "flash_bwd_dq")}
+    bitwise = bwd_repeats_bitwise(fa, q, k, v, do)
+    log(f"K2+K3 twice on the slice's f32 inputs: "
+        f"{'the same bits' if bitwise else 'DIFFERENT bits'}")
+    if not bitwise:
+        raise AssertionError("K2+K3 are not deterministic")
+    ms, library_ms, (out, lse) = bwd_times(fa, q, k, v, do)
     delta_ms = cuda_ms(lambda: (do.float() * out.float()).sum(-1))
     plain_ms = cuda_ms(lambda: fa.flash_backward_plain(q, k, v, out, lse, do,
                                                        causal=True), iters=5)
-    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_fwd_ms = cuda_ms(lambda: sdpa(qg, kg, vg, is_causal=True))
-    sdpa_fb_ms = cuda_ms(lambda: torch.autograd.grad(
-        sdpa(qg, kg, vg, is_causal=True), (qg, kg, vg), do))
-    library_ms = sdpa_fb_ms - sdpa_fwd_ms
+    bf16_ms, bf16_library_ms, _ = bwd_times(
+        fa, *(t.to(torch.bfloat16) for t in (q, k, v, do)))
     bounds = bwd_bounds(b, h, SEQ, SEQ, d, True, torch.float32)
-    log(f"flash_bwd f32 ({b},{h},{SEQ},{d}) causal: K2 "
-        f"{ms['flash_bwd_dkv']:.4f} ms (bound "
-        f"{bounds['flash_bwd_dkv'][0]:.4f} {bounds['flash_bwd_dkv'][1]}), "
-        f"K3 {ms['flash_bwd_dq']:.4f} ms (bound "
-        f"{bounds['flash_bwd_dq'][0]:.4f} {bounds['flash_bwd_dq'][1]}), "
-        f"delta {delta_ms:.4f} ms, plain backward {plain_ms:.4f} ms, SDPA "
-        f"backward {library_ms:.4f} ms (fwd+bwd {sdpa_fb_ms:.4f} - fwd "
-        f"{sdpa_fwd_ms:.4f}); {card}")
+    floors = bwd_split_tf32_floors(b, h, SEQ, SEQ, d, True)
+    bf16_bounds = bwd_bounds(b, h, SEQ, SEQ, d, True, torch.bfloat16)
+    for name in BWD_KERNELS:
+        log(f"{name} f32 ({b},{h},{SEQ},{d}) causal: {ms[name]:.4f} ms "
+            f"(bound {bounds[name][0]:.4f} {bounds[name][1]}, split-TF32 "
+            f"floor {floors[name]:.4f}); bf16 {bf16_ms[name]:.4f} ms "
+            f"(bound {bf16_bounds[name][0]:.4f} {bf16_bounds[name][1]})")
+    log(f"K2+K3 f32 {sum(ms.values()):.4f} ms, delta {delta_ms:.4f} ms, "
+        f"plain backward {plain_ms:.4f} ms, SDPA backward {library_ms:.4f} "
+        f"ms; bf16 K2+K3 {sum(bf16_ms.values()):.4f} ms, SDPA backward "
+        f"{bf16_library_ms:.4f} ms; {card}")
     main = results[0]
     replaces = {"flash_bwd_dkv": "bigdl_tpu/ops/flash_attention.py:285",
                 "flash_bwd_dq": "bigdl_tpu/ops/flash_attention.py:325"}
@@ -542,15 +638,20 @@ def phase_flash_bwd(card: str):
              "tolerance": main["tolerance"], "ms": ms[name],
              "kernel_ms": ms[name], "plain_ms": plain_ms,
              "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+             "split_tf32_floor_ms": floors[name],
              "library_ms": library_ms,
-             "library_call": "autograd.grad through torch.nn.functional."
-                             "scaled_dot_product_attention(is_causal=True)"
-                             " minus its forward, f32",
+             "library_call": "autograd.grad of torch.nn.functional."
+                             "scaled_dot_product_attention(is_causal=True)'s"
+                             " output, its graph kept: the backward alone, "
+                             "f32",
              "plain_and_library_cover": "dq, dk and dv (K2 and K3 "
                                         "together, delta included)",
+             "bf16_ms": bf16_ms[name], "bf16_bound_ms": bf16_bounds[name][0],
+             "bf16_library_ms": bf16_library_ms,
+             "repeat_bitwise": bitwise,
              "delta_ms": delta_ms, "shape": [b, h, SEQ, SEQ, d],
              "dtype": "float32", "cases": results, "card": card}
-            for name in ("flash_bwd_dkv", "flash_bwd_dq")]
+            for name in BWD_KERNELS]
 
 
 def check_tf32_fails(what, reading, passes, limit):

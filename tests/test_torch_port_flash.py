@@ -250,6 +250,24 @@ def test_build_flags_are_per_source_and_hashed(monkeypatch):
     assert _build._target("fused_adam") != before
 
 
+def test_build_target_hashes_the_included_headers(monkeypatch, tmp_path):
+    """A source includes the headers under csrc/ (flash_mma.cuh): an edit
+    to one names a new library for every source, so no stale build is
+    loaded; an unchanged tree names the same one."""
+    names = ("flash_fwd", "flash_bwd", "fused_adam")
+    before = {n: _build._target(n) for n in names}
+    for f in _build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert {n: _build._target(n) for n in names} == before
+    header = tmp_path / "flash_mma.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: _build._target(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    (tmp_path / "extra.cuh").write_text("// a new header\n")
+    assert _build._target("flash_bwd") != after["flash_bwd"]
+
+
 def test_launch_counts_are_per_kernel():
     _build.reset_launch_counts()
     _build.count_launch("flash_bwd_dq")

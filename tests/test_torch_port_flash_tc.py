@@ -310,3 +310,29 @@ def test_operands_are_copied_only_below_4_byte_alignment():
         assert torch.equal(t, hb)
     strided = torch.randn(2, 8, 2, 64).transpose(1, 2)   # (B, S, H, D)
     assert tfa._fwd_operands(strided, strided, strided)[1] is strided
+
+
+def test_backward_operands_are_copied_only_below_4_byte_alignment():
+    """K2 and K3 take q, k, v and do as the forward takes q, k, v: a view
+    at a 4-byte offset is read in place, a bf16 view at an odd element
+    offset is copied (no copy width reaches it)."""
+    b, h, s, d = 2, 2, 8, 64
+    flat = torch.randn(b * h * s * d + 1)
+    q = flat[1:].view(b, h, s, d)                    # f32, 4-byte aligned
+    lse = torch.zeros(b, h, s)
+    cfg = tfa._config(q, True, None)
+    c = tfa._bwd_prepare(q, q, q, q, lse, q, cfg)
+    assert all(t.data_ptr() == q.data_ptr() for t in (c.q, c.k, c.v, c.do))
+    hb = flat.to(torch.bfloat16)[1:].view(b, h, s, d)   # bf16 at 2 bytes
+    c = tfa._bwd_prepare(hb, hb, hb, hb, lse, hb, cfg)
+    for t in (c.q, c.k, c.v, c.do):
+        assert t.data_ptr() % 4 == 0 and t.is_contiguous()
+        assert torch.equal(t, hb)
+    h2 = torch.randn(b * h * s * d + 2).to(torch.bfloat16)[2:].view(
+        b, h, s, d)                                      # bf16 at 4 bytes
+    c = tfa._bwd_prepare(h2, h2, h2, h2, lse, h2, cfg)
+    assert all(t.data_ptr() == h2.data_ptr() for t in (c.q, c.k, c.v, c.do))
+    strided = torch.randn(b, s, h, d).transpose(1, 2)    # (B, S, H, D)
+    c = tfa._bwd_prepare(strided, strided, strided, strided, lse, strided,
+                         cfg)
+    assert c.k is strided and c.do is strided
