@@ -30,55 +30,33 @@
 // values), so a launch per leaf pays a launch and a host call for a few
 // kilobytes each.
 //
-// Design: one multi-tensor launch per update.
-//   * The leaves go to the kernel as one table, a __grid_constant__ kernel
-//     parameter (up to 32,764 bytes on sm_90 with CUDA >= 12.1), so the
-//     dynamic indexing below reads the parameter bank and copies nothing
-//     to local memory.  It holds CAP leaves; a longer list of leaves is
-//     split by the wrapper into ceil(leaves / CAP) launches.
-//   * The grid is chunked: leaf l owns chunks start[l] .. start[l+1]-1 of
-//     CHUNK elements each, and block b finds its leaf by a binary search of
-//     start (the same for every thread, so it is a broadcast read).  A
-//     batch-norm vector is one block; fc's 2048x1000 weight is 500 blocks;
-//     ResNet-50 as a whole is about 6,300 blocks, some six waves of the
-//     card's resident blocks.  Chunk offsets are int64.
-//   * Each thread moves VPT float4s with 16-byte streaming loads and
-//     stores (__ldcs/__stcs: every byte is touched once), all loads made
-//     before any arithmetic, where the leaf's pointers are 16-byte aligned
-//     (decided per leaf on the host from the pointers' low bits); a leaf
-//     that is not takes the scalar path.  The last chunk's ragged tail is
-//     bounds-checked.
-//   * A gradient in the channels-last order of its OIHW leaf (cuDNN's
-//     weight gradient of an NHWC conv) is read in place: p's element
-//     ((o*I + i)*HW + hw) takes g's element ((o*HW + hw)*I + i).  p and v
-//     stay vectorised, g is gathered with scalar loads.  The host gives
-//     this tag only to leaves below 2^31 elements, so the index map runs
-//     in 32 bits.
+// Design: one multi-tensor launch per update over a LeafTable of p, g and
+// v (csrc/multi_tensor.cuh: the table, the chunked grid, the float4 and
+// scalar paths, the channels-last map).  A batch-norm vector is one block;
+// fc's 2048x1000 weight is 500 blocks; ResNet-50 as a whole is about 6,300
+// blocks, some six waves of the card's resident blocks.  Each thread's
+// loads (__ldcs: every byte is touched once) are all made before any
+// arithmetic; p and v stay vectorised under a channels-last g, which is
+// gathered with scalar loads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "multi_tensor.cuh"
+
 namespace {
 
-constexpr int NT = 256;                     // threads a block
-constexpr int VPT = 4;                      // float4s a thread
-constexpr int CHUNK = NT * VPT * 4;         // elements a block: 4096
+using mt::CHUNK;
+using mt::NT;
+using mt::VPT;
+using mt::cl_index;
 constexpr int CAP = 720;                    // leaves a launch
 
-struct LeafTable {
-    float* p[CAP];
-    float* v[CAP];              // K5's velocity; unused by K6
-    const float* g[CAP];
-    int64_t n[CAP];
-    int32_t start[CAP];         // first chunk of each leaf (prefix sum)
-    int32_t cin[CAP];           // > 0: g channels-last, I of the OIHW leaf
-    int32_t hw[CAP];            // H*W of such a leaf
-    uint8_t vec[CAP];           // 1: every pointer read as float4 aligned
-    int32_t count;
-};
-// the table plus clr, mu, 1 - dampening and wd within sm_90's 32,764 bytes
-// of kernel parameters
+using LeafTable = mt::LeafTable<3, CAP>;    // p, g, v (K6: v unused)
+// the table plus clr, mu, 1 - dampening and wd within sm_90's kernel
+// parameters
 static_assert(sizeof(LeafTable) + sizeof(void*) + 3 * sizeof(float)
-                  <= 32764, "LeafTable exceeds the kernel parameter space");
+                  <= mt::PARAM_BYTES,
+              "LeafTable exceeds the kernel parameter space");
 
 template <bool MOM, bool DECAY, bool NESTEROV>
 __device__ __forceinline__ void update(float& p, float& v, float g,
@@ -95,30 +73,16 @@ __device__ __forceinline__ void update(float& p, float& v, float g,
     }
 }
 
-__device__ __forceinline__ uint32_t cl_index(uint32_t e, uint32_t cin,
-                                             uint32_t hw) {
-    const uint32_t per_o = cin * hw;
-    const uint32_t o = e / per_o, r = e - o * per_o;
-    const uint32_t i = r / hw, s = r - i * hw;
-    return (o * hw + s) * cin + i;
-}
-
 template <bool MOM, bool DECAY, bool NESTEROV>
 __device__ __forceinline__ void chunk_update(const LeafTable& t,
                                              const float* __restrict__ clr_p,
                                              float mu, float omd, float wd) {
-    const int b = int(blockIdx.x);
-    int lo = 0, hi = t.count - 1;           // the last leaf with start <= b
-    while (lo < hi) {
-        const int mid = (lo + hi + 1) >> 1;
-        if (t.start[mid] <= b) lo = mid; else hi = mid - 1;
-    }
-    const int64_t off = int64_t(b - t.start[lo]) * CHUNK;
-    const int64_t left = t.n[lo] - off;
-    const int len = left < CHUNK ? int(left) : CHUNK;
-    float* __restrict__ p = t.p[lo] + off;
-    float* __restrict__ v = MOM ? t.v[lo] + off : nullptr;
-    const float* __restrict__ g = t.g[lo];
+    const mt::Chunk c = mt::find_chunk(t);
+    const int lo = c.leaf, len = c.len;
+    const int64_t off = c.off;
+    float* __restrict__ p = t.ptr[0][lo] + off;
+    const float* __restrict__ g = t.ptr[1][lo];
+    float* __restrict__ v = MOM ? t.ptr[2][lo] + off : nullptr;
     const uint32_t cin = uint32_t(t.cin[lo]), hw = uint32_t(t.hw[lo]);
     const float clr = *clr_p;
 
@@ -198,34 +162,6 @@ sgd_plain_kernel(const __grid_constant__ LeafTable t,
     chunk_update<false, DECAY, false>(t, clr, 0.f, 0.f, wd);
 }
 
-// Fills the table from the host arrays; returns the number of chunks
-// (blocks), or -1 if the arrays are not a table this kernel takes.
-int64_t fill(LeafTable& t, const int64_t* ptrs, const int64_t* meta,
-             int count, bool mom) {
-    if (count <= 0 || count > CAP) return -1;
-    t.count = count;
-    int64_t chunks = 0;
-    for (int l = 0; l < count; ++l) {
-        const int64_t* m = meta + 5 * l;
-        const int64_t n = m[0];
-        if (n <= 0 || m[1] != chunks || m[2] < 0 || m[3] < 0
-            || (m[2] > 0 && (m[2] * m[3] == 0 || n % (m[2] * m[3]) != 0
-                             || n >= (int64_t(1) << 31))))
-            return -1;
-        t.p[l] = reinterpret_cast<float*>(ptrs[3 * l]);
-        t.g[l] = reinterpret_cast<const float*>(ptrs[3 * l + 1]);
-        t.v[l] = reinterpret_cast<float*>(ptrs[3 * l + 2]);
-        if (mom && t.v[l] == nullptr) return -1;
-        t.n[l] = n;
-        t.start[l] = int32_t(chunks);
-        t.cin[l] = int32_t(m[2]);
-        t.hw[l] = int32_t(m[3]);
-        t.vec[l] = uint8_t(m[4] != 0);
-        chunks += (n + CHUNK - 1) / CHUNK;
-    }
-    return chunks < (int64_t(1) << 31) ? chunks : -1;
-}
-
 }  // namespace
 
 // The table's constants, for the wrapper to check its own against.
@@ -245,7 +181,7 @@ extern "C" int bigdl_fused_sgd_mom(const int64_t* ptrs, const int64_t* meta,
                                    float omd, float wd, int decay,
                                    int nesterov, void* stream) {
     LeafTable t;
-    const int64_t chunks = fill(t, ptrs, meta, count, true);
+    const int64_t chunks = mt::fill(t, ptrs, meta, count, 3);
     if (chunks <= 0) return int(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
     auto cp = static_cast<const float*>(clr);
@@ -270,7 +206,7 @@ extern "C" int bigdl_fused_sgd_plain(const int64_t* ptrs,
                                      const void* clr, float wd, int decay,
                                      void* stream) {
     LeafTable t;
-    const int64_t chunks = fill(t, ptrs, meta, count, false);
+    const int64_t chunks = mt::fill(t, ptrs, meta, count, 2);
     if (chunks <= 0) return int(cudaErrorInvalidValue);
     auto s = static_cast<cudaStream_t>(stream);
     auto cp = static_cast<const float*>(clr);

@@ -7,10 +7,11 @@ in ``csrc/fused_sgd.cu``.  For each leaf:
 
   * an f32 leaf on a CUDA tensor — the kernel, which replaces the
     reference's Pallas kernel: one pass that reads each input once and
-    writes the parameter (and its moments or velocity) in place.  K4
-    launches once per leaf; K5 and K6 launch once per update over a table
-    of all the leaves of one device (:func:`leaf_tables`), split into
-    ``ceil(leaves / SGD_CAPACITY)`` launches only past the table's size.
+    writes the parameter (and its moments or velocity) in place.  Each
+    kernel launches once per update over a table of all the leaves of one
+    device (:func:`leaf_tables`), split into ``ceil(leaves / capacity)``
+    launches only past the table's size (:data:`ADAM_CAPACITY`,
+    :data:`SGD_CAPACITY`).
   * a leaf on a CPU tensor, of any dtype — the plain version
     (:func:`adam_leaf_plain`, :func:`sgd_leaf_plain`), the reference's
     per-leaf math in plain PyTorch ops.  It is also ``fused=False``'s
@@ -58,7 +59,7 @@ _get_device, _is_contiguous = (torch.Tensor.get_device,
 _is_cuda = attrgetter("is_cuda")
 
 
-def _kernel_takes(leaves, kernel=KERNEL_NAME):
+def _kernel_takes(leaves, kernel):
     """The CUDA ``leaves`` (each ``(p, g, ...)``) that ``kernel`` takes:
     the non-empty ones (nothing to update in an empty one), each f32
     throughout; raises for a leaf of any other dtype.  Checked one column
@@ -127,27 +128,56 @@ def adam_leaf_plain(p, g, m, v, *, clr, bc1, bc2, beta1, beta2, eps,
 
 
 # --------------------------------------------------------------------- #
-# the Hopper kernel                                                     #
+# the Hopper kernels: one launch per table of leaves                    #
 # --------------------------------------------------------------------- #
-_P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                    ctypes.c_float)
-# C function -> (source, argtypes)
+# The kernels' tables (csrc/multi_tensor.cuh): leaves a launch of K4
+# (csrc/fused_adam.cu) and of K5/K6 (csrc/fused_sgd.cu), and elements a
+# block, one value for all three (each library's own values are checked
+# against these when it is loaded)
+ADAM_CAPACITY = 616
+SGD_CAPACITY = 720
+CHUNK = 4096
+# meta of a leaf in a table: n, first chunk, I and H*W of a channels-last
+# gradient (0, 0 when it is contiguous), float4 flag
+_META = 5
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C function -> (source, argtypes): a table (ptrs, meta, count), then the
+# kernel's scalars and the stream
 _C_FUNCS = {
     "bigdl_fused_adam": ("fused_adam",
-                         [_P] * 4 + [_I64] + [_P] * 3 + [_F] * 6 + [_I, _P]),
+                         [_P, _P, _I] + [_P] * 3 + [_F] * 6 + [_I, _P]),
     "bigdl_fused_sgd_mom": ("fused_sgd",
                             [_P, _P, _I, _P] + [_F] * 3 + [_I, _I, _P]),
     "bigdl_fused_sgd_plain": ("fused_sgd", [_P, _P, _I, _P, _F, _I, _P]),
 }
+_CAPACITY = {"fused_adam": ADAM_CAPACITY, "fused_sgd": SGD_CAPACITY}
+_TABLE_FNS = {}
 
 
-def _kernel_fn(c_name="bigdl_fused_adam"):
-    source, argtypes = _C_FUNCS[c_name]
-    fn = getattr(_build.load(source), c_name)
-    if fn.argtypes is None:
+def _table_fn(c_name):
+    """The C function ``c_name``, its library's table checked against
+    :data:`_CAPACITY` and :data:`CHUNK` on first use."""
+    fn = _TABLE_FNS.get(c_name)
+    if fn is None:
+        source, argtypes = _C_FUNCS[c_name]
+        lib = _build.load(source)
+        got = (getattr(lib, f"bigdl_{source}_capacity")(),
+               getattr(lib, f"bigdl_{source}_chunk")())
+        want = (_CAPACITY[source], CHUNK)
+        if got != want:
+            raise RuntimeError(f"csrc/{source}.cu has (capacity, chunk) "
+                               f"{got}; the wrapper expects {want}")
+        fn = getattr(lib, c_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _TABLE_FNS[c_name] = fn
     return fn
+
+
+def _adam_fn():
+    """K4's C function."""
+    return _table_fn("bigdl_fused_adam")
 
 
 def _device_scalar(x, name, dev, kernel=KERNEL_NAME):
@@ -180,29 +210,127 @@ def _check_leaves(leaves, kernel, in_place):
                          f"in place and must be contiguous")
 
 
+def grad_layout(g) -> Optional[Tuple[int, int]]:
+    """How the kernel reads a gradient ``g`` beside its contiguous leaf:
+    ``(0, 0)`` when g is contiguous; ``(I, H*W)`` when g lies in the
+    channels-last order of an OIHW leaf below 2**31 elements (cuDNN's
+    weight gradient of an NHWC conv), which the kernel reads in place;
+    None when g has to be made contiguous first (a copy)."""
+    if g.is_contiguous():
+        return 0, 0
+    if (g.dim() == 4 and g.numel() < 2 ** 31
+            and g.is_contiguous(memory_format=torch.channels_last)):
+        return g.shape[1], g.shape[2] * g.shape[3]
+    return None
+
+
+def leaf_tables(leaves, kernel, in_place):
+    """The launch tables of K4, K5 or K6 over ``leaves`` (each ``(p, g,
+    *state)``, non-empty), built column by column after
+    :func:`_check_leaves` (raises before any launch).
+
+    Returns ``(tables, kept)``.  Each table is ``(ptrs, meta, count)``
+    for up to :data:`ADAM_CAPACITY` leaves of K4 ``(p, g, m, v)`` or
+    :data:`SGD_CAPACITY` of K5 ``(p, g, v)`` and K6 ``(p, g)``, as int64
+    arrays in leaf order: ``ptrs`` four a leaf for K4 and three for K5
+    and K6, the addresses of p, g and the state (0 where K6 has none);
+    ``meta`` five a leaf: n, the leaf's first chunk of :data:`CHUNK`
+    elements within the table (a prefix sum), the gradient's layout
+    (:func:`grad_layout`) and 1 when every pointer the kernel reads as
+    float4 is 16-byte aligned.  ``kept`` holds the contiguous copies of
+    the gradients that needed one; they must stay alive until the
+    launches are made."""
+    _check_leaves(leaves, kernel, in_place)
+    cols = list(zip(*leaves))
+    ps, gs, state = cols[0], list(cols[1]), cols[2:]
+    count = len(ps)
+    slots = max(3, len(cols))
+    capacity = ADAM_CAPACITY if slots == 4 else SGD_CAPACITY
+    cin, hw, kept = [0] * count, [0] * count, []
+    for i, contiguous in enumerate(map(_is_contiguous, gs)):
+        if not contiguous:
+            tag = grad_layout(gs[i])
+            if tag is None:
+                gs[i] = gs[i].contiguous()
+                kept.append(gs[i])
+            else:
+                cin[i], hw[i] = tag
+    addr = [list(map(_data_ptr, col)) for col in (ps, gs, *state)]
+    # the low bits of every pointer read as float4: a channels-last g is
+    # gathered element by element, so its own do not matter
+    low = addr[1] if not any(cin) else [0 if c else a for a, c in
+                                        zip(addr[1], cin)]
+    for col in (addr[0], *addr[2:]):
+        low = list(map(or_, low, col))
+    vec = [a & 15 == 0 for a in low]
+    ns = list(map(_numel, ps))
+    nch = [-(-n // CHUNK) for n in ns]
+    tables = []
+    for lo in range(0, count, capacity):
+        hi = min(lo + capacity, count)
+        # interleaved by slice assignment: the fastest way to an array
+        ptrs = [0] * (slots * (hi - lo))
+        for j, col in enumerate(addr):
+            ptrs[j::slots] = col[lo:hi]
+        meta = [0] * (_META * (hi - lo))
+        meta[0::_META] = ns[lo:hi]
+        meta[1::_META] = accumulate(nch[lo:hi - 1], initial=0)
+        meta[2::_META] = cin[lo:hi]
+        meta[3::_META] = hw[lo:hi]
+        meta[4::_META] = vec[lo:hi]
+        tables.append((array("q", ptrs), array("q", meta), hi - lo))
+    return tables, kept
+
+
+def _route(leaves, kernel, plain, cuda, kw) -> None:
+    """Update each CPU leaf of ``leaves`` with ``plain`` and the CUDA ones
+    with ``cuda``, one call per device, after every CUDA leaf was checked
+    by :func:`_kernel_takes` (empty ones dropped).  A leaf on any other
+    device raises."""
+    on_card = list(map(_is_cuda, (leaf[0] for leaf in leaves)))
+    if not all(on_card):
+        for leaf, on in zip(leaves, on_card):
+            if on:
+                continue
+            if leaf[0].device.type != "cpu":
+                raise RuntimeError(f"{kernel}: no implementation for "
+                                   f"device {leaf[0].device}")
+            plain(*leaf, **kw)
+        leaves = [leaf for leaf, on in zip(leaves, on_card) if on]
+    devs = list(map(_get_device, (leaf[0] for leaf in leaves)))
+    groups = [[leaf for leaf, d in zip(leaves, devs) if d == dev]
+              for dev in dict.fromkeys(devs)] if len(set(devs)) > 1 \
+        else [leaves]
+    # every CUDA leaf is checked before the first launch
+    groups = [_kernel_takes(group, kernel) for group in groups]
+    for group in groups:
+        if group:
+            cuda(group, **kw)
+
+
 def _adam_cuda(leaves, *, clr, bc1, bc2, beta1, beta2, eps,
                weight_decay) -> None:
-    """Launch ``csrc/fused_adam.cu`` once for each ``(p, g, m, v)`` of
-    ``leaves`` (f32, all on one CUDA device), on the current stream.  All
-    inputs are checked before the first launch; the scalars and the
-    stream are looked up once for all the leaves."""
+    """Launch ``csrc/fused_adam.cu`` over all ``(p, g, m, v)`` of
+    ``leaves`` (f32, non-empty, all on one CUDA device) on the current
+    stream: one launch per table of :data:`ADAM_CAPACITY` leaves.  All
+    inputs are checked before the first launch."""
     dev = leaves[0][0].device
     scalars = [_device_scalar(x, n, dev)
                for x, n in ((clr, "clr"), (bc1, "bc1"), (bc2, "bc2"))]
-    _check_leaves(leaves, KERNEL_NAME, ("p", "m", "v"))
-    fn = _kernel_fn()
+    tables, kept = leaf_tables(leaves, KERNEL_NAME, ("p", "m", "v"))
+    fn = _adam_fn()
     tail = (*(t.data_ptr() for t in scalars), beta1, 1 - beta1, beta2,
             1 - beta2, eps, float(weight_decay), int(bool(weight_decay)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for p, g, m, v in leaves:
-            g = g.contiguous()
-            rc = fn(p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(),
-                    p.numel(), *tail, stream)
+        for ptrs, meta, count in tables:
+            rc = fn(ptrs.buffer_info()[0], meta.buffer_info()[0], count,
+                    *tail, stream)
             if rc != 0:
-                raise RuntimeError(f"fused_adam kernel launch failed: "
-                                   f"cudaError {rc} (leaf {tuple(p.shape)})")
+                raise RuntimeError(f"{KERNEL_NAME} kernel launch failed: "
+                                   f"cudaError {rc} ({count} leaves)")
             _build.count_launch(KERNEL_NAME)
+    del kept
 
 
 def fused_adam_update(params, grads, m, v, *, clr, bc1, bc2, beta1, beta2,
@@ -219,21 +347,8 @@ def fused_adam_update(params, grads, m, v, *, clr, bc1, bc2, beta1, beta2,
     """
     kw = dict(clr=clr, bc1=bc1, bc2=bc2, beta1=beta1, beta2=beta2, eps=eps,
               weight_decay=weight_decay)
-    by_device = {}
-    for leaf in zip_leaves(params, grads, m, v):
-        p_ = leaf[0]
-        if p_.device.type == "cpu":
-            adam_leaf_plain(*leaf, **kw)
-        elif p_.device.type == "cuda":
-            by_device.setdefault(p_.device, []).append(leaf)
-        else:
-            raise RuntimeError(f"fused_adam: no implementation for device "
-                               f"{p_.device}")
-    # every CUDA leaf is checked before the first launch
-    groups = [_kernel_takes(leaves) for leaves in by_device.values()]
-    for leaves in groups:
-        if leaves:
-            _adam_cuda(leaves, **kw)
+    _route(zip_leaves(params, grads, m, v), KERNEL_NAME, adam_leaf_plain,
+           _adam_cuda, kw)
     return params, m, v
 
 
@@ -266,103 +381,10 @@ def sgd_leaf_plain(p, g, v=None, *, clr, momentum=0.0, dampening=0.0,
     p.copy_(p - clr * g.to(p.dtype))
 
 
-# csrc/fused_sgd.cu's table: leaves a launch and elements a block (the
-# library's own values are checked against these when it is loaded)
-SGD_CAPACITY = 720
-SGD_CHUNK = 4096
-# slot of each pointer of a leaf in the table: p, g, then the state
-# updated in place (K5's velocity; 0 for K6)
-_SGD_SLOTS = 3
-# meta of a leaf in the table: n, first chunk, I and H*W of a
-# channels-last gradient (0, 0 when it is contiguous), float4 flag
-_META = 5
-
-
-def grad_layout(g) -> Optional[Tuple[int, int]]:
-    """How the kernel reads a gradient ``g`` beside its contiguous leaf:
-    ``(0, 0)`` when g is contiguous; ``(I, H*W)`` when g lies in the
-    channels-last order of an OIHW leaf below 2**31 elements (cuDNN's
-    weight gradient of an NHWC conv), which the kernel reads in place;
-    None when g has to be made contiguous first (a copy)."""
-    if g.is_contiguous():
-        return 0, 0
-    if (g.dim() == 4 and g.numel() < 2 ** 31
-            and g.is_contiguous(memory_format=torch.channels_last)):
-        return g.shape[1], g.shape[2] * g.shape[3]
-    return None
-
-
-def leaf_tables(leaves, kernel, in_place):
-    """The launch tables of K5 or K6 over ``leaves`` (each ``(p, g,
-    *state)``, non-empty), built column by column after
-    :func:`_check_leaves` (raises before any launch).
-
-    Returns ``(tables, kept)``.  Each table is ``(ptrs, meta, count)``
-    for up to :data:`SGD_CAPACITY` leaves, as int64 arrays in leaf order:
-    ``ptrs`` three a leaf, the addresses of p, g and the state (0 where
-    K6 has none); ``meta`` five a leaf: n, the leaf's first chunk of
-    :data:`SGD_CHUNK` elements within the table (a prefix sum), the
-    gradient's layout (:func:`grad_layout`) and 1 when every pointer the
-    kernel reads as float4 is 16-byte aligned.  ``kept`` holds the
-    contiguous copies of the gradients that needed one; they must stay
-    alive until the launches are made."""
-    _check_leaves(leaves, kernel, in_place)
-    cols = list(zip(*leaves))
-    ps, gs, state = cols[0], list(cols[1]), cols[2:]
-    count = len(ps)
-    cin, hw, kept = [0] * count, [0] * count, []
-    for i, contiguous in enumerate(map(_is_contiguous, gs)):
-        if not contiguous:
-            tag = grad_layout(gs[i])
-            if tag is None:
-                gs[i] = gs[i].contiguous()
-                kept.append(gs[i])
-            else:
-                cin[i], hw[i] = tag
-    addr = [list(map(_data_ptr, col)) for col in (ps, gs, *state)]
-    # the low bits of every pointer read as float4: a channels-last g is
-    # gathered element by element, so its own do not matter
-    low = addr[1] if not any(cin) else [0 if c else a for a, c in
-                                        zip(addr[1], cin)]
-    for col in (addr[0], *addr[2:]):
-        low = list(map(or_, low, col))
-    vec = [a & 15 == 0 for a in low]
-    ns = list(map(_numel, ps))
-    nch = [-(-n // SGD_CHUNK) for n in ns]
-    tables = []
-    for lo in range(0, count, SGD_CAPACITY):
-        hi = min(lo + SGD_CAPACITY, count)
-        # interleaved by slice assignment: the fastest way to an array
-        ptrs = [0] * (_SGD_SLOTS * (hi - lo))
-        for j, col in enumerate(addr):
-            ptrs[j::_SGD_SLOTS] = col[lo:hi]
-        meta = [0] * (_META * (hi - lo))
-        meta[0::_META] = ns[lo:hi]
-        meta[1::_META] = accumulate(nch[lo:hi - 1], initial=0)
-        meta[2::_META] = cin[lo:hi]
-        meta[3::_META] = hw[lo:hi]
-        meta[4::_META] = vec[lo:hi]
-        tables.append((array("q", ptrs), array("q", meta), hi - lo))
-    return tables, kept
-
-
-_SGD_FNS = {}
-
-
 def _sgd_fn(mom: bool):
-    """K5's (``mom``) or K6's C function, its library's table checked
-    against :data:`SGD_CAPACITY` and :data:`SGD_CHUNK` on first use."""
-    fn = _SGD_FNS.get(mom)
-    if fn is None:
-        lib = _build.load("fused_sgd")
-        got = (lib.bigdl_fused_sgd_capacity(), lib.bigdl_fused_sgd_chunk())
-        if got != (SGD_CAPACITY, SGD_CHUNK):
-            raise RuntimeError(f"csrc/fused_sgd.cu has (capacity, chunk) "
-                               f"{got}; the wrapper expects "
-                               f"{(SGD_CAPACITY, SGD_CHUNK)}")
-        fn = _SGD_FNS[mom] = _kernel_fn("bigdl_fused_sgd_mom" if mom
-                                        else "bigdl_fused_sgd_plain")
-    return fn
+    """K5's (``mom``) or K6's C function."""
+    return _table_fn("bigdl_fused_sgd_mom" if mom
+                     else "bigdl_fused_sgd_plain")
 
 
 def _sgd_cuda(leaves, *, clr, momentum, dampening, nesterov,
@@ -409,26 +431,7 @@ def fused_sgd_update(params, grads, velocity=None, *, clr, momentum=0.0,
     kw = dict(clr=clr, momentum=momentum, dampening=dampening,
               nesterov=nesterov, weight_decay=weight_decay)
     trees = (params, grads, velocity) if mom else (params, grads)
-    leaves = zip_leaves(*trees)
-    on_card = list(map(_is_cuda, (leaf[0] for leaf in leaves)))
-    if not all(on_card):
-        for leaf, cuda in zip(leaves, on_card):
-            if cuda:
-                continue
-            if leaf[0].device.type != "cpu":
-                raise RuntimeError(f"{kernel}: no implementation for "
-                                   f"device {leaf[0].device}")
-            sgd_leaf_plain(*leaf, **kw)
-        leaves = [leaf for leaf, cuda in zip(leaves, on_card) if cuda]
-    devs = list(map(_get_device, (leaf[0] for leaf in leaves)))
-    groups = [[leaf for leaf, d in zip(leaves, devs) if d == dev]
-              for dev in dict.fromkeys(devs)] if len(set(devs)) > 1 \
-        else [leaves]
-    # every CUDA leaf is checked before the first launch
-    groups = [_kernel_takes(group, kernel) for group in groups]
-    for group in groups:
-        if group:
-            _sgd_cuda(group, **kw)
+    _route(zip_leaves(*trees), kernel, sgd_leaf_plain, _sgd_cuda, kw)
     return params, (velocity if mom else None)
 
 

@@ -25,7 +25,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 on TF32 must fail the f32 limit; two runs on the same
                 inputs must give the same bits; f32 and bf16 times beside
                 SDPA's backward and the split-TF32 floor); K4
-                fused_adam (bitwise); K5 fused_sgd_mom and K6
+                fused_adam (bitwise, Adam and AdamW: single leaves, all
+                111 of base's leaf shapes in one launch, more leaves than
+                one table holds, a leaf at a 4-byte offset, ragged tails,
+                an empty leaf and channels-last conv gradients, with
+                their launch counts; timed by events with the host, with
+                the host queued ahead and cold, beside
+                torch.optim.AdamW(fused=True) read the same ways, with
+                the wrapper's host time by part); K5 fused_sgd_mom and K6
                 fused_sgd_plain (bitwise, over every static choice:
                 dampening, nesterov, weight decay; one leaf at a time,
                 and trees of many leaves with their launch counts: six
@@ -54,8 +61,9 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 backward) and ``fused=False``.  Step-1 gradients and every
                 step's loss of the two runs agree within the stated
                 tolerance, the loss falls, and the launch counts show that
-                each step ran K1, K2 and K3 once a layer and K4 once a
-                leaf.  The same steps with the matmuls on TF32 must fall
+                each step ran K1, K2 and K3 once a layer and K4 once
+                (one multi-tensor launch per table of
+                fused_optim.ADAM_CAPACITY leaves).  The same steps with the matmuls on TF32 must fall
                 outside the limits, so that the limits can see a drop
                 below fp32.
   5. classifier — ResNet-50 (ImageNet, NHWC, 1000 classes, full width and
@@ -671,48 +679,139 @@ def _ulps(a, b):
     return int((ai - bi).abs().max().item()) if a.numel() else 0
 
 
+def _base_shapes():
+    """The shapes of TransformerLM ``base``'s leaves, in the order of its
+    parameter dict (built on the meta device: no weights)."""
+    from bigdl_tpu_torch.models import transformer as T
+    with torch.device("meta"):
+        model = T.TransformerLM(T.TransformerConfig(**T.PRESETS["base"]),
+                                torch.Generator().manual_seed(0))
+    return [tuple(p.shape) for sub in model.param_dict().values()
+            for p in sub.values()]
+
+
+def _adam_trees(fo, kw, p0s, g0s, m0s, v0s):
+    """The fused update (the kernel) and the plain one over one tree of
+    leaves, on copies of (p0s, m0s, v0s) at their offsets, with the
+    gradients g0s as they are: ([p, m, v] kernel, [p, m, v] plain, the
+    kernel's launches), each of p, m and v all the tree's leaves end to
+    end."""
+    out, launches = [], None
+    for fn in (fo.fused_adam_update, fo.fused_adam_update_plain):
+        ps, ms, vs = ({f"l{i}": _copy_at(t) for i, t in enumerate(ts)}
+                      for ts in (p0s, m0s, v0s))
+        gs = {f"l{i}": t for i, t in enumerate(g0s)}
+        before = fo._build.launch_counts().get(fo.KERNEL_NAME, 0)
+        fn(ps, gs, ms, vs, **kw)
+        torch.cuda.synchronize()
+        if launches is None:
+            launches = fo._build.launch_counts().get(fo.KERNEL_NAME, 0) \
+                - before
+        out.append([torch.cat([t.flatten() for t in tree.values()])
+                    for tree in (ps, ms, vs)])
+    return out[0], out[1], launches
+
+
+def _adam_tree_cases(fo):
+    """The trees of phase_adam: (label, shapes, float offset of each leaf
+    from a 16-byte boundary, channels-last gradients, launches).  Each
+    leaf's p, g, m and v lie at its offset."""
+    cap = fo.ADAM_CAPACITY
+    cl = [(512, 512, 3, 3), (64, 3, 7, 7)]
+    return [
+        ("n=1", [(1,)], [0], False, 1),
+        ("n=127", [(127,)], [0], False, 1),
+        ("n=768", [(768,)], [0], False, 1),
+        ("n=3072*768", [(3072 * 768,)], [0], False, 1),
+        ("TransformerLM base's 111 leaves", _base_shapes(), None, False,
+         1),
+        (f"{cap + 1} leaves (capacity {cap})",
+         [(int(n),) for n in np.random.RandomState(8).randint(
+             1, 301, size=cap + 1)], None, False, 2),
+        ("a leaf at a 4-byte offset", [(768,), (1_000_003,)], [0, 1], False,
+         1),
+        ("n % 4 != 0 (ragged tails)", [(4099,), (3,), (4097 * 3,)], None,
+         False, 1),
+        ("an empty leaf", [(0,), (768,)], None, False, 1),
+        ("channels-last 3x3 and 7x7 conv gradients", cl, None, True, 1),
+    ]
+
+
 def phase_adam(card: str):
-    """K4 against the plain update, bitwise, on Adam and AdamW, leaf sizes
-    1, 127, 768 and 3072*768, at steps 1 and 1000."""
+    """K4 against the plain update, bitwise, on Adam and AdamW at steps 1
+    and 1000: single leaves of 1, 127, 768 and 3072*768 values, all 111
+    of TransformerLM base's leaf shapes in one call, more leaves than one
+    table holds (two launches), a leaf at a 4-byte offset (the scalar
+    path), ragged tails, an empty leaf (skipped) and channels-last conv
+    gradients (read in place), each with its launch count."""
     from bigdl_tpu_torch.kernels import fused_optim as fo
     from bigdl_tpu_torch.optim import Adam, AdamW
     results = []
+    gen = torch.Generator(device="cuda")
     for method in (Adam(learning_rate=1e-3, fused=True),
                    AdamW(learning_rate=TRAIN_LR, fused=True)):
         for step in (1, 1000):
             state = {"step": torch.tensor(step - 1, dtype=torch.int32,
                                           device="cuda")}
             kw = method.update_scalars(state)
-            for n in (1, 127, 768, 3072 * 768):
-                g = torch.Generator(device="cuda").manual_seed(n + step)
+            for i, (case, shapes, shifts, channels_last, want) in \
+                    enumerate(_adam_tree_cases(fo)):
+                gen.manual_seed(step * 100 + i)
+                shifts = shifts or [0] * len(shapes)
 
-                def rnd(scale):
-                    return torch.randn((n,), generator=g,
-                                       device="cuda") * scale
-                p0, g0, m0 = rnd(0.05), rnd(1e-2), rnd(1e-3)
-                v0 = rnd(1e-3) ** 2
-                kern = [t.clone() for t in (p0, m0, v0)]
-                plain = [t.clone() for t in (p0, m0, v0)]
-                fo.fused_adam_update({"x": kern[0]}, {"x": g0},
-                                     {"x": kern[1]}, {"x": kern[2]}, **kw)
-                torch.cuda.synchronize()
-                fo.fused_adam_update_plain({"x": plain[0]}, {"x": g0},
-                                           {"x": plain[1]}, {"x": plain[2]},
-                                           **kw)
+                def rnd(shape, scale, shift):
+                    """randn of ``shape`` at ``shift`` floats past an
+                    aligned address."""
+                    n = int(np.prod(shape))
+                    base = torch.randn(n + shift, generator=gen,
+                                       device="cuda")
+                    return base[shift:].mul_(scale).view(shape)
+                p0s, g0s, m0s, v0s = ([rnd(s, scale, k) for s, k in
+                                       zip(shapes, shifts)]
+                                      for scale in (0.05, 1e-2, 1e-3, 1e-3))
+                v0s = [t.square_() for t in v0s]
+                if channels_last:
+                    g0s = [t.contiguous(memory_format=torch.channels_last)
+                           for t in g0s]
+                leaves = [leaf for leaf in zip(p0s, g0s, m0s, v0s)
+                          if leaf[0].numel()]
+                tables, kept = fo.leaf_tables(leaves, fo.KERNEL_NAME,
+                                              ("p", "m", "v"))
+                meta = _meta_rows(tables)
+                plan = {"tables": len(tables),
+                        "scalar_path": int((meta[:, 4] == 0).sum()),
+                        "channels_last_in_place": int((meta[:, 2] > 0)
+                                                      .sum()),
+                        "copies": len(kept)}
+                del tables, kept, leaves
+                kern, plain, launches = _adam_trees(fo, kw, p0s, g0s, m0s,
+                                                    v0s)
+                del p0s, g0s, m0s, v0s
                 ulps = {name: _ulps(a, b) for name, a, b in
                         zip(("p", "m", "v"), kern, plain)}
-                err = max((a - b).abs().max().item()
+                err = max(((a - b).abs().max().item() if a.numel() else 0.0)
                           for a, b in zip(kern, plain))
                 ok = all(torch.equal(a, b) for a, b in zip(kern, plain))
-                label = f"{type(method).__name__} step {step} n={n}"
+                want_plan = (want, want, sum(1 for k in shifts if k),
+                             len(shapes) if channels_last else 0, 0)
+                planned = (launches, plan["tables"], plan["scalar_path"],
+                           plan["channels_last_in_place"], plan["copies"])
+                label = f"{type(method).__name__} step {step} {case}"
                 results.append({"case": label, "max_abs_err": err,
-                                "ulps": ulps, "bitwise": ok, "ok": ok})
+                                "ulps": ulps, "bitwise": ok,
+                                "launches": launches,
+                                "launches_expected": want, **plan,
+                                "ok": ok and planned == want_plan})
                 log(f"K4 vs plain [{label}]: max_abs_err {err:.3e} ulps "
-                    f"{ulps} -> {'bitwise' if ok else 'FAIL'}")
+                    f"{ulps}, {launches} launch(es), plan {plan} -> "
+                    f"{'bitwise' if ok else 'FAIL'}"
+                    f"{'' if planned == want_plan else f'; expected {want_plan}'}")
+                del kern, plain
     bad = [r["case"] for r in results if not r["ok"]]
     if bad:
         raise AssertionError(f"fused_adam is not bitwise equal to its plain "
-                             f"version: {bad}")
+                             f"version, or did not launch as planned: "
+                             f"{bad}")
     # a leaf the kernel does not take raises on the card, before any launch
     xb = torch.ones(8, dtype=torch.bfloat16, device="cuda")
     before = fo._build.launch_counts().get(fo.KERNEL_NAME, 0)
@@ -726,6 +825,7 @@ def phase_adam(card: str):
     if fo._build.launch_counts().get(fo.KERNEL_NAME, 0) != before \
             or not torch.equal(xb, torch.ones_like(xb)):
         raise AssertionError("fused_adam touched a bf16 leaf it refused")
+    torch.cuda.empty_cache()
     return {"name": "fused_adam", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/fused_adam.cu",
             "replaces": "bigdl_tpu/kernels/fused_optim.py:124",
@@ -736,7 +836,11 @@ def phase_adam(card: str):
 
 def time_adam(k4: dict, leaves, card: str):
     """K4, its plain version and torch.optim.AdamW(fused=True) over leaves
-    of the shapes of ``leaves`` (all of the model's), one update each."""
+    of the shapes of ``leaves`` (all of the model's), one update each: by
+    CUDA events with the host (``cuda_ms``), with the host queued ahead
+    (``queued_ms``), cold on the device (``cold_ms``: events and CUPTI),
+    with the launches an update makes and the wrapper's host time by
+    part."""
     from bigdl_tpu_torch.kernels import fused_optim as fo
     from bigdl_tpu_torch.optim import AdamW
     shapes = [tuple(p.shape) for p in leaves]
@@ -750,24 +854,62 @@ def time_adam(k4: dict, leaves, card: str):
     state = method.init_state(tree)
     kw = method.update_scalars(state)
     m, v = state["m"], state["v"]
-    ms = cuda_ms(lambda: fo.fused_adam_update(tree, grads, m, v, **kw),
-                 iters=10)
+
+    def kernel_run():
+        fo.fused_adam_update(tree, grads, m, v, **kw)
+    before = fo._build.launch_counts().get(fo.KERNEL_NAME, 0)
+    kernel_run()
+    per_update = fo._build.launch_counts().get(fo.KERNEL_NAME, 0) - before
+    ms = cuda_ms(kernel_run, iters=10)
+    q_ms = queued_ms(kernel_run, iters=10)
+    cold = cold_ms(kernel_run, "fused_adam_kernel")
     plain_ms = cuda_ms(lambda: fo.fused_adam_update_plain(tree, grads, m, v,
                                                           **kw), iters=3)
-    flat = [t["w"].requires_grad_() for t in tree.values()]
-    for p_, gt in zip(flat, (t["w"] for t in grads.values())):
+    # the wrapper's host time, part by part (the launch is the rest)
+    trs = (tree, grads, m, v)
+    flat = fo.zip_leaves(*trs)
+    in_place = ("p", "m", "v")
+    (ptrs, meta, count), = fo.leaf_tables(flat, fo.KERNEL_NAME, in_place)[0]
+    fn = fo._adam_fn()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (*(kw[k].data_ptr() for k in ("clr", "bc1", "bc2")), 0.9, 0.1,
+            0.999, 0.001, 1e-8, 0.01, 1, stream)
+
+    def c_call():
+        fn(ptrs.buffer_info()[0], meta.buffer_info()[0], count, *args)
+    host = {"update": _host_us(kernel_run, 50),
+            "zip_leaves": _host_us(lambda: fo.zip_leaves(*trs)),
+            "f32_check": _host_us(lambda: fo._kernel_takes(flat,
+                                                           fo.KERNEL_NAME)),
+            "leaf_tables": _host_us(lambda: fo.leaf_tables(
+                flat, fo.KERNEL_NAME, in_place)),
+            "c_call_and_launch": _host_us(c_call, 20, idle=True)}
+    torch.cuda.synchronize()
+    del flat, ptrs, meta
+    params = [t["w"].clone().requires_grad_() for t in tree.values()]
+    for p_, gt in zip(params, (t["w"] for t in grads.values())):
         p_.grad = gt
-    ref = torch.optim.AdamW(flat, lr=TRAIN_LR, weight_decay=0.01, fused=True)
+    ref = torch.optim.AdamW(params, lr=TRAIN_LR, weight_decay=0.01,
+                            fused=True)
     library_ms = cuda_ms(ref.step, iters=10)
-    del ref, tree, grads, m, v, flat
+    library_queued_ms = queued_ms(ref.step, iters=10)
+    library_cold = cold_ms(ref.step, "adam")
+    del ref, tree, grads, m, v, params
+    torch.cuda.empty_cache()
     bound_ms = n * 28 / H100_HBM_BYTES_S * 1e3
-    log(f"fused_adam over {len(shapes)} leaves, {n} params: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.optim.AdamW(fused) "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes); {card}")
-    k4.update(ms=ms, kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-              bound_by="bytes", library_ms=library_ms,
+    log(f"fused_adam over {len(shapes)} leaves, {n} params: {per_update} "
+        f"launch(es) an update; kernel {ms:.4f} ms by events, queued "
+        f"{q_ms:.4f} ms, cold {cold}; plain {plain_ms:.4f} ms; "
+        f"torch.optim.AdamW(fused) {library_ms:.4f} ms by events, queued "
+        f"{library_queued_ms:.4f} ms, cold {library_cold}; bound "
+        f"{bound_ms:.4f} ms (bytes); host µs {host}; {card}")
+    k4.update(ms=ms, kernel_ms=ms, queued_ms=q_ms, device_cold=cold,
+              plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+              library_ms=library_ms, library_queued_ms=library_queued_ms,
+              library_cold=library_cold,
               library_call="torch.optim.AdamW(fused=True).step(), f32",
-              leaves=len(shapes), params=n)
+              leaves=len(shapes), params=n,
+              launches_per_update=per_update, host_us=host)
 
 
 # --------------------------------------------------------------------- #
@@ -920,7 +1062,7 @@ def phase_slice(card: str):
 KERNEL_CLASSES = (("flash_fwd", "K1 flash_fwd"),
                   ("flash_bwd_dkv", "K2 flash_bwd_dkv"),
                   ("flash_bwd_dq", "K3 flash_bwd_dq"),
-                  ("adam_kernel", "K4 fused_adam"),
+                  ("fused_adam_kernel", "K4 fused_adam"),
                   ("gemm", "matmul (cuBLAS)"), ("cutlass", "matmul (cuBLAS)"),
                   ("reduce", "reductions"), ("elementwise", "elementwise"))
 
@@ -1093,6 +1235,7 @@ def kernel_records(fn, key: str) -> dict:
 def phase_training(card: str, k4: dict):
     """SpmdTrainer on base: the kernel run (counted), the plain run from
     the same weights, step-1 gradients of both, and the breakdown."""
+    from bigdl_tpu_torch.kernels import fused_optim as fo
     from bigdl_tpu_torch.models import transformer as T
     from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops import flash_attention_mod as fa
@@ -1220,7 +1363,8 @@ def phase_training(card: str, k4: dict):
     want = {"flash_fwd": cfg.n_layers * TRAIN_STEPS,
             "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS,
             "flash_bwd_dq": cfg.n_layers * TRAIN_STEPS,
-            "fused_adam": n_leaves * TRAIN_STEPS}
+            # one K4 launch an update per table of ADAM_CAPACITY leaves
+            "fused_adam": -(-n_leaves // fo.ADAM_CAPACITY) * TRAIN_STEPS}
     got = {name: launches.get(name, 0) for name in want}
     log(f"training launches {got}, expected {want}")
     if got != want:
@@ -2062,7 +2206,7 @@ def main() -> int:
     k1["cases"].append(slice_["layer_case"])
     train = phase_training(card, k4)
     if train["profile"]:
-        # K4's own device time a step (111 launches), without host gaps
+        # K4's own device time a step (one launch), without host gaps
         k4["device_ms_per_step"] = train["profile"]["device_ms_by_class"] \
             .get("K4 fused_adam")
     for k in k23:

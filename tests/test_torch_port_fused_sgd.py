@@ -24,12 +24,14 @@ import torch
 
 from bigdl_tpu_torch.kernels import fused_optim as fo
 
-CU = Path(fo.__file__).resolve().parent.parent / "csrc" / "fused_sgd.cu"
-CHUNK = fo.SGD_CHUNK
+CSRC = Path(fo.__file__).resolve().parent.parent / "csrc"
+CU = CSRC / "fused_sgd.cu"
+CUH = CSRC / "multi_tensor.cuh"
+CHUNK = fo.CHUNK
 
 
-def _constants():
-    src = CU.read_text()
+def _constants(cu=CU):
+    src = cu.read_text() + CUH.read_text()
     return {name: int(re.search(rf"constexpr int {name} = (\d+);",
                                 src).group(1))
             for name in ("NT", "VPT", "CAP")}
@@ -38,8 +40,8 @@ def _constants():
 def test_python_constants_match_the_kernel_source():
     c = _constants()
     assert fo.SGD_CAPACITY == c["CAP"]
-    assert fo.SGD_CHUNK == c["NT"] * c["VPT"] * 4
-    assert "constexpr int CHUNK = NT * VPT * 4;" in CU.read_text()
+    assert fo.CHUNK == c["NT"] * c["VPT"] * 4
+    assert "constexpr int CHUNK = NT * VPT * 4;" in CUH.read_text()
 
 
 def _leaves(sizes, seed=0):
