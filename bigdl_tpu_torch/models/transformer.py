@@ -2,9 +2,13 @@
 
 Port of ``bigdl_tpu/models/transformer.py``: the full-sequence forward
 that the dynamic-batching ``ServingEngine`` runs (``apply`` →
-``apply_trunk`` → ``head_logits``), and the masked token cross-entropy
+``apply_trunk`` → ``head_logits``), the masked token cross-entropy
 that ``SpmdTrainer`` trains on (``loss`` → ``token_nll`` →
-:func:`lm_token_nll`).  Same layout and op order as the
+:func:`lm_token_nll`), and the token-streaming paths: the contiguous kv
+cache (``init_cache`` / ``apply_with_cache``), the slot-batched decode
+step that ``serving.DecodeEngine`` runs over a paged cache
+(``decode_tokens``), ``generate`` and ``generate_beam``.  Same layout and
+op order as the
 reference: weights are used as ``x @ w`` with ``w`` of shape
 ``(d_in, d_out)``, the embedding is ``(V, D)``, the head ``(D, V)``; RoPE
 is the reference's *interleaved* form (pairs ``x[..., 0::2]``,
@@ -14,8 +18,19 @@ the reference leaves them to XLA.  Gradients flow through ``torch.autograd``;
 attention's backward is the flash backward (the Hopper kernels on the
 card).
 
-Not ported yet (ROADMAP queue A): the kv cache / ``apply_with_cache`` /
-decode / ``generate`` / beam paths, MoE (``moe_experts``), remat, ring
+Cached attention (``apply_cached``, ``attend_window``) is plain fp32
+PyTorch, as the reference leaves it to XLA einsums: it never reaches the
+flash kernels.  Its op order is the reference's (fp32 scores, a true
+division by ``sqrt(head_dim)``, ``where`` with
+:data:`~bigdl_tpu_torch.ops.flash_attention.DEFAULT_MASK_VALUE`, softmax,
+the value sum), so that the paged and the contiguous caches stay
+comparable.  The contiguous cache is written in place; ``apply_with_cache``
+returns the same dict it was given.  Sampling draws Gumbel noise from a
+``torch.Generator``: the draws are not ``jax.random``'s, so sampled
+tokens are held to the reference by their properties, greedy ones by
+value.
+
+Not ported yet (ROADMAP queue A): MoE (``moe_experts``), remat, ring
 attention, dropout in training, and the chunked loss
 (``chunked_token_nll``).  A config or an argument that asks for one of
 them raises.
@@ -28,15 +43,18 @@ is held on shared weights (``models.convert.from_jax_params``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from ..nn.module import Ctx, Module
 from ..nn.normalization import RMSNorm
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import (DEFAULT_MASK_VALUE, _mask as _attn_mask,
+                                   flash_attention)
 
 
 @dataclasses.dataclass
@@ -65,19 +83,46 @@ class TransformerConfig:
         return self.d_model // self.n_heads
 
 
-def apply_rope(x, positions, theta: float = 10000.0):
-    """Rotary position embedding. x: (B, H, S, D), positions: (S,) global."""
-    d = x.shape[-1]
+def _rope_cos_sin(positions, d: int, theta: float, device):
     freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
-                                    device=x.device) / d)
-    angles = positions.float()[:, None] * freqs[None, :]      # (S, D/2)
-    cos, sin = torch.cos(angles), torch.sin(angles)
+                                    device=device) / d)
+    angles = positions.float()[:, None] * freqs[None, :]      # (N, D/2)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _rotate(x, cos, sin):
+    """The interleaved rotation: pairs ``x[..., 0::2]``, ``x[..., 1::2]``."""
     x1, x2 = x[..., 0::2], x[..., 1::2]
     y1 = x1 * cos - x2 * sin
     y2 = x1 * sin + x2 * cos
     # re-interleave
     y = torch.stack([y1, y2], dim=-1).reshape(x.shape)
     return y.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Rotary position embedding. x: (B, H, S, D), positions: (S,) global."""
+    cos, sin = _rope_cos_sin(positions, x.shape[-1], theta, x.device)
+    return _rotate(x, cos, sin)
+
+
+def apply_rope_rows(x, positions, theta: float = 10000.0):
+    """:func:`apply_rope` with a position per row: x (B, H, 1, D),
+    positions (B,) — the continuous-batching decode shape, where every
+    batch row (slot) sits at its own offset.  The same op sequence as
+    :func:`apply_rope`, so a row here is the row ``apply_rope`` gives at
+    that position."""
+    cos, sin = _rope_cos_sin(positions, x.shape[-1], theta, x.device)
+    return _rotate(x, cos[:, None, None, :], sin[:, None, None, :])
+
+
+def _scaled_scores(q, k, head_dim: int):
+    """fp32 ``q k^T / sqrt(head_dim)`` as the reference's cached attention
+    computes it: a true division (a scalar divisor would let CUDA multiply
+    by its reciprocal instead)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    return s / torch.full((), math.sqrt(head_dim), dtype=torch.float32,
+                          device=s.device)
 
 
 def _normal(shape, scale, gen):
@@ -135,13 +180,7 @@ class MultiHeadAttention(Module):
         p = self.own(params)
         b, s, _ = x.shape
         dt = x.dtype
-
-        def proj(w):
-            y = torch.matmul(x, w.to(dt))
-            y = y.reshape(b, s, cfg.n_heads, cfg.head_dim)
-            return y.transpose(1, 2)                     # (B, H, S, Dh)
-
-        q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
+        q, k, v = (self._proj(p, x, w) for w in ("wq", "wk", "wv"))
         positions = torch.arange(s, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -150,6 +189,78 @@ class MultiHeadAttention(Module):
         else:
             o = flash_attention(q, k, v, causal=True)
         o = o.transpose(1, 2).reshape(b, s, cfg.d_model)
+        return torch.matmul(o, p["wo"].to(dt))
+
+    def _proj(self, p, x, w):
+        """``x @ p[w]`` as (B, H, S, Dh)."""
+        b, s, _ = x.shape
+        cfg = self.cfg
+        y = torch.matmul(x, p[w].to(x.dtype))
+        return y.reshape(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+
+    def apply_cached(self, params, x, cache, start: int):
+        """Incremental attention: project the ``s`` new positions (global
+        offsets ``start + arange(s)``), write their k/v into the
+        contiguous cache at ``start`` (in place), and attend q against the
+        whole cache under a global causal mask that also masks the
+        unwritten rows (``kv_len = start + s``).  One path covers prompt
+        prefill (s = prompt length) and decode (s = 1).  Returns
+        ``(out, cache)``."""
+        cfg = self.cfg
+        p = self.own(params)
+        b, s, _ = x.shape
+        dt = x.dtype
+        start = int(start)
+        positions = start + torch.arange(s, device=x.device)
+        q = apply_rope(self._proj(p, x, "wq"), positions, cfg.rope_theta)
+        k = apply_rope(self._proj(p, x, "wk"), positions, cfg.rope_theta)
+        v = self._proj(p, x, "wv")
+        ck, cv = cache["k"], cache["v"]
+        ck[:, :, start:start + s] = k.to(ck.dtype)
+        cv[:, :, start:start + s] = v.to(cv.dtype)
+        k_pos = torch.arange(ck.shape[2], device=x.device)
+        s_ = _scaled_scores(q, ck, cfg.head_dim)
+        mask = _attn_mask(positions, k_pos, start + s, True)
+        s_ = torch.where(mask[None, None], s_, DEFAULT_MASK_VALUE)
+        w_ = torch.softmax(s_, dim=-1)
+        o = torch.einsum("bhqk,bhkd->bhqd", w_, cv.float()).to(dt)
+        o = o.transpose(1, 2).reshape(b, s, cfg.d_model)
+        return torch.matmul(o, p["wo"].to(dt)), cache
+
+    # -- continuous-batching decode (a position per row) ---------------- #
+    def project_qkv_rows(self, params, x, positions):
+        """Projections of ONE new token per batch row at per-row offsets:
+        x (B, 1, d_model), positions (B,).  Returns q, k, v, each
+        (B, H, 1, Dh), with RoPE on q and k at ``positions[b]``: the
+        slot-batched half of :meth:`apply_cached`, split out so that a
+        paged cache can own the write and the gather in between."""
+        cfg = self.cfg
+        p = self.own(params)
+        q = apply_rope_rows(self._proj(p, x, "wq"), positions,
+                            cfg.rope_theta)
+        k = apply_rope_rows(self._proj(p, x, "wk"), positions,
+                            cfg.rope_theta)
+        return q, k, self._proj(p, x, "wv")
+
+    def attend_window(self, params, q, k_win, v_win, positions):
+        """Single-token attention of q (B, H, 1, Dh) against a gathered
+        window k_win/v_win (B, H, W, Dh): the other half of
+        :meth:`apply_cached`, with its op order.  Keys at
+        ``k_pos > positions[b]`` are masked; the masked V rows are set to
+        0 before the value sum, since a recycled page can hold NaN and
+        ``0 * NaN`` is NaN (for finite stale rows this changes nothing)."""
+        cfg = self.cfg
+        p = self.own(params)
+        b = q.shape[0]
+        dt = q.dtype
+        k_pos = torch.arange(k_win.shape[2], device=q.device)
+        s_ = _scaled_scores(q, k_win, cfg.head_dim)
+        mask = k_pos[None, :] <= positions[:, None]            # (B, W)
+        s_ = torch.where(mask[:, None, None, :], s_, DEFAULT_MASK_VALUE)
+        w_ = torch.softmax(s_, dim=-1)
+        v_ = torch.where(mask[:, None, :, None], v_win.float(), 0.0)
+        o = torch.einsum("bhqk,bhkd->bhqd", w_, v_).to(dt)
+        o = o.transpose(1, 2).reshape(b, 1, cfg.d_model)
         return torch.matmul(o, p["wo"].to(dt))
 
 
@@ -191,6 +302,27 @@ class TransformerBlock(Module):
                 "item 2)")
         h = x + self.attn.apply(params, self.norm1.apply(params, x, ctx),
                                 ctx)
+        return h + self.mlp.apply(params, self.norm2.apply(params, h, ctx),
+                                  ctx)
+
+    def apply_cached(self, params, x, ctx, cache, start: int):
+        a, cache = self.attn.apply_cached(
+            params, self.norm1.apply(params, x, ctx), cache, start)
+        h = x + a
+        return h + self.mlp.apply(params, self.norm2.apply(params, h, ctx),
+                                  ctx), cache
+
+    def apply_decode(self, params, x, ctx, positions, kv_io):
+        """Slot-batched single-token decode: x (B, 1, d_model), positions
+        (B,).  ``kv_io(attn_name, k_new, v_new) -> (k_win, v_win)`` is the
+        paged-cache seam: it writes this token's k/v rows into the cache
+        and returns the gathered window, which already holds the rows
+        just written (the write-then-attend order of
+        :meth:`apply_cached`)."""
+        h = self.norm1.apply(params, x, ctx)
+        q, k, v = self.attn.project_qkv_rows(params, h, positions)
+        k_win, v_win = kv_io(self.attn.name, k, v)
+        h = x + self.attn.attend_window(params, q, k_win, v_win, positions)
         return h + self.mlp.apply(params, self.norm2.apply(params, h, ctx),
                                   ctx)
 
@@ -277,6 +409,230 @@ class TransformerLM(Module):
                                   loss_chunk=loss_chunk, training=training,
                                   ctx=ctx)
         return tot / torch.clamp(cnt, min=1.0)
+
+    # -- generation (kv cache) ----------------------------------------- #
+    def _device(self) -> torch.device:
+        return self.embed.weight.device
+
+    def init_cache(self, batch: int, dtype=None, cache_len=None):
+        """Contiguous kv cache of zeros on the model's device, one entry per
+        block keyed by the attention module's name: ``{name: {"k", "v"}}``,
+        each (batch, H, cache_len, Dh).  ``cache_len`` defaults to
+        max_len; ``generate`` sizes it to prompt + new."""
+        cfg = self.cfg
+        dt = _torch_dtype(dtype or cfg.dtype)
+        shape = (batch, cfg.n_heads, int(cache_len or cfg.max_len),
+                 cfg.head_dim)
+        dev = self._device()
+        return {blk.attn.name: {"k": torch.zeros(shape, dtype=dt, device=dev),
+                                "v": torch.zeros(shape, dtype=dt, device=dev)}
+                for blk in self.blocks}
+
+    def apply_with_cache(self, params, tokens, cache, start: int):
+        """Logits for ``tokens`` (B, s) written at global offset ``start``
+        into ``cache`` (in place): ``(logits fp32 (B, s, V), cache)``."""
+        ctx = Ctx(state={}, training=False)
+        h = self.embed.apply(params, tokens, ctx).to(
+            _torch_dtype(self.cfg.dtype))
+        for blk in self.blocks:
+            h, cache[blk.attn.name] = blk.apply_cached(
+                params, h, ctx, cache[blk.attn.name], start)
+        h = self.final_norm.apply(params, h, ctx)
+        return self.head_logits(params, h, ctx).float(), cache
+
+    def decode_tokens(self, params, tokens, positions, kv_io):
+        """Continuous-batching decode core: one new token per slot.
+        ``tokens`` (B,) are each slot's latest token, ``positions`` (B,)
+        its global index (the slot's current length), and ``kv_io`` the
+        paged-cache seam of :meth:`TransformerBlock.apply_decode`.
+        Returns fp32 logits (B, V) for each slot's next position; every
+        row advances at its own offset."""
+        ctx = Ctx(state={}, training=False)
+        h = self.embed.apply(params, tokens[:, None], ctx).to(
+            _torch_dtype(self.cfg.dtype))
+        for blk in self.blocks:
+            h = blk.apply_decode(params, h, ctx, positions, kv_io)
+        h = self.final_norm.apply(params, h, ctx)
+        return self.head_logits(params, h, ctx)[:, 0].float()
+
+    def _prompt(self, prompt) -> torch.Tensor:
+        if isinstance(prompt, torch.Tensor):
+            return prompt.to(device=self._device(), dtype=torch.int32)
+        return torch.from_numpy(np.asarray(prompt, np.int32)).to(
+            self._device())
+
+    def _check_len(self, s0: int, max_new_tokens: int):
+        if s0 + max_new_tokens > self.cfg.max_len:
+            raise ValueError(
+                f"prompt({s0}) + max_new_tokens({max_new_tokens}) exceeds "
+                f"max_len={self.cfg.max_len}")
+
+    @torch.inference_mode()
+    def generate(self, params, prompt, max_new_tokens: int,
+                 temperature: float = 0.0,
+                 rng: Union[None, int, torch.Generator] = None,
+                 top_k: Optional[int] = None,
+                 top_p: Optional[float] = None,
+                 params_transform=None):
+        """Autoregressive decode with a kv cache: one prefill of the
+        prompt, then one single-token step per new token.  Temperature 0
+        is greedy (argmax, ties to the lower id); otherwise softmax
+        sampling after the ``top_k`` / ``top_p`` (nucleus) filters, with
+        Gumbel noise from ``rng`` (a seed or a ``torch.Generator`` on the
+        model's device; seed 0 when None).  ``params_transform`` maps the
+        params before the first step.  Returns int32 (B, prompt + new)
+        on the model's device."""
+        prompt = self._prompt(prompt)
+        b, s0 = prompt.shape
+        if top_k is not None and top_k < 1:
+            raise ValueError(f"top_k must be >= 1, got {top_k}")
+        if max_new_tokens < 1:
+            return prompt
+        self._check_len(s0, max_new_tokens)
+        if params_transform is not None:
+            params = params_transform(params)
+        gen = None
+        if temperature > 0.0:
+            gen = rng if isinstance(rng, torch.Generator) else \
+                torch.Generator(device=self._device()).manual_seed(
+                    int(rng or 0))
+
+        def select(logits_last):
+            if gen is None:
+                return torch.argmax(logits_last, dim=-1).int()
+            return gumbel_sample(_filter_logits(logits_last / temperature,
+                                                top_k, top_p), gen)
+
+        cache = self.init_cache(b, cache_len=s0 + max_new_tokens)
+        logits, cache = self.apply_with_cache(params, prompt, cache, 0)
+        out = [select(logits[:, -1])]
+        for i in range(max_new_tokens - 1):
+            # the last token sits at position s0 + i: write it there and
+            # pick position s0 + i + 1's token
+            lg, cache = self.apply_with_cache(params, out[-1][:, None],
+                                              cache, s0 + i)
+            out.append(select(lg[:, -1]))
+        return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+    @torch.inference_mode()
+    def generate_beam(self, params, prompt, max_new_tokens: int,
+                      beam_size: int = 4, eos_id: Optional[int] = None,
+                      length_penalty: float = 0.0):
+        """Beam-search decode with the kv cache.
+
+        Keeps ``beam_size`` hypotheses per sequence: the cache runs at
+        batch B*beam and is gathered along the beam dim after each step's
+        top-k over (beam x vocab) continuations, ties to the lower flat
+        index as ``lax.top_k`` breaks them.  Beams that emit ``eos_id``
+        freeze (score stops accumulating, eos repeats).  Returns
+        ``(tokens int32 (B, s0+new), scores (B,))`` of the best
+        hypothesis; scores are summed token log-probs /
+        (length ** length_penalty)."""
+        cfg = self.cfg
+        prompt = self._prompt(prompt)
+        b, s0 = prompt.shape
+        dev = prompt.device
+        if not 1 <= beam_size <= cfg.vocab_size:
+            raise ValueError(f"beam_size must be in [1, vocab_size], "
+                             f"got {beam_size}")
+        if max_new_tokens < 1:
+            return prompt, torch.zeros((b,), dtype=torch.float32, device=dev)
+        self._check_len(s0, max_new_tokens)
+        K = int(beam_size)
+        cache = self.init_cache(b, cache_len=s0 + max_new_tokens)
+        logits, cache = self.apply_with_cache(params, prompt, cache, 0)
+        logp0 = torch.log_softmax(logits[:, -1], dim=-1)          # (B, V)
+        V = logp0.shape[-1]
+        scores, tok0 = _top_k(logp0, K)                           # (B, K)
+        cache = {n: {kk: c.repeat_interleave(K, dim=0)
+                     for kk, c in sub.items()} for n, sub in cache.items()}
+        tok = tok0.reshape(b * K).int()
+        alive = (tok0 != eos_id) if eos_id is not None else None
+        lengths = torch.ones((b, K), dtype=torch.float32, device=dev)
+        if alive is not None:
+            frozen = torch.full((V,), -math.inf, device=dev)
+            frozen[eos_id] = 0.0
+        base_rows = torch.arange(b, device=dev)[:, None] * K
+        toks, srcs = [], []
+        for i in range(max_new_tokens - 1):
+            # `tok` sits at position s0 + i: write it there, then score
+            # the candidates for position s0 + i + 1
+            lg, cache = self.apply_with_cache(params, tok[:, None], cache,
+                                              s0 + i)
+            logp = torch.log_softmax(lg[:, 0], dim=-1).reshape(b, K, V)
+            if alive is not None:
+                # finished beams may only emit eos again, at score 0
+                logp = torch.where(alive[..., None], logp,
+                                   frozen[None, None, :])
+            total = scores[..., None] + logp                       # (B,K,V)
+            scores, flat_idx = _top_k(total.reshape(b, K * V), K)
+            src_beam = flat_idx // V
+            new_tok = (flat_idx % V).int()
+            rows = (base_rows + src_beam).reshape(b * K)
+            cache = {n: {kk: c.index_select(0, rows)
+                         for kk, c in sub.items()}
+                     for n, sub in cache.items()}
+            lengths = torch.gather(lengths, 1, src_beam)
+            if alive is not None:
+                parent_alive = torch.gather(alive, 1, src_beam)
+                # a frozen beam's repeated eos does not count as length
+                lengths = lengths + parent_alive.float()
+                alive = parent_alive & (new_tok != eos_id)
+            else:
+                lengths = lengths + 1.0
+            tok = new_tok.reshape(b * K)
+            toks.append(new_tok)
+            srcs.append(src_beam)
+        norm = scores
+        if length_penalty:
+            norm = scores / (torch.clamp(lengths, min=1.0) ** length_penalty)
+        best = torch.argmax(norm, dim=-1)                          # (B,)
+        # backtrack: follow the src_beam pointers from the best final beam
+        beam, rev = best, []
+        for sr, tk in zip(reversed(srcs), reversed(toks)):
+            rev.append(torch.gather(tk, 1, beam[:, None])[:, 0])
+            beam = torch.gather(sr, 1, beam[:, None])[:, 0]
+        first_tok = torch.gather(tok0, 1, beam[:, None]).int()
+        seq = torch.cat([prompt, first_tok]
+                        + [t[:, None] for t in reversed(rev)], dim=1)
+        best_score = torch.gather(norm, 1, best[:, None])[:, 0]
+        return seq, best_score
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+def _top_k(x, k: int):
+    """``lax.top_k`` over the last dim: the k largest values in descending
+    order, equal values in ascending index order (a stable sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _filter_logits(lg, top_k: Optional[int], top_p: Optional[float]):
+    """The reference's ``top_k`` then ``top_p`` filters: logits outside
+    them become -inf."""
+    if top_k is not None and top_k < lg.shape[-1]:
+        kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+        lg = torch.where(lg < kth, -math.inf, lg)
+    if top_p is not None and 0.0 < top_p < 1.0:
+        # nucleus: keep the smallest prefix of the sorted probs whose mass
+        # reaches top_p (the top token always survives)
+        srt = torch.sort(lg, dim=-1, descending=True).values
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = cum - probs < top_p
+        cutoff = torch.where(keep, srt, math.inf).amin(dim=-1, keepdim=True)
+        lg = torch.where(lg < cutoff, -math.inf, lg)
+    return lg
+
+
+def gumbel_sample(logits, gen: torch.Generator):
+    """One draw per row from softmax(logits): the Gumbel-max trick with
+    uniforms from ``gen`` (no host sync)."""
+    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1).int()
 
 
 def lm_token_nll(logits, targets, ignore_index: int = -1):

@@ -2,7 +2,8 @@
 
 Port of ``bigdl_tpu/observability/recorder.py``: counters (``inc``),
 gauges (``gauge``), histograms with p50/p95/p99 over a bounded recent
-window (``observe``, ``hist_summary``), timed spans (``span``) and
+window (``observe``, ``hist_summary``, ``hist_quantiles``), timed spans
+(``span``) and
 out-of-band records (``emit_record``) kept in a bounded ring.
 
 Not ported yet (ROADMAP queue A, operate plane): step records
@@ -83,6 +84,10 @@ class Recorder:
         with self._lock:
             return self._counters.get(name, default)
 
+    def gauge_value(self, name: str, default: float = 0.0) -> float:
+        with self._lock:
+            return self._gauges.get(name, default)
+
     def span_value(self, name: str, default: float = 0.0) -> float:
         """Accumulated seconds of ``name``."""
         with self._lock:
@@ -121,6 +126,16 @@ class Recorder:
             out.update({f"p{q:g}": _quantile(samples, q)
                         for q in (50.0, 95.0, 99.0)})
         return out
+
+    def hist_quantiles(self, name: str, qs=(50.0, 95.0, 99.0)
+                       ) -> Optional[Dict[str, float]]:
+        """``{"p50": ..., ...}`` over the histogram's recent samples;
+        ``None`` (never an exception) for unknown or empty names."""
+        with self._lock:
+            samples = sorted(self._hist_samples.get(name) or ())
+        if not samples:
+            return None
+        return {f"p{q:g}": _quantile(samples, q) for q in qs}
 
     def span(self, name: str):
         """Context manager timing a region."""

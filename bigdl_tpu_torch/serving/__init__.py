@@ -10,6 +10,11 @@
     weight :class:`Snapshot` s and atomic hot-swap.
   * :class:`ServingEngine` — warmup of every bucket, per-request
     deadline propagation, graceful drain, Recorder wiring.
+  * :class:`DecodeEngine` + :class:`PagedKVCache` — token-streaming
+    continuous batching for LMs: requests join and leave the decode
+    batch per step, the KV cache is paged from a device pool (youngest-
+    first eviction with re-prefill and replay, optional int8), per-token
+    TTFT / inter-token accounting.
 
 Quick start::
 
@@ -22,12 +27,22 @@ Quick start::
     eng = ServingEngine(reg, max_batch=8).warmup()
     logits = eng.predict("lm", tokens)        # or submit(...) -> Future
     eng.shutdown(drain=True)
+
+    dec = DecodeEngine(reg, "lm", slots=8, max_context=1024,
+                       max_prompt=512, max_new_tokens=64).warmup()
+    out = dec.predict("lm", prompt)           # prompt + 64 new tokens
+    for tok in dec.stream("lm", prompt).tokens():
+        ...
+    dec.shutdown()
 """
 from .buckets import BucketLadder
+from .decode import DecodeEngine, DecodeStream
 from .engine import ServingEngine
+from .kvcache import PagedKVCache, PagePoolError
 from .queue import BatchingQueue, EngineClosedError, LoadShedError, Request
 from .registry import ModelEntry, ModelRegistry, Snapshot
 
-__all__ = ["BatchingQueue", "BucketLadder", "EngineClosedError",
-           "LoadShedError", "ModelEntry", "ModelRegistry", "Request",
+__all__ = ["BatchingQueue", "BucketLadder", "DecodeEngine", "DecodeStream",
+           "EngineClosedError", "LoadShedError", "ModelEntry",
+           "ModelRegistry", "PagePoolError", "PagedKVCache", "Request",
            "ServingEngine", "Snapshot"]

@@ -54,7 +54,33 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 threads.  Every answer is checked against the same model
                 run directly on the card with the plain attention.  The
                 launch counts show that every batch went through K1.
-  4. training — the same ``base`` trained by ``SpmdTrainer`` with
+  4. decode   — the same ``base`` (fp32, TF32 off, seed 0) served token by
+                token by ``DecodeEngine(slots=8, page_size=16,
+                max_context=1024, max_prompt=512, max_new_tokens=64)``
+                after a warmup of its 10 prefill buckets and its decode
+                step: 24 greedy requests with prompts of 16-512 tokens
+                from 3 client threads, half through ``stream()`` and half
+                through ``submit()``.  Every output is the prompt + 64
+                tokens, nothing runs a new shape after warmup, the pool
+                ends empty and consistent, and no hand kernel launches
+                (the reference's decode is XLA einsums, not Pallas).
+                Every engine token is held against the contiguous cache
+                (``init_cache`` + ``apply_with_cache``, teacher-forced on
+                the engine's tokens): its logit within the stated limit of
+                the maximum logit.  Paged ``decode_tokens`` logits against
+                the contiguous path's for 2 prompts over 16 steps (max
+                |err| and whether the bits agree).  The same 24 requests
+                again, submitted at once, with a pool of 96 of the 512
+                pages: evictions and readmissions must happen, and every
+                token must be bitwise the uncontended run's.  One ``generate_beam`` (beam 4, 2
+                prompts of 64, 32 new tokens; scores against the
+                sequences' log-probs) and one ``int8_kv=True`` engine run
+                (relative logit drift of the paged path in (0, 0.05)).
+                Readings: tokens/s, TTFT and inter-token p50/p99, the
+                decode step (8 live slots) and each prefill bucket by the
+                host clock, peak device memory, and the device's time by
+                class and busy share over 4 steady steps.
+  5. training — the same ``base`` trained by ``SpmdTrainer`` with
                 ``AdamW(learning_rate=3e-4, fused=True)`` for 6 steps on
                 one repeated batch of 8 x 512 tokens, and again from the
                 same weights with the plain attention (forward and
@@ -66,7 +92,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 fused_optim.ADAM_CAPACITY leaves).  The same steps with the matmuls on TF32 must fall
                 outside the limits, so that the limits can see a drop
                 below fp32.
-  5. classifier — ResNet-50 (ImageNet, NHWC, 1000 classes, full width and
+  6. classifier — ResNet-50 (ImageNet, NHWC, 1000 classes, full width and
                 depth, fp32, weights from a seed) trained by
                 ``LocalOptimizer`` with ``SGD(learning_rate=0.1,
                 momentum=0.9, weight_decay=1e-4, fused=True)`` for 6 steps
@@ -85,7 +111,8 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 8 leaves), against ``fused=False`` (bitwise).  cuDNN runs
                 deterministic algorithms chosen without benchmarking.
 
-Output: a ``{"slice": {...}}`` line, a ``{"training": {...}}`` line, a
+Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
+``{"training": {...}}`` line, a
 ``{"classifier": {...}}`` line, a ``{"host_sync": {...}}`` line, a
 ``{"kernels": [...]}`` line (all six
 kernels), the card's name and power limit as nvidia-smi gives them, and
@@ -1081,10 +1108,10 @@ def _device_us(ev):
 
 def profile_steps(run_steps, steps: int = 2, classes=KERNEL_CLASSES,
                   top: int = 0):
-    """Device time by kernel class and the device's busy share over
-    ``run_steps()``, which runs ``steps`` training steps, from
-    torch.profiler (CUPTI); with ``top``, also the ``top`` kernels by
-    device time."""
+    """Device time by kernel class, the device records (kernels and
+    copies) a step and the device's busy share over ``run_steps()``, which
+    runs ``steps`` steps, from torch.profiler (CUPTI); with ``top``, also
+    the ``top`` kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1093,12 +1120,13 @@ def profile_steps(run_steps, steps: int = 2, classes=KERNEL_CLASSES,
         run_steps()
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
-    by_class, by_name, device_us = {}, {}, 0.0
+    by_class, by_name, device_us, records = {}, {}, 0.0, 0
     for ev in prof.key_averages():
         us = _device_us(ev)
         if not us:
             continue
         device_us += us
+        records += ev.count
         name = ev.key.lower()
         cls = next((c for key, c in classes if key in name), "other")
         by_class[cls] = by_class.get(cls, 0.0) + us / 1e3 / steps
@@ -1109,6 +1137,7 @@ def profile_steps(run_steps, steps: int = 2, classes=KERNEL_CLASSES,
     busy = device_us / 1e3 / wall_ms
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
            "device_ms_per_step": device_us / 1e3 / steps,
+           "device_records_per_step": records / steps,
            "device_busy_share": busy,
            "device_ms_by_class": dict(sorted(by_class.items(),
                                              key=lambda kv: -kv[1]))}
@@ -2183,6 +2212,383 @@ def phase_classifier(card: str, k5: dict, k6: dict):
     return out
 
 
+# --------------------------------------------------------------------- #
+DECODE_ENGINE = dict(slots=8, page_size=16, max_context=1024, max_prompt=512,
+                     max_new_tokens=64)
+DECODE_REQUESTS, DECODE_CLIENTS, DECODE_NEW = 24, 3, 64
+DECODE_CONTENDED_PAGES = 96      # of the 512 the uncontended pool holds
+# the engine's tokens come from the paged cache, the check's logits from
+# the contiguous one: the same fp32 ops at other batch and window shapes,
+# so the engine's token may trail the contiguous argmax only by their
+# float-rounding distance (about 20x the sound reading)
+DECODE_TOKEN_TOL = 2e-4
+PAGED_LOGIT_TOL = 2e-4           # max |paged - contiguous| logit
+BEAM_SCORE_TOL = 3e-4            # beam score against the sequence log-prob
+INT8_DRIFT_MAX = 0.05            # the reference's documented int8 envelope
+DECODE_CLASSES = KERNEL_CLASSES[:4] + (
+    ("gemm", "matmul (cuBLAS)"), ("cutlass", "matmul (cuBLAS)"),
+    ("index", "index / gather / scatter"), ("gather", "index / gather / "
+                                            "scatter"),
+    ("scatter", "index / gather / scatter"), ("softmax", "softmax"),
+    ("reduce", "reductions"), ("memcpy", "copies"), ("copy", "copies"),
+    ("elementwise", "elementwise"))
+
+
+def _decode_clients(eng, prompts):
+    """Every prompt through ``eng`` from DECODE_CLIENTS threads, even ones
+    through ``stream()`` (whose tokens must be the result's tail), odd ones
+    through ``submit()``; returns (outputs, wall seconds)."""
+    results = [None] * len(prompts)
+    errors = []
+
+    def client(c):
+        try:
+            for i in range(c, len(prompts), DECODE_CLIENTS):
+                if i % 2 == 0:
+                    st = eng.stream("lm", prompts[i])
+                    toks = list(st.tokens())
+                    out = st.result(timeout=600)
+                    if toks != out[len(prompts[i]):].tolist():
+                        raise AssertionError(f"request {i}: streamed "
+                                             f"tokens differ from result")
+                else:
+                    out = eng.submit("lm", prompts[i]).result(timeout=600)
+                results[i] = out
+        except Exception as e:   # reported below, fails the phase
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(DECODE_CLIENTS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.monotonic() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"decode clients failed: {errors}")
+    for i, (p, out) in enumerate(zip(prompts, results)):
+        if out.shape != (len(p) + DECODE_NEW,) \
+                or not np.array_equal(out[:len(p)], p):
+            raise AssertionError(f"request {i}: output {out.shape} is not "
+                                 f"the prompt + {DECODE_NEW} tokens")
+    return results, wall
+
+
+def _check_pool_empty(eng, what):
+    eng.kv.check_invariants()
+    if eng.kv.pages_in_use():
+        raise AssertionError(f"{what}: {eng.kv.pages_in_use()} pages still "
+                             f"held after every request finished")
+
+
+def _paged_logits(model, params, kv, prompts, steps, feed=None):
+    """Each prompt prefilled into slot i of ``kv`` (bucketed, as the engine
+    does), then ``steps`` decode steps of all of them together through
+    ``decode_tokens``.  Returns per prompt the (steps + 1, V) logits; the
+    tokens fed are the paged argmax, or ``feed[i]`` (steps,) per prompt."""
+    pool = kv.init_pool()
+    n = len(prompts)
+    rows = [[] for _ in range(n)]
+    lengths = np.zeros(kv.n_slots, np.int32)
+    last = np.zeros(kv.n_slots, np.int32)
+    for i, p in enumerate(prompts):
+        L = len(p)
+        if not kv.alloc_for(i, L):
+            raise AssertionError("paged check: pool too small")
+        b = 1 << (L - 1).bit_length()
+        toks = np.zeros((1, b), np.int32)
+        toks[0, :L] = p
+        cache = model.init_cache(1, cache_len=b)
+        lg, cache = model.apply_with_cache(
+            params, torch.from_numpy(toks).cuda(), cache, 0)
+        table = np.full(-(-b // kv.page_size), -1, np.int32)
+        m = min(table.size, kv.max_pages_per_slot)
+        table[:m] = kv.tables[i, :m]
+        for name in kv.layer_names:
+            kv.write_prefill(pool[name], torch.from_numpy(table).cuda(),
+                             cache[name]["k"], cache[name]["v"])
+        rows[i].append(lg[0, L - 1])
+        lengths[i] = L
+        last[i] = int(lg[0, L - 1].argmax())
+    for j in range(steps):
+        if feed is not None:
+            last[:n] = [f[j] for f in feed]
+        for i in range(n):
+            kv.alloc_for(i, int(lengths[i]) + 1)
+        tb = torch.from_numpy(kv.tables.copy()).cuda()
+        ln = torch.from_numpy(lengths.copy()).cuda()
+
+        def kv_io(name, k, v):
+            kv.write_token(pool[name], tb, ln, k, v)
+            return kv.gather_window(pool[name], tb)
+
+        lg = model.decode_tokens(params, torch.from_numpy(last).cuda(), ln,
+                                 kv_io)
+        for i in range(n):
+            rows[i].append(lg[i])
+        last[:n] = lg[:n].argmax(-1).cpu().numpy()
+        lengths[:n] += 1
+    return [torch.stack(r) for r in rows]
+
+
+def _contiguous_logits(model, params, prompt, fed, cache_len):
+    """The contiguous path (``init_cache`` + ``apply_with_cache``): the
+    prompt, then the tokens ``fed`` one at a time; (len(fed) + 1, V)."""
+    L = len(prompt)
+    cache = model.init_cache(1, cache_len=cache_len)
+    lg, cache = model.apply_with_cache(
+        params, torch.from_numpy(prompt[None]).cuda(), cache, 0)
+    rows = [lg[0, -1]]
+    fed_d = torch.from_numpy(np.asarray(fed, np.int32)).cuda()
+    for j in range(len(fed)):
+        lg, cache = model.apply_with_cache(params, fed_d[j:j + 1][None],
+                                           cache, L + j)
+        rows.append(lg[0, 0])
+    return torch.stack(rows)
+
+
+def phase_decode(card: str):
+    """Token streaming on base: DecodeEngine over the paged cache, checked
+    against the contiguous cache, under contention, with beam search and
+    int8 KV; the readings of the uncontended run."""
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.serving import (DecodeEngine, ModelRegistry,
+                                         PagedKVCache)
+
+    t0 = time.monotonic()
+    model = T.build("base", device="cuda", seed=0)
+    cfg = model.cfg
+    params = model.param_dict()
+    rs = np.random.RandomState(9)
+    lens = rs.randint(16, DECODE_ENGINE["max_prompt"] + 1, DECODE_REQUESTS)
+    prompts = [rs.randint(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+
+    def engine(**kw):
+        reg = ModelRegistry()
+        reg.register("lm", model)
+        return DecodeEngine(reg, "lm", **{**DECODE_ENGINE, **kw})
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine()
+    t_w = time.monotonic()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.monotonic() - t_w
+    # the main path: every kernel count from 0 just before, read just after
+    _build.reset_launch_counts()
+    outs, wall = _decode_clients(eng, prompts)
+    launches = _build.launch_counts()
+    st = eng.stats()
+    eng.shutdown()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if st["recompiles"] != 0 or st["errors"] != 0 \
+            or st["warmup_compiles"] != len(eng.ladder) + 1:
+        raise AssertionError(f"decode stats: {st}")
+    if any(launches.values()):
+        raise AssertionError(f"the decode path launched hand kernels: "
+                             f"{launches}")
+    _check_pool_empty(eng, "uncontended run")
+    n_tokens = DECODE_REQUESTS * DECODE_NEW
+    log(f"decode: {n_tokens} tokens in {wall:.2f} s, warmup {warm_s:.1f} s, "
+        f"{st}")
+
+    # the readings: the decode step with every slot live, each prefill
+    # bucket, and the device's view of a few steady steps
+    snap = eng.registry.get("lm").snapshot
+    kv = eng.kv
+    mid = DECODE_ENGINE["max_prompt"] + DECODE_NEW // 2
+    with eng._on_device():
+        prog = eng._program("decode")
+        for s in range(eng.slots):
+            kv.alloc_for(s, mid + 1)
+        toks = rs.randint(0, cfg.vocab_size, eng.slots).astype(np.int32)
+        lengths = np.full(eng.slots, mid, np.int32)
+        greedy = np.zeros(eng.slots, np.float32)
+
+        def step(i=0):
+            return prog(snap.params, eng._pool, toks, lengths, kv.tables,
+                        greedy, i)
+
+        step_ms = []
+        for i in range(23):
+            t1 = time.perf_counter()
+            step(i)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+        step_ms = step_ms[3:]
+        prof = profile_steps(lambda: [step(i) for i in range(4)], steps=4,
+                             classes=DECODE_CLASSES, top=8)
+        for s in range(eng.slots):
+            kv.free_slot(s)
+        prefill_ms = {}
+        table_of = {b: np.full(-(-b // kv.page_size), -1, np.int32)
+                    for b in eng.ladder}
+        for b in eng.ladder:
+            pre = eng._program("prefill", b)
+            x = rs.randint(0, cfg.vocab_size, (1, b)).astype(np.int32)
+            times = []
+            for _ in range(4):
+                t1 = time.perf_counter()
+                pre(snap.params, eng._pool, x, b, table_of[b], 0.0, 0)
+                times.append((time.perf_counter() - t1) * 1e3)
+            prefill_ms[b] = float(np.median(times[1:]))
+    log(f"decode step {np.median(step_ms):.3f} ms (median of 20, 8 live "
+        f"slots at length {mid}); prefill ms by bucket {prefill_ms}")
+
+    # fidelity: every request through the contiguous cache, teacher-forced
+    # on the engine's own tokens
+    worst_gap, exact, positions = 0.0, 0, 0
+    t_f = time.monotonic()
+    with torch.inference_mode():
+        for i, (p, out) in enumerate(zip(prompts, outs)):
+            gen = out[len(p):]
+            rows = _contiguous_logits(model, params, p, gen[:-1],
+                                      len(p) + DECODE_NEW)
+            got = torch.from_numpy(gen).cuda().long()
+            gap = rows.max(-1).values - rows.gather(1, got[:, None])[:, 0]
+            worst_gap = max(worst_gap, gap.max().item())
+            exact += int((rows.argmax(-1) == got).sum())
+            positions += len(gen)
+    log(f"decode vs contiguous: worst logit gap {worst_gap:.3e}, argmax "
+        f"equal at {exact}/{positions} positions "
+        f"({time.monotonic() - t_f:.1f} s)")
+    if not worst_gap <= DECODE_TOKEN_TOL:
+        raise AssertionError(f"an engine token trails the contiguous "
+                             f"argmax by {worst_gap:.3e} > "
+                             f"{DECODE_TOKEN_TOL}")
+
+    # paged decode_tokens against contiguous logits, two prompts, 16 steps
+    names = [b.attn.name for b in model.blocks]
+    geo = dict(n_heads=cfg.n_heads, head_dim=cfg.head_dim, n_pages=160,
+               page_size=DECODE_ENGINE["page_size"],
+               n_slots=DECODE_ENGINE["slots"],
+               max_context=DECODE_ENGINE["max_context"], device="cuda")
+    pair = [prompts[0], prompts[1]]
+    with torch.inference_mode():
+        paged = _paged_logits(model, params, PagedKVCache(names, **geo),
+                              pair, 16)
+        paged_err, bitwise = 0.0, True
+        for p, rows in zip(pair, paged):
+            fed = rows[:-1].argmax(-1).cpu().numpy()
+            want = _contiguous_logits(model, params, p, fed,
+                                      DECODE_ENGINE["max_context"])
+            paged_err = max(paged_err, (rows - want).abs().max().item())
+            bitwise = bitwise and torch.equal(rows, want)
+    log(f"paged vs contiguous logits: max |err| {paged_err:.3e} (limit "
+        f"{PAGED_LOGIT_TOL}), bitwise {bitwise}")
+    if not paged_err <= PAGED_LOGIT_TOL:
+        raise AssertionError("paged decode_tokens disagrees with the "
+                             "contiguous cache")
+
+    # contended: a fifth of the pool and all 24 requests at once, so that
+    # prompts fill the pool and growth must evict; the same tokens, bitwise
+    eng_c = engine(pool_pages=DECODE_CONTENDED_PAGES).warmup()
+    t_c = time.monotonic()
+    futs = [eng_c.submit("lm", p) for p in prompts]
+    outs_c = [f.result(timeout=900) for f in futs]
+    wall_c = time.monotonic() - t_c
+    st_c = eng_c.stats()
+    eng_c.shutdown()
+    ev = eng_c.recorder.counter_value("kv/evictions")
+    re_ = eng_c.recorder.counter_value("decode/readmissions")
+    _check_pool_empty(eng_c, "contended run")
+    if not (ev > 0 and re_ > 0):
+        raise AssertionError(f"contended run: evictions {ev}, readmissions "
+                             f"{re_}; the pool must be made to evict")
+    same = [np.array_equal(a, b) for a, b in zip(outs, outs_c)]
+    if not all(same):
+        raise AssertionError(f"contended tokens differ from uncontended for "
+                             f"requests {[i for i, ok in enumerate(same) if not ok]}")
+    log(f"contended ({DECODE_CONTENDED_PAGES} pages): {ev:.0f} evictions, "
+        f"{re_:.0f} readmissions, "
+        f"{eng_c.recorder.counter_value('decode/replayed_tokens'):.0f} "
+        f"replayed tokens, {wall_c:.2f} s, every token bitwise")
+
+    # beam search: 2 prompts of 64, beam 4, 32 new tokens
+    bp = rs.randint(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    seq, scores = model.generate_beam(params, bp, 32, beam_size=4)
+    greedy_seq = model.generate(params, bp, 32)
+    with torch.inference_mode():
+        def seq_logprob(tokens):
+            cache = model.init_cache(2, cache_len=tokens.shape[1])
+            lg, _ = model.apply_with_cache(params, tokens, cache, 0)
+            logp = torch.log_softmax(lg[:, :-1], -1)
+            per = logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
+            return per[:, -32:].sum(1)
+        lp_beam, lp_greedy = seq_logprob(seq), seq_logprob(greedy_seq)
+    beam_err = (scores - lp_beam).abs().max().item()
+    if seq.shape != (2, 96) or not torch.isfinite(scores).all() \
+            or beam_err > BEAM_SCORE_TOL \
+            or not bool((lp_beam >= lp_greedy - BEAM_SCORE_TOL).all()):
+        raise AssertionError(f"beam: shape {tuple(seq.shape)}, scores "
+                             f"{scores.tolist()}, against the sequence "
+                             f"log-prob {lp_beam.tolist()} (greedy "
+                             f"{lp_greedy.tolist()})")
+
+    # int8 KV: an engine run, and the logit drift of the paged path
+    eng8 = engine(int8_kv=True).warmup()
+    outs8, _ = _decode_clients(eng8, prompts[:8])
+    eng8.shutdown()
+    _check_pool_empty(eng8, "int8 run")
+    agree8 = float(np.mean([np.mean(a[len(p):] == b[len(p):]) for p, a, b
+                            in zip(prompts, outs, outs8)]))
+    with torch.inference_mode():
+        fp = _paged_logits(model, params, PagedKVCache(names, **geo),
+                           pair[:1], 16)[0]
+        fed = [fp[:-1].argmax(-1).cpu().numpy()]
+        q8 = _paged_logits(model, params,
+                           PagedKVCache(names, int8=True, **geo), pair[:1],
+                           16, feed=fed)[0]
+    drift = ((fp - q8).abs().max() / fp.abs().max()).item()
+    log(f"int8 KV: relative logit drift {drift:.4f} (limit "
+        f"{INT8_DRIFT_MAX}); engine tokens equal to fp32 KV's at "
+        f"{agree8:.3f} of positions")
+    if not 0.0 < drift < INT8_DRIFT_MAX:
+        raise AssertionError(f"int8 KV drift {drift} outside (0, "
+                             f"{INT8_DRIFT_MAX})")
+
+    out = {"model": "base", "engine": DECODE_ENGINE,
+           "requests": DECODE_REQUESTS, "clients": DECODE_CLIENTS,
+           "prompt_lens": [int(n) for n in lens], "new_tokens": DECODE_NEW,
+           "warmup_s": warm_s, "wall_s": wall,
+           "tokens_per_s": n_tokens / wall,
+           "ttft_p50_ms": st.get("ttft_p50_ms"),
+           "ttft_p99_ms": st.get("ttft_p99_ms"),
+           "intertoken_p50_ms": st.get("intertoken_p50_ms"),
+           "intertoken_p99_ms": st.get("intertoken_p99_ms"),
+           "steps": st["steps"], "occupancy": st["occupancy"],
+           "step_span_mean_ms": eng.recorder.span_value("decode.step")
+           / max(st["steps"], 1) * 1e3,
+           "step_ms_median_8_live": float(np.median(step_ms)),
+           "step_ms_8_live": step_ms, "prefill_ms_by_bucket": prefill_ms,
+           "recompiles": int(st["recompiles"]),
+           "warmup_compiles": int(st["warmup_compiles"]),
+           "peak_mem_gb": peak_gb, "profile": prof, "launches": launches,
+           "fidelity": {"worst_logit_gap": worst_gap, "limit":
+                        DECODE_TOKEN_TOL, "argmax_equal": exact,
+                        "positions": positions},
+           "paged_vs_contiguous": {"max_abs_err": paged_err,
+                                   "limit": PAGED_LOGIT_TOL,
+                                   "bitwise": bitwise},
+           "contended": {"pool_pages": DECODE_CONTENDED_PAGES,
+                         "evictions": ev, "readmissions": re_,
+                         "replayed_tokens": eng_c.recorder.counter_value(
+                             "decode/replayed_tokens"),
+                         "wall_s": wall_c, "tokens_per_s": n_tokens / wall_c,
+                         "ttft_p99_ms": st_c.get("ttft_p99_ms"),
+                         "bitwise_equal": True},
+           "beam": {"scores": scores.tolist(), "max_abs_err_vs_logprob":
+                    beam_err, "beam_minus_greedy_logprob":
+                    (lp_beam - lp_greedy).tolist()},
+           "int8": {"relative_drift": drift, "limit": INT8_DRIFT_MAX,
+                    "token_agreement_vs_fp32": agree8},
+           "card": card}
+    log(f"decode: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -2204,6 +2610,7 @@ def main() -> int:
     host_sync = phase_host_sync()
     slice_ = phase_slice(card)
     k1["cases"].append(slice_["layer_case"])
+    decode = phase_decode(card)
     train = phase_training(card, k4)
     if train["profile"]:
         # K4's own device time a step (one launch), without host gaps
@@ -2217,6 +2624,7 @@ def main() -> int:
     torch.backends.cudnn.deterministic = True
     classifier = phase_classifier(card, k5, k6)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
+               "decode": decode["launches"],
                "training": train["launches"],
                "classifier": classifier["launches"]}
     kernels = [k1, *k23, k4, k5, k6]
@@ -2226,6 +2634,7 @@ def main() -> int:
         k["launches"] = sum(k["launches_by_path"].values())
     log(f"total {time.monotonic() - t0:.1f} s")
     print(json.dumps({"slice": slice_}), flush=True)
+    print(json.dumps({"decode": decode}), flush=True)
     print(json.dumps({"training": train}), flush=True)
     print(json.dumps({"classifier": classifier}), flush=True)
     print(json.dumps({"host_sync": host_sync}), flush=True)

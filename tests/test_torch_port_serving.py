@@ -288,7 +288,9 @@ def test_import_leaves_jax_and_reference_out():
         "bigdl_tpu_torch.optim, bigdl_tpu_torch.kernels, "
         "bigdl_tpu_torch.parallel, bigdl_tpu_torch.nn, bigdl_tpu_torch.data, "
         "bigdl_tpu_torch.models.resnet, bigdl_tpu_torch.models.lenet, "
-        "bigdl_tpu_torch.optim.trigger, bigdl_tpu_torch.optim.optimizer\n"
+        "bigdl_tpu_torch.optim.trigger, bigdl_tpu_torch.optim.optimizer, "
+        "bigdl_tpu_torch.serving.decode, bigdl_tpu_torch.serving.kvcache, "
+        "bigdl_tpu_torch.quantized\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
@@ -305,7 +307,9 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
     names = {str(f.relative_to(REPO)) for f in files}
     for new in ("nn/conv.py", "nn/pooling.py", "nn/containers.py",
                 "nn/criterion.py", "models/resnet.py", "models/lenet.py",
-                "optim/trigger.py", "data/dataset.py", "data/minibatch.py"):
+                "optim/trigger.py", "data/dataset.py", "data/minibatch.py",
+                "serving/decode.py", "serving/kvcache.py",
+                "quantized/__init__.py"):
         assert f"bigdl_tpu_torch/{new}" in names
     assert len(files) > 10
     for f in files:
