@@ -6,11 +6,13 @@ window (``observe``, ``hist_summary``, ``hist_quantiles``), timed spans
 (``span``) and
 out-of-band records (``emit_record``) kept in a bounded ring.
 
+A goodput ledger (:class:`~bigdl_tpu_torch.observability.goodput.GoodputLedger`)
+attaches with :meth:`set_ledger`; the engines fold into it.
+
 Not ported yet (ROADMAP queue A, operate plane): step records
-(``start_step``/``end_step``), profiler traces, the cost model, time
-series, Prometheus buckets, sinks, disabled recorders, the process-active
-recorder and the goodput ledger — :meth:`get_ledger` always returns
-``None``.
+(``start_step``/``end_step``, which fold a step into the ledger), profiler
+traces, the cost model, time series, Prometheus buckets, sinks, disabled
+recorders and the process-active recorder.
 """
 from __future__ import annotations
 
@@ -57,15 +59,22 @@ class Recorder:
         self._hists: Dict[str, List[float]] = {}
         self._hist_samples: Dict[str, deque] = {}
         self._ring: deque = deque(maxlen=self.KEEP_RECORDS)
+        self._ledger = None
 
     @property
     def enabled(self) -> bool:
         """Always True: the port has no disabled recorder."""
         return True
 
+    def set_ledger(self, ledger):
+        """Attach a :class:`~bigdl_tpu_torch.observability.goodput
+        .GoodputLedger` (``None`` detaches)."""
+        self._ledger = ledger
+        return self
+
     def get_ledger(self):
-        """The goodput ledger is not ported: always ``None``."""
-        return None
+        """The attached goodput ledger, or None."""
+        return self._ledger
 
     # -- primitives ------------------------------------------------------ #
     def inc(self, name: str, value: float = 1.0) -> float:

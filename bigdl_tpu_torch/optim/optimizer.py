@@ -12,7 +12,8 @@ parameters in place (the counterpart of donation).
 ``LocalOptimizer`` trains on one device (``cuda`` unless the caller
 passes ``device="cpu"``): per batch, the copy of the host arrays to the
 device, one step, the iteration and epoch counters and the end trigger.
-The loss stays on the device until the epoch ends.  Not ported yet
+The loss stays on the device until the epoch ends.  A live train→serve
+weight stream attaches with ``set_weight_stream``.  Not ported yet
 (ROADMAP queue A, item 10): validation, checkpoints, telemetry and
 health, retries, the trace context, prefetch and the device loader,
 device augment, gradient accumulation, clipping, mixed precision,
@@ -155,7 +156,6 @@ _UNPORTED_SETTERS = {
     "set_checkpoint": "checkpointing",
     "set_train_summary": "training summaries",
     "set_val_summary": "validation summaries",
-    "set_weight_stream": "the train-to-serve weight stream",
     "set_gradient_accumulation": "gradient accumulation in LocalOptimizer",
     "set_mixed_precision": "mixed precision (bf16 autocast, fp32 master "
                            "weights)",
@@ -209,6 +209,7 @@ class Optimizer:
         self.optim_method: OptimMethod = SGD()
         self.end_when: Trigger = Trigger.max_epoch(1)
         self.state = TrainingState()
+        self._weight_stream = None
 
     # -- fluent config, reference API ----------------------------------- #
     def set_optim_method(self, method):
@@ -217,6 +218,17 @@ class Optimizer:
 
     def set_end_when(self, trigger):
         self.end_when = trigger
+        return self
+
+    def set_weight_stream(self, publisher):
+        """Attach a live train→serve weight stream
+        (:class:`~bigdl_tpu_torch.serving.WeightStreamPublisher`): its
+        trigger is evaluated against the training state after every
+        iteration and, on fire, the current parameters are snapshotted
+        (owning copies on their device: the next step updates them in
+        place) and published through the canary gate off the step loop.
+        ``None`` detaches."""
+        self._weight_stream = publisher
         return self
 
     # -- main loop ------------------------------------------------------- #
@@ -263,6 +275,10 @@ class Optimizer:
             # the device every step
             st.loss = loss
             n_seen += size
+            if self._weight_stream is not None:
+                # the snapshot is taken inside, synchronously (owning
+                # copies); the publish rides the stream's worker thread
+                self._weight_stream.maybe_publish(params, state=st)
             if self._fire_mid_epoch():
                 stop = True
                 break

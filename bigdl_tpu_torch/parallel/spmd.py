@@ -19,10 +19,16 @@ Parameters are not drawn at :meth:`init`: the reference draws them from
 model's current parameters (a ``build(seed=)`` draw, or the reference's
 weights loaded with ``models.convert.from_jax_params``).
 
+A live weight stream (:meth:`SpmdTrainer.set_weight_stream`, a
+:class:`~bigdl_tpu_torch.serving.WeightStreamPublisher`) is evaluated
+once per ``fit`` step against the step count; on fire it takes owning
+device copies of the parameters and publishes them off the step loop.
+The loss stays on the device there.
+
 Not ported yet (ROADMAP queue A, item 5): the mesh and its axes (dp,
 fsdp, tp, sp), zero1 and ring attention; each raises here.  Also left
-out: telemetry and health, checkpoints, the weight stream, ``evaluate``
-and the device-side input transform.
+out: telemetry and health, checkpoints, ``evaluate`` and the device-side
+input transform.
 """
 from __future__ import annotations
 
@@ -73,6 +79,18 @@ class SpmdTrainer:
         self.params = None
         self.opt_state = None
         self._grads_fn = None
+        self._step_count = 0
+        self._weight_stream = None
+
+    def set_weight_stream(self, publisher):
+        """Attach a live train→serve weight stream
+        (:class:`~bigdl_tpu_torch.serving.WeightStreamPublisher`):
+        evaluated once per :meth:`fit` step against the step count; on
+        fire the parameters are snapshotted (owning copies on their
+        device) and published through the canary gate off the step loop.
+        ``None`` detaches."""
+        self._weight_stream = publisher
+        return self
 
     def init(self):
         """Take the model's parameters and build the optimizer state."""
@@ -116,6 +134,7 @@ class SpmdTrainer:
         (loss, _), grads = self._grads_fn(self.params, {}, tokens, targets)
         self.params, self.opt_state = self.optim.update(
             grads, self.params, self.opt_state)
+        self._step_count += 1
         return loss
 
     def fit(self, batches, steps: Optional[int] = None, log_every: int = 0):
@@ -126,6 +145,12 @@ class SpmdTrainer:
             if steps is not None and i >= steps:
                 break
             loss = self.step(tokens, targets)
+            if self._weight_stream is not None:
+                # the snapshot is taken here, before the next step's
+                # in-place update; the loss stays on the device (the
+                # trigger state carries only the step count)
+                self._weight_stream.maybe_publish(self.params,
+                                                  step=self._step_count)
             if log_every and (i + 1) % log_every == 0:
                 print(f"step {i + 1}: loss={float(loss):.4f}")
             losses.append(loss)

@@ -15,6 +15,15 @@
     batch per step, the KV cache is paged from a device pool (youngest-
     first eviction with re-prefill and replay, optional int8), per-token
     TTFT / inter-token accounting.
+  * :class:`ReplicaSet` + :class:`OverloadController` — N engines behind
+    one submit API: health-gated routing, wedge ejection and budgeted
+    failover, exactly-once completion, probe readmission, priority shed
+    and brownout (``build_replica_set``, ``build_decode_replica_set``).
+  * :class:`CanaryPublisher` — weight publication through one quiesced
+    canary with a golden gate, fleet-wide promotion, bitwise rollback.
+  * :class:`WeightStreamPublisher` — trigger-fired live train→serve
+    weight streaming through the canary gate.
+  * :mod:`arrivals` — seeded open-loop arrival traces in virtual time.
 
 Quick start::
 
@@ -35,14 +44,22 @@ Quick start::
         ...
     dec.shutdown()
 """
+from . import arrivals
 from .buckets import BucketLadder
-from .decode import DecodeEngine, DecodeStream
+from .decode import DecodeEngine, DecodeStream, build_decode_replica_set
 from .engine import ServingEngine
 from .kvcache import PagedKVCache, PagePoolError
 from .queue import BatchingQueue, EngineClosedError, LoadShedError, Request
 from .registry import ModelEntry, ModelRegistry, Snapshot
+from .replicas import (CanaryPublisher, CanaryRejectedError,
+                       NoHealthyReplicaError, OverloadController,
+                       ReplicaSet, build_replica_set)
+from .stream import WeightStreamPublisher
 
-__all__ = ["BatchingQueue", "BucketLadder", "DecodeEngine", "DecodeStream",
+__all__ = ["BatchingQueue", "BucketLadder", "CanaryPublisher",
+           "CanaryRejectedError", "DecodeEngine", "DecodeStream",
            "EngineClosedError", "LoadShedError", "ModelEntry",
-           "ModelRegistry", "PagePoolError", "PagedKVCache", "Request",
-           "ServingEngine", "Snapshot"]
+           "ModelRegistry", "NoHealthyReplicaError", "OverloadController",
+           "PagePoolError", "PagedKVCache", "ReplicaSet", "Request",
+           "ServingEngine", "Snapshot", "WeightStreamPublisher", "arrivals",
+           "build_decode_replica_set", "build_replica_set"]

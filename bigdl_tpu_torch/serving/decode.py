@@ -57,15 +57,22 @@ future fails, as in ServingEngine.
 
 The engine speaks ServingEngine's replica protocol (``submit`` /
 ``predict`` / ``warmup`` / ``shutdown`` / ``pending_rows`` /
-``max_queue_fill`` / ``stats`` / ``registry`` / ``recorder``).
+``max_queue_fill`` / ``stats`` / ``registry`` / ``recorder``), so that
+:func:`build_decode_replica_set` fronts N of them with a
+:class:`~bigdl_tpu_torch.serving.ReplicaSet`.
 
-Not ported yet (ROADMAP queue A, item 8): the goodput ledger (the
-port's ``Recorder.get_ledger()`` is always ``None``, so the engine's
-``led is not None`` branches do nothing until it is ported), the
-fault-plane seam ``serving.decode_step`` and ``serve_metrics``; the
-replica set that
-fronts decode engines (``build_decode_replica_set``) waits for the
-serving control plane (ROADMAP queue A, item 1).
+Goodput: the engine owns a ledger on its recorder (one device).  Warmup
+runs land in ``compile_warmup``, a prefill is goodput, each step's
+interval splits by slot occupancy (live slots goodput, spare slots with
+queued work ``queue_wait``, the rest idle), and parked time goes to the
+background phase.  The folds are host arithmetic on time stamps the loop
+takes anyway: no host sync and no token changes.
+
+The ``serving.decode_step`` fault site fires before each step: ``delay``
+is a wedged step (the replica set's wedge verdict), ``err`` fails the
+live requests (a replica set fails them over).
+
+Not ported yet (ROADMAP queue A, item 8): ``serve_metrics``.
 """
 from __future__ import annotations
 
@@ -80,8 +87,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import faults as faultplane
 from ..models.transformer import gumbel_sample
 from ..observability import Recorder
+from ..observability.goodput import GoodputLedger, ledger_phase
 from ..observability.profile import TraceRing, dump_chrome_trace
 from .buckets import BucketLadder
 from .kvcache import PagedKVCache
@@ -217,6 +226,9 @@ class DecodeEngine:
         self.eos_id = eos_id
         self.seed = int(seed)
         self.recorder = recorder if recorder is not None else Recorder()
+        if self.recorder.get_ledger() is None:
+            self.recorder.set_ledger(GoodputLedger(
+                name=f"decode:{model_name}", devices=1))
         self.trace_ring = TraceRing(trace_capacity) if trace_requests \
             else None
         self.report_every = int(report_every)
@@ -259,7 +271,8 @@ class DecodeEngine:
         if name is not None and name != self.model_name:
             raise KeyError(f"DecodeEngine serves {self.model_name!r}, "
                            f"not {name!r}")
-        with self.recorder.span("decode.warmup"), self._on_device():
+        with self.recorder.span("decode.warmup"), self._on_device(), \
+                ledger_phase(self.recorder, "compile_warmup"):
             for bucket in self.ladder:
                 self._program("prefill", bucket)
             self._program("decode")
@@ -459,7 +472,8 @@ class DecodeEngine:
             self.recorder.inc("decode/recompiles")
         else:
             params = self.registry.get(self.model_name).snapshot.params
-            with self.recorder.span("decode.compile"):
+            with self.recorder.span("decode.compile"), \
+                    ledger_phase(self.recorder, "compile_warmup"):
                 if kind == "decode":
                     s, p = self.slots, kv.max_pages_per_slot
                     prog(params, self._pool, np.zeros(s, np.int32),
@@ -710,6 +724,7 @@ class DecodeEngine:
                 lengths[s] = 0
         snap = self.registry.get(self.model_name).snapshot
         prog = self._program("decode")
+        faultplane.inject("serving.decode_step", rec)
         with rec.span("decode.step"):
             toks, bads = prog(snap.params, self._pool, tokens, lengths,
                               self.kv.tables, temps, self._steps)
@@ -990,4 +1005,31 @@ def _decode_loop(engine_ref, cond, waiting, live, ring):
             return
 
 
-__all__ = ["DecodeEngine", "DecodeStream"]
+def build_decode_replica_set(model, n: int, *, name: str = "lm",
+                             probe_prompt=None,
+                             engine_kw: Optional[Dict[str, Any]] = None,
+                             **rs_kw):
+    """N decode replicas behind one
+    :class:`~bigdl_tpu_torch.serving.ReplicaSet`: one registry +
+    DecodeEngine + Recorder per replica, all serving ``name`` (each
+    registry holds its own owning copy of ``model``'s weights, on the
+    model's device).  The golden probe defaults to a short fixed prompt so
+    that ejected replicas can re-admit.  A CanaryPublisher over the set
+    validates publications with a golden decode."""
+    from .replicas import ReplicaSet
+    engine_kw = dict(engine_kw or {})
+    engine_kw.pop("recorder", None)
+    engines = []
+    for _ in range(int(n)):
+        reg = ModelRegistry()
+        reg.register(name, model)
+        engines.append(DecodeEngine(reg, name, recorder=Recorder(),
+                                    **engine_kw))
+    rs = ReplicaSet(engines, **rs_kw)
+    probe = probe_prompt if probe_prompt is not None \
+        else np.arange(1, 5, dtype=np.int32)
+    rs.set_probe(name, probe)
+    return rs
+
+
+__all__ = ["DecodeEngine", "DecodeStream", "build_decode_replica_set"]

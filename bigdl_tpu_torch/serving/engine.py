@@ -38,9 +38,20 @@ and every admitted request carries a trace (admit → queue →
 batch_gather → compute → reply) collected in a bounded ring, exported by
 :meth:`ServingEngine.dump_chrome_trace` as Chrome-trace/Perfetto JSON.
 
-Not ported yet (ROADMAP queue A): the goodput ledger, the fault-plane
-seams (``faults.inject``), the HTTP introspection server
-(``serve_metrics``) and the per-bucket XLA cost capture.
+The engine owns a goodput ledger on its recorder (one device): warmup and
+post-warmup runs of a bucket land in ``compile_warmup``, and each batch's
+interval splits by fill (real rows are goodput, padding rows idle).  The
+``serving.compute`` fault site fires once per batch, before the model
+runs: ``err`` fails the batch (a ReplicaSet fails its requests over),
+``delay`` wedges this batcher the way a stuck device call would.
+
+The engine speaks the replica protocol (``submit`` / ``predict`` /
+``warmup`` / ``shutdown`` / ``pending_rows`` / ``max_queue_fill`` /
+``stats`` / ``registry`` / ``recorder``) that
+:class:`~bigdl_tpu_torch.serving.ReplicaSet` calls.
+
+Not ported yet (ROADMAP queue A, item 8): the HTTP introspection server
+(``serve_metrics``); the per-bucket XLA cost capture has no counterpart.
 """
 from __future__ import annotations
 
@@ -54,7 +65,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import faults as faultplane
 from ..observability import Recorder
+from ..observability.goodput import GoodputLedger, ledger_phase
 from ..observability.profile import TraceRing, dump_chrome_trace
 from .buckets import BucketLadder
 from .queue import (BatchingQueue, EngineClosedError, LoadShedError,
@@ -97,6 +110,9 @@ class ServingEngine:
         self.max_delay = float(max_delay_ms) / 1e3
         self.max_queue_rows = int(max_queue_rows)
         self.recorder = recorder if recorder is not None else Recorder()
+        if self.recorder.get_ledger() is None:
+            self.recorder.set_ledger(GoodputLedger(name="serving",
+                                                   devices=1))
         self.trace_ring = TraceRing(self.TRACE_CAPACITY)
         self._queues: Dict[str, BatchingQueue] = {}
         self._threads: Dict[str, threading.Thread] = {}
@@ -119,7 +135,8 @@ class ServingEngine:
                 raise ValueError(
                     f"warmup({entry.name!r}): register with input_shape= "
                     "so dummy batches can be built")
-            with self.recorder.span("serving.warmup"):
+            with self.recorder.span("serving.warmup"), \
+                    ledger_phase(self.recorder, "compile_warmup"):
                 for bucket in self.ladder:
                     if bucket not in entry.compiled:
                         self._compile(entry, bucket, entry.input_shape,
@@ -217,6 +234,22 @@ class ServingEngine:
             return parts[0]
         return np.concatenate(parts, axis=0)
 
+    def pending_rows(self) -> int:
+        """Rows queued across this engine's models: the queue-depth input
+        to replica health scoring and saturation."""
+        with self._lock:
+            queues = list(self._queues.values())
+        return sum(q.depth() for q in queues)
+
+    def max_queue_fill(self) -> float:
+        """Fill fraction of this engine's MOST saturated model queue, in
+        [0, 1]: the admission-pressure signal of replica saturation."""
+        with self._lock:
+            queues = list(self._queues.values())
+        if not queues:
+            return 0.0
+        return max(q.depth() for q in queues) / self.max_queue_rows
+
     def stats(self) -> Dict[str, Any]:
         """One flat dict of the serving counters plus latency
         percentiles and mean batch fill."""
@@ -302,7 +335,13 @@ class ServingEngine:
         if ex is None:
             # a bucket first seen after warmup: counted, never silent
             rec.inc("serving.recompiles")
-            ex = self._compile(entry, bucket, x.shape[1:])
+            with ledger_phase(rec, "compile_warmup"):
+                ex = self._compile(entry, bucket, x.shape[1:])
+        led = rec.get_ledger()
+        if led is not None:
+            # the inter-batch gap goes to the background phase, so that the
+            # fold below attributes only this batch's interval
+            led.note_step_begin()
         t_exec = time.monotonic()
         for r in live:
             tr = r.trace
@@ -310,6 +349,7 @@ class ServingEngine:
                            batch_requests=len(live))
             tr.close("batch_gather", t_exec)
             tr.open("compute", t_exec)
+        faultplane.inject("serving.compute", rec)
         snap = entry.snapshot          # one atomic read per batch
         with rec.span("serving.execute"):
             y = ex(snap, x)
@@ -330,6 +370,8 @@ class ServingEngine:
         rec.inc("serving.batches")
         rec.inc("serving.rows", rows)
         rec.observe("serving.batch_fill", rows / bucket)
+        if led is not None:
+            led.fold_split({"goodput": rows, "idle": bucket - rows})
         rec.gauge(f"serving.queue_depth.{entry.name}", q.depth())
 
     def _compile(self, entry: ModelEntry, bucket: int, feature_shape,

@@ -14,9 +14,34 @@ Shape/dtype/device validation on swap keeps every warmed bucket valid:
 a tensor of another shape would crash mid-batch, one of another dtype
 or device would silently change what the warmed buckets run.
 
-Not ported yet (ROADMAP queue A): the ``quantize_int8`` path,
-``swap_model`` and ``sync_from_model``, and the ``serving.swap`` fault
-seam.
+**A tensor a Snapshot holds is never written in place.**  The reference's
+snapshots hold immutable JAX arrays; the port's hold tensors, and every
+optimizer path of the port (K4–K6 and their plain versions) writes a
+model's parameters in place.  So the registry never lets a snapshot share
+storage with a module a trainer may adopt:
+
+  * :meth:`ModelRegistry.register`, :meth:`~ModelRegistry.swap_model` and
+    :meth:`~ModelRegistry.sync_from_model` take **owning copies** of the
+    module's parameters (a detached ``clone()`` per leaf, on the model's
+    device), so training the registered module later leaves the snapshot
+    as it was;
+  * :meth:`~ModelRegistry.swap_weights` publishes the caller's tensors
+    as they are (promotion hands the SAME tensors to every replica, and a
+    weight stream's snapshots are owning copies already) and keeps the
+    module coherent by **cloning on rebind**: the module's parameters
+    become copies of the published tensors, never the tensors themselves,
+    so a trainer built from that module afterwards cannot write into a
+    live snapshot, nor into one a rollback may republish.  The replicas
+    of a set share one module and promotion hands each replica's registry
+    the same tree, so the copy is taken once per tree: a module still
+    bound to the copies of that very tree is not copied again.
+
+The caller of ``swap_weights`` hands its tensors over: it must not write
+them afterwards.
+
+The ``serving.swap`` fault site fires inside the (retried) validation.
+
+Not ported yet (ROADMAP queue A, item 9): the ``quantize_int8`` path.
 """
 from __future__ import annotations
 
@@ -27,6 +52,7 @@ from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import faults as faultplane
 from .._device import resolve_device
 from ..nn.module import Module
 from ..utils.retry import RetryPolicy
@@ -78,16 +104,45 @@ def _model_device(model: Module) -> torch.device:
     return p.device if p is not None else resolve_device(None)
 
 
+def owning_copy(params):
+    """``params`` with every tensor leaf replaced by a detached clone on
+    its own device: storage no module, trainer or other snapshot shares."""
+    if isinstance(params, dict):
+        return {k: owning_copy(v) for k, v in params.items()}
+    if isinstance(params, torch.Tensor):
+        return params.detach().clone()
+    return params
+
+
+def _bound_ids(model: Module) -> Tuple[int, ...]:
+    return tuple(id(t) for sub in model.param_dict().values()
+                 for t in sub.values())
+
+
+def _rebind(model: Module, params):
+    """Bind ``model`` to owning copies of ``params``, unless it is still
+    bound to the copies it took of this same tree (every replica of a set
+    swapping in one promotion).  The mark holds ``params`` itself, so its
+    identity cannot be reused while the mark stands, and the tensors' ids,
+    so a module rebound by anyone else is copied again."""
+    mark = getattr(model, "_rebound_from", None)
+    if mark is not None and mark[0] is params \
+            and mark[1] == _bound_ids(model):
+        return
+    model.load_param_dict(owning_copy(params))
+    model._rebound_from = (params, _bound_ids(model))
+
+
 class ModelRegistry:
     """Named, versioned models behind one serving engine."""
 
     def __init__(self):
         self._entries: Dict[str, ModelEntry] = {}
         self._lock = threading.Lock()
-        # a hot-swap that hits a transient blip retries briefly before
-        # the publisher sees a failure; the old snapshot keeps serving
-        # throughout, so retrying here is free of risk
-        self._swap_retry = RetryPolicy()
+        # a hot-swap that hits a transient blip (an injected serving.swap
+        # fault) retries briefly before the publisher sees a failure; the
+        # old snapshot keeps serving throughout, so retrying is free of risk
+        self._swap_retry = RetryPolicy(name="serving.swap")
 
     # -- registration ----------------------------------------------------- #
     def register(self, name: str, model: Module, *,
@@ -100,10 +155,13 @@ class ModelRegistry:
         ``input_shape`` is one sample's feature shape (no batch dim); it
         is required for :meth:`~bigdl_tpu_torch.serving.ServingEngine.warmup`
         to run the bucket ladder (without it the first request of each
-        bucket pays — and counts — a recompile).
+        bucket pays — and counts — a recompile).  The snapshot holds
+        owning copies of the module's parameters (see the module
+        docstring).
         """
         entry = ModelEntry(
-            name, model, Snapshot(model.param_dict(), {}, version or "v1"),
+            name, model,
+            Snapshot(owning_copy(model.param_dict()), {}, version or "v1"),
             None if input_shape is None else tuple(input_shape),
             np.dtype(dtype), _model_device(model))
         with self._lock:
@@ -148,6 +206,7 @@ class ModelRegistry:
             new_state = old.state if state is None else state
 
             def validate():
+                faultplane.inject("serving.swap")
                 _check_same_avals(f"{name}.params", old.params, new_params)
                 _check_same_avals(f"{name}.state", old.state, new_state)
                 return Snapshot(new_params, new_state,
@@ -156,10 +215,37 @@ class ModelRegistry:
             # is fatal and raises with the old snapshot still serving
             snap = self._swap_retry.run(validate)
             entry.snapshot = snap          # the atomic publish
-            # keep the module coherent for direct callers: rebinding
-            # leaves the old snapshot's tensors as they were
-            entry.model.load_param_dict(new_params)
+            # keep the module coherent for direct callers, on copies: a
+            # trainer that adopts the module must never write into a
+            # published snapshot
+            _rebind(entry.model, new_params)
             return snap
+
+    def sync_from_model(self, name: str,
+                        version: Optional[str] = None) -> Snapshot:
+        """Republish from the module's own parameters (owning copies) —
+        the bridge for code that updated the weights in place
+        (``set_weights``, an in-process trainer)."""
+        entry = self.get(name)
+        return self.swap_weights(name, owning_copy(entry.model.param_dict()),
+                                 version=version)
+
+    def swap_model(self, name: str, model: Module,
+                   version: Optional[str] = None) -> ModelEntry:
+        """Replace the module itself (a new architecture).  Clears the
+        engine's warmed runners — call ``engine.warmup(name)`` before
+        taking traffic, or the next request per bucket pays a counted
+        recompile.  The snapshot holds owning copies of ``model``'s
+        parameters."""
+        entry = self.get(name)
+        with entry.swap_lock:
+            entry.model = model
+            entry.device = _model_device(model)
+            entry.snapshot = Snapshot(owning_copy(model.param_dict()), {},
+                                      version or entry.next_version())
+            entry.compiled = {}
+            entry.warmed = False
+        return entry
 
 
 def _leaves(tree, path="") -> Iterator[Tuple[str, Any]]:

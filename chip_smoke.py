@@ -92,7 +92,41 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 fused_optim.ADAM_CAPACITY leaves).  The same steps with the matmuls on TF32 must fall
                 outside the limits, so that the limits can see a drop
                 below fp32.
-  6. classifier — ResNet-50 (ImageNet, NHWC, 1000 classes, full width and
+  6. stream   — train→serve on one card.  ``SpmdTrainer`` trains a fresh
+                ``base`` (seed 0) with ``AdamW(learning_rate=3e-4,
+                fused=True)`` on 8 x 512 random tokens while a
+                ``WeightStreamPublisher(every_steps=4)`` ships owning
+                device snapshots through a ``CanaryPublisher`` into a
+                2-replica ``build_decode_replica_set`` of the same model
+                (the engine of phase 4), which answers an open-loop
+                ``steady`` trace (``serving.arrivals``, 4 requests/s for
+                10 s, prompts of 16-512 tokens, 64 new tokens each)
+                replayed against the wall clock.  A firing while a publish
+                is in flight is skipped, as the stream is built to do; the
+                trainer runs at least 12 steps, and on until 2 publishes
+                have landed and every request has been answered (at most
+                400 steps).  Checks: after 3 steps (K4 has
+                written base in place) each replica's golden decode is
+                bitwise its pre-training decode; >= 2 publishes; after the
+                last, each replica's golden decode is bitwise that of an
+                independent engine loaded with it; the set delivers every
+                request exactly once (its own completions, counted) or it
+                is shed with its reason, no client error, 0
+                recompiles; the launches are exactly the trainer's K1-K4
+                (the decode replicas launch none).  Then a NaN-poisoned
+                publish must be rejected with a bitwise rollback; a
+                ``serving.decode_step`` delay wedges one replica, which
+                must be ejected, fail its requests over, have its late
+                results dropped and be probed back in (by counts); and a
+                2-replica ``build_replica_set`` of ``ServingEngine`` (K1)
+                takes the trainer's last snapshot through a float canary
+                (the drift gate), its logits within 1e-3 of base with the
+                plain attention.  Readings: tokens/s, TTFT and inter-token
+                p50/p99 through the set while training, the trainer's step
+                beside phase 5's, the snapshot and publish times,
+                skipped publishes, the card's busy share over 4 decode
+                steps while both run, peak memory.
+  7. classifier — ResNet-50 (ImageNet, NHWC, 1000 classes, full width and
                 depth, fp32, weights from a seed) trained by
                 ``LocalOptimizer`` with ``SGD(learning_rate=0.1,
                 momentum=0.9, weight_decay=1e-4, fused=True)`` for 6 steps
@@ -112,7 +146,7 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 deterministic algorithms chosen without benchmarking.
 
 Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
-``{"training": {...}}`` line, a
+``{"training": {...}}`` line, a ``{"stream": {...}}`` line, a
 ``{"classifier": {...}}`` line, a ``{"host_sync": {...}}`` line, a
 ``{"kernels": [...]}`` line (all six
 kernels), the card's name and power limit as nvidia-smi gives them, and
@@ -2589,6 +2623,507 @@ def phase_decode(card: str):
     return out
 
 
+# --------------------------------------------------------------------- #
+STREAM_STEPS, STREAM_EVERY = 12, 4       # least trainer steps; a publish every 4
+STREAM_MAX_STEPS = 400                   # the trainer's steps at most
+STREAM_RATE, STREAM_SECONDS = 4.0, 10.0  # open-loop steady trace, req/s, s
+STREAM_SEED = 12
+STREAM_GOLDEN_LEN = 64                   # the canary's golden prompt
+STREAM_SET = dict(wedge_after=2.0, probe_deadline_ms=60000.0)
+STREAM_QUIESCE_S = 60.0                  # a canary's live slots drain first
+STREAM_PROFILED_STEP = 6                 # profiled with the decode replicas
+# the float canary's drift bound, relative to the golden logits' maximum:
+# the trainer's last publication (130-170 steps of AdamW(3e-4) on an H100)
+# moves base's golden logits by ~1.2-1.3x their maximum, so the
+# reference's default (0.5) must reject it and a bound of 2.0 must pass
+# it.  At 2.0 the gate catches only a non-finite or exploded update: the
+# leg's correctness check is the set's logits against base with the plain
+# attention (MODEL_TOL)
+STREAM_DRIFT_RTOL = 2.0
+CHAOS_DELAY_MS, CHAOS_REQUESTS = 6000, 8
+REPLICA_GOLDEN_ROWS, REPLICA_REQUESTS = 2, 6
+
+
+def _wait_for(cond, timeout: float, what: str):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout:.0f} s waiting "
+                                 f"for {what}")
+        time.sleep(0.05)
+
+
+def _replay_open_loop(rset, prompts, arrivals_s, ctxs, results, errors):
+    """Replay ``arrivals_s`` (virtual seconds) against the wall clock into
+    ``rset.submit``: each request's future, or its shed, lands in
+    ``results[i]`` as ("ok", future, [monotonic time it resolved]) /
+    ("shed", reason); anything else is a client error."""
+    from bigdl_tpu_torch.serving import LoadShedError
+    t0 = time.monotonic()
+    for i, (t, p) in enumerate(zip(arrivals_s, prompts)):
+        delay = t0 + t - time.monotonic()
+        if delay > 0:
+            time.sleep(delay)
+        try:
+            fut, done_at = rset.submit("lm", p, trace_ctx=ctxs[i]), []
+            fut.add_done_callback(
+                lambda _, d=done_at: d.append(time.monotonic()))
+            results[i] = ("ok", fut, done_at)
+        except LoadShedError as e:
+            results[i] = ("shed", e.reason)
+        except Exception as e:       # reported by the caller, fails the phase
+            errors.append(f"request {i}: {e!r}")
+
+
+def _ring_latencies(engines, trace_ids):
+    """TTFT and inter-token ms of the requests whose trace id is in
+    ``trace_ids``, from the engines' request traces (admit → first token;
+    one ``token`` span per step after it)."""
+    ttft, inter = [], []
+    for eng in engines:
+        for tr in eng.trace_ring.traces():
+            if tr.trace_id not in trace_ids:
+                continue
+            admit = [t0 for name, t0, _, _ in tr.spans if name == "admit"]
+            toks = [(t0, t1) for name, t0, t1, _ in tr.spans
+                    if name == "token"]
+            if admit and toks:
+                ttft.append((toks[0][0] - admit[0]) * 1e3)
+                inter.extend((t1 - t0) * 1e3 for t0, t1 in toks[1:])
+    return ttft, inter
+
+
+def _profiler_warm():
+    """The profiler's first use in a process sets up CUPTI, which holds
+    every thread's launches for seconds: pay that before replicas serve,
+    or their wedge watchdog reads the pause as a wedged replica."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+
+def _pct(xs, q):
+    return float(np.percentile(xs, q)) if xs else None
+
+
+def phase_stream(card: str, train_alone_ms: float):
+    """Train→serve on one card: SpmdTrainer trains base with K1–K4 while a
+    WeightStreamPublisher ships owning snapshots through a CanaryPublisher
+    into a 2-replica decode ReplicaSet of base that answers open-loop
+    traffic; then a poisoned publish, a wedged replica, and a ServingEngine
+    replica set whose float canary runs the drift gate."""
+    from bigdl_tpu_torch import faults
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.observability import TraceContext
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops.flash_attention import flash_forward_plain
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel import SpmdTrainer
+    from bigdl_tpu_torch.serving import (CanaryPublisher, CanaryRejectedError,
+                                         DecodeEngine, ModelRegistry,
+                                         WeightStreamPublisher, arrivals,
+                                         build_decode_replica_set,
+                                         build_replica_set)
+    from bigdl_tpu_torch.serving.registry import owning_copy
+
+    _profiler_warm()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = T.build("base", device="cuda", seed=0)
+    cfg = model.cfg
+    n_leaves = sum(len(sub) for sub in model.param_dict().values())
+    w0 = owning_copy(model.param_dict())     # the pre-training weights
+    rs = np.random.RandomState(STREAM_SEED)
+    golden = rs.randint(0, cfg.vocab_size, STREAM_GOLDEN_LEN).astype(np.int32)
+    rset = build_decode_replica_set(model, 2, name="lm", probe_prompt=golden,
+                                    engine_kw=DECODE_ENGINE, **STREAM_SET)
+    rset.warmup()
+    engines = [r.engine for r in rset.replicas]
+    pre = [e.predict("lm", golden, timeout=600) for e in engines]
+    pub = CanaryPublisher(rset, {"lm": golden},
+                          quiesce_timeout=STREAM_QUIESCE_S,
+                          validate_timeout=600.0)
+    wsp = WeightStreamPublisher(pub, "lm", every_steps=STREAM_EVERY)
+    trainer = SpmdTrainer(model, AdamW(learning_rate=TRAIN_LR, fused=True))
+    trainer.set_weight_stream(wsp)
+    ids = np.random.RandomState(STREAM_SEED + 1).randint(
+        0, cfg.vocab_size, (STREAM_MAX_STEPS, TRAIN_BATCH, SEQ + 1)
+    ).astype(np.int32)
+
+    # open-loop traffic: a steady trace in virtual time, replayed against
+    # the wall clock; prompts of 16-512 tokens, 64 new tokens each
+    arr = list(arrivals.virtual_arrivals(
+        np.random.RandomState(STREAM_SEED), STREAM_RATE,
+        arrivals.TRACES["steady"], STREAM_SECONDS))
+    lens = rs.randint(16, DECODE_ENGINE["max_prompt"] + 1, len(arr))
+    prompts = [rs.randint(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    ctxs = [TraceContext.new_root() for _ in arr]
+    results, errors = [None] * len(arr), []
+    client = threading.Thread(target=_replay_open_loop,
+                              args=(rset, prompts, arr, ctxs, results, errors))
+    rec0 = engines[0].recorder
+    # exactly-once by the set's own accounting: every completion it makes
+    # (True: delivered; False: refused, a late result) and every
+    # dispatch's resolution, counted where the set makes them
+    delivered, refused, resolved = {}, [0], [0]
+    set_complete, set_inner_done = rset._complete, rset._on_inner_done
+
+    def counted_complete(flight, result=None, exc=None):
+        ok = set_complete(flight, result=result, exc=exc)
+        if ok:
+            key = id(flight.future)
+            delivered[key] = delivered.get(key, 0) + 1
+        else:
+            refused[0] += 1
+        return ok
+
+    def counted_inner_done(*a):
+        resolved[0] += 1
+        return set_inner_done(*a)
+    rset._complete, rset._on_inner_done = counted_complete, counted_inner_done
+
+    def exactly_once(futs, what, since):
+        """Each of ``futs`` delivered once by the set, nothing else
+        delivered, every dispatch since ``since`` resolved once, and no
+        refusal the set did not count as a stale result."""
+        st = rset.stats()
+        disp = st["dispatches"] - since["dispatches"]
+        stale = st["stale_results"] - since["stale_results"]
+        per = [delivered.get(id(f), 0) for f in futs]
+        n_del = sum(delivered.values()) - since["delivered"]
+        if any(c != 1 for c in per) or n_del != len(futs) \
+                or resolved[0] - since["resolved"] != disp \
+                or refused[0] - since["refused"] > stale:
+            raise AssertionError(
+                f"{what}: deliveries per request {per}, {n_del} delivered "
+                f"for {len(futs)} requests, {resolved[0] - since['resolved']}"
+                f" of {disp} dispatches resolved, "
+                f"{refused[0] - since['refused']} refused, {stale} stale")
+
+    def accounts():
+        st = rset.stats()
+        return {"dispatches": st["dispatches"],
+                "stale_results": st["stale_results"],
+                "delivered": sum(delivered.values()),
+                "resolved": resolved[0], "refused": refused[0]}
+
+    def traffic_done():
+        return not client.is_alive() and all(
+            r is None or r[0] != "ok" or r[1].done() for r in results)
+
+    def train_step(k):
+        trainer.fit([(ids[k - 1, :, :-1], ids[k - 1, :, 1:])])   # syncs
+
+    def profiled_step(k):
+        # one training step and at least 4 decode steps of replica 0, all
+        # on the card at once: the device's busy share while it trains and
+        # serves (every kernel of every thread counted)
+        start = rec0.counter_value("decode/steps")
+        train_step(k)
+        _wait_for(lambda: rec0.counter_value("decode/steps") >= start + 4,
+                  600, "4 decode steps")
+
+    # the main path: every kernel count from 0 just before, read just after
+    acc0 = accounts()
+    _build.reset_launch_counts()
+    t_run = time.monotonic()
+    client.start()
+    step_ms, untouched, prof, serving_ms = [], None, None, []
+    rec = wsp.recorder
+    k = 0
+    # the trainer's own cadence: a firing while a publish is in flight is
+    # skipped (stream/skipped_busy); train on until 2 publishes landed and
+    # the traffic is answered, so all of it meets a training card
+    while k < STREAM_MAX_STEPS and not (
+            k >= STREAM_STEPS and traffic_done()
+            and rec.counter_value("stream/published") >= 2):
+        k += 1
+        if k == STREAM_PROFILED_STEP:
+            prof = profile_steps(lambda: profiled_step(k), steps=1,
+                                 classes=DECODE_CLASSES, top=8)
+            continue
+        live = not traffic_done()
+        t_s = time.monotonic()
+        train_step(k)
+        step_ms.append((time.monotonic() - t_s) * 1e3)
+        if live:
+            serving_ms.append(step_ms[-1])
+        if k == STREAM_EVERY - 1:
+            # K4 has written base's parameters in place 3 times: the
+            # registered snapshots must not have moved
+            untouched = [e.predict("lm", golden, timeout=600)
+                         for e in engines]
+    n_steps = k
+    train_s = time.monotonic() - t_run
+    wsp.wait()
+    client.join(STREAM_SECONDS + 600)
+    log(f"stream: {n_steps} trainer steps "
+        f"{[round(x, 1) for x in step_ms]} ms; set "
+        f"{ {k: v for k, v in rset.stats().items() if k != 'replicas'} }")
+    futures = [r[1] for r in results if r is not None and r[0] == "ok"]
+    outs = []
+    for i, f in enumerate(futures):
+        try:
+            outs.append(f.result(timeout=900))
+        except Exception as e:
+            errors.append(f"future {i}: {e!r}")
+    # the traffic's span: the replay's start to its last answer (the
+    # trainer may run on after it, until its second publish lands); a
+    # future's callbacks run just after its result is visible
+    _wait_for(lambda: all(r[2] for r in results
+                          if r is not None and r[0] == "ok"), 60,
+              "the requests' completion times")
+    wall = max(r[2][0] for r in results
+               if r is not None and r[0] == "ok") - t_run
+    launches = _build.launch_counts()
+    sheds = {}
+    for r in results:
+        if r is not None and r[0] == "shed":
+            sheds[r[1]] = sheds.get(r[1], 0) + 1
+    st_set = rset.stats()
+    log(f"stream: {len(arr)} requests over {wall:.2f} s, trainer "
+        f"{train_s:.2f} s; sheds {sheds}; stream counters "
+        f"{ {k: rec.counter_value(k) for k in ('stream/snapshots', 'stream/published', 'stream/rejected', 'stream/skipped_busy', 'stream/errors')} }")
+
+    # 1. before the first publish: bitwise the pre-training decode
+    for i, (a, b) in enumerate(zip(pre, untouched)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"replica {i}: the golden decode changed "
+                                 f"while training, before any publish: the "
+                                 f"trainer wrote into a registered snapshot")
+    # 2. publications
+    published = rec.counter_value("stream/published")
+    if published < 2 or rec.counter_value("stream/errors") \
+            or rec.counter_value("stream/rejected"):
+        raise AssertionError(f"stream: {published} published, "
+                             f"{rec.counter_value('stream/rejected')} "
+                             f"rejected, {rec.counter_value('stream/errors')} "
+                             f"errors")
+    # 3. bitwise an independent engine loaded with the last publication
+    version, last = wsp.last_published
+    reg_i = ModelRegistry()
+    reg_i.register("lm", model)
+    reg_i.swap_weights("lm", last, version=version)
+    eng_i = DecodeEngine(reg_i, "lm", **DECODE_ENGINE).warmup()
+    want = eng_i.predict("lm", golden, timeout=600)
+    eng_i.shutdown()
+    del eng_i, reg_i
+    after = [e.predict("lm", golden, timeout=600) for e in engines]
+    for i, (e, a) in enumerate(zip(engines, after)):
+        got_v = e.registry.get("lm").snapshot.version
+        if got_v != version or not np.array_equal(a, want):
+            raise AssertionError(f"replica {i} serves {got_v}; its golden "
+                                 f"decode is not the decode of {version} "
+                                 f"by an independent engine")
+    # 5. every request once, or shed with its reason; no client error
+    if errors or any(r is None for r in results):
+        raise AssertionError(f"stream clients: {errors}")
+    exactly_once(futures, "stream traffic", acc0)
+    for i, out in enumerate(outs):
+        if out.shape[0] - DECODE_NEW < 16 or out.dtype != np.int32:
+            raise AssertionError(f"request {i}: output {out.shape}")
+    # 6. no recompiles; 7. K1-K4 on this path, none from decode
+    for i, e in enumerate(engines):
+        s = e.stats()
+        if s["recompiles"] or s["errors"]:
+            raise AssertionError(f"replica {i}: {s}")
+    want_l = {"flash_fwd": cfg.n_layers * n_steps,
+              "flash_bwd_dkv": cfg.n_layers * n_steps,
+              "flash_bwd_dq": cfg.n_layers * n_steps,
+              "fused_adam": -(-n_leaves // fo.ADAM_CAPACITY) * n_steps}
+    got_l = {name: launches.get(name, 0) for name in want_l}
+    log(f"stream launches {launches}, the trainer's alone {want_l}")
+    if got_l != want_l or set(launches) - set(want_l):
+        raise AssertionError(f"stream launches {launches}: K1-K4 must be the "
+                             f"trainer's exactly ({want_l}); the decode "
+                             f"replicas launch no hand kernel")
+    _build.reset_launch_counts()
+    ids_set = {c.trace_id for c in ctxs}
+    ttft, inter = _ring_latencies(engines, ids_set)
+    n_tokens = len(outs) * DECODE_NEW
+
+    # 4. a NaN-poisoned publish: rejected, rolled back bitwise
+    poisoned = {m: {k: torch.full_like(t, float("nan")) for k, t in sub.items()}
+                for m, sub in last.items()}
+    try:
+        pub.publish("lm", poisoned)
+        raise AssertionError("a NaN-poisoned publish was promoted")
+    except CanaryRejectedError as e:
+        reason = e.reason
+    del poisoned
+    rolled = [e.predict("lm", golden, timeout=600) for e in engines]
+    if rset.recorder.counter_value("serving/canary_rejected") != 1 \
+            or not all(np.array_equal(a, b) for a, b in zip(after, rolled)):
+        raise AssertionError("poisoned publish: not rejected once, or the "
+                             "golden decode after rollback is not bitwise")
+    log(f"poisoned publish rejected ({reason}); rollback bitwise")
+
+    # chaos: wedge one replica's decode step; the set ejects it, fails its
+    # requests over, drops its late results and probes it back in
+    chaos = rs.randint(0, cfg.vocab_size, (CHAOS_REQUESTS, 64)).astype(
+        np.int32)
+    base_counts = {k: rset.recorder.counter_value(k) for k in (
+        "replica/wedged", "replica/ejected", "replica/failovers",
+        "replica/stale_results", "replica/readmitted")}
+    acc1 = accounts()
+    faults.arm(f"serving.decode_step:delay:{CHAOS_DELAY_MS}@0")
+    try:
+        futs = [rset.submit("lm", p) for p in chaos]
+        chaos_outs = [f.result(timeout=600) for f in futs]
+        recr = rset.recorder
+        _wait_for(lambda: recr.counter_value("replica/stale_results")
+                  > base_counts["replica/stale_results"], 600,
+                  "the wedged replica's late results")
+        _wait_for(lambda: recr.counter_value("replica/readmitted")
+                  > base_counts["replica/readmitted"], 600,
+                  "the probe's readmission")
+        fired = faults.injected_total("serving.decode_step")
+        # the wedged replica's dispatches resolve late: wait until every
+        # dispatch has, then hold the set's accounting
+        _wait_for(lambda: resolved[0] - acc1["resolved"]
+                  >= rset.stats()["dispatches"] - acc1["dispatches"], 600,
+                  "every chaos dispatch to resolve")
+        exactly_once(futs, "chaos", acc1)
+    finally:
+        faults.reset()
+    delta = {k: rset.recorder.counter_value(k) - v
+             for k, v in base_counts.items()}
+    log(f"chaos: {delta}")
+    if fired != 1 \
+            or not (delta["replica/wedged"] >= 1
+                    or delta["replica/ejected"] >= 1) \
+            or delta["replica/failovers"] < 1 \
+            or delta["replica/stale_results"] < 1 \
+            or delta["replica/readmitted"] < 1:
+        raise AssertionError(f"chaos leg counts {delta}")
+    for p, out in zip(chaos, chaos_outs):
+        if out.shape != (64 + DECODE_NEW,) or not np.array_equal(out[:64], p):
+            raise AssertionError("a failed-over request's output is wrong")
+    if any(_build.launch_counts().values()):
+        raise AssertionError(f"the decode set launched hand kernels: "
+                             f"{_build.launch_counts()}")
+    st_after = {i: e.stats() for i, e in enumerate(engines)}
+    rset.shutdown()
+    del rset, engines, pub
+
+    # a ServingEngine replica set (K1) from the pre-training weights; the
+    # trainer's last snapshot published through a float canary (drift gate)
+    model.load_param_dict(w0)
+    del w0
+    sset = build_replica_set(model, 2, name="lm", input_shape=(SEQ,),
+                             dtype=np.int32, engine_kw=dict(max_batch=8))
+    sset.warmup()
+    gold_s = rs.randint(0, cfg.vocab_size, (REPLICA_GOLDEN_ROWS, SEQ)).astype(
+        np.int32)
+    _build.reset_launch_counts()
+    gold_v1 = sset.replicas[0].engine.predict("lm", gold_s, timeout=600)
+    strict = CanaryPublisher(sset, {"lm": gold_s}, quiesce_timeout=600.0,
+                             validate_timeout=600.0)
+    try:
+        strict.publish("lm", last, version=version)
+        raise AssertionError("the default drift bound passed the "
+                             "trainer's last publication")
+    except CanaryRejectedError as e:
+        strict_reason = e.reason
+    if strict_reason != "drift" or not np.array_equal(
+            sset.replicas[0].engine.predict("lm", gold_s, timeout=600),
+            gold_v1):
+        raise AssertionError(f"float canary: rejected ({strict_reason}) "
+                             f"without a bitwise rollback")
+    spub = CanaryPublisher(sset, {"lm": gold_s}, quiesce_timeout=600.0,
+                           validate_timeout=600.0,
+                           drift_rtol=STREAM_DRIFT_RTOL)
+    snap = spub.publish("lm", last, version=version)
+    gold_v2 = sset.replicas[1].engine.predict("lm", gold_s, timeout=600)
+    drift = float(np.max(np.abs(gold_v2 - gold_v1)))
+    drift_bound = spub.drift_atol + spub.drift_rtol * float(
+        np.max(np.abs(gold_v1)))
+    log(f"float canary: golden drift {drift:.4g} within bound "
+        f"{drift_bound:.4g}; promoted {snap.version}")
+    xs = [rs.randint(0, cfg.vocab_size, (int(n), SEQ)).astype(np.int32)
+          for n in rs.randint(1, 4, REPLICA_REQUESTS)]
+    ys = [f.result(timeout=600) for f in
+          [sset.submit("lm", x) for x in xs]]
+    k1_serving = _build.launch_counts()
+    batches = sum(r.engine.stats()["batches"] for r in sset.replicas)
+    warm = sum(r.engine.stats()["warmup_compiles"] for r in sset.replicas)
+    recompiles = sum(r.engine.stats()["recompiles"] for r in sset.replicas)
+    sset.shutdown()
+    for blk in model.blocks:
+        blk.attn.attention_fn = lambda q, k, v: flash_forward_plain(
+            q, k, v, causal=True)[0]
+    worst = 0.0
+    with torch.inference_mode():
+        for x, y in zip(xs, ys):
+            w, _ = model.run(last, torch.from_numpy(x).cuda())
+            got = torch.from_numpy(y).cuda()
+            worst = max(worst, (got - w).abs().max().item())
+            if not torch.allclose(got, w, **MODEL_TOL):
+                raise AssertionError(f"replica-set logits differ from base "
+                                     f"with the plain attention by {worst}")
+    for blk in model.blocks:
+        blk.attn.attention_fn = None
+    if snap.version != version or recompiles \
+            or k1_serving != {"flash_fwd": cfg.n_layers * batches}:
+        raise AssertionError(f"replica serving: version {snap.version}, "
+                             f"recompiles {recompiles}, launches "
+                             f"{k1_serving} for {batches} batches")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model, sset, spub, trainer, wsp
+
+    spans = {k: rec.span_value(k) for k in ("stream.snapshot",
+                                            "stream.publish")}
+    n_snap = rec.counter_value("stream/snapshots")
+    out = {"model": "base", "replicas": 2, "engine": DECODE_ENGINE,
+           "trainer": {"steps": n_steps, "batch": TRAIN_BATCH,
+                       "seq": SEQ, "optimizer": "AdamW(3e-4, fused=True)",
+                       "step_ms": step_ms,
+                       "step_ms_median": float(np.median(step_ms)),
+                       "step_ms_median_serving": float(np.median(serving_ms)),
+                       "steps_serving": len(serving_ms),
+                       "step_ms_median_alone": train_alone_ms,
+                       "wall_s": train_s},
+           "traffic": {"trace": "steady", "rate_per_s": STREAM_RATE,
+                       "seconds": STREAM_SECONDS, "requests": len(arr),
+                       "completed": len(outs), "shed": sheds,
+                       "prompt_lens": [int(n) for n in lens],
+                       "new_tokens": DECODE_NEW, "wall_s": wall,
+                       "tokens_per_s": n_tokens / wall,
+                       "ttft_p50_ms": _pct(ttft, 50),
+                       "ttft_p99_ms": _pct(ttft, 99),
+                       "intertoken_p50_ms": _pct(inter, 50),
+                       "intertoken_p99_ms": _pct(inter, 99)},
+           "stream": {"every_steps": STREAM_EVERY,
+                      **{k.split("/")[1]: rec.counter_value(k) for k in (
+                          "stream/snapshots", "stream/published",
+                          "stream/rejected", "stream/skipped_busy",
+                          "stream/errors")},
+                      "snapshot_ms_mean": spans["stream.snapshot"]
+                      / max(n_snap, 1) * 1e3,
+                      "publish_ms_mean": spans["stream.publish"]
+                      / max(n_snap, 1) * 1e3,
+                      "last_version": version},
+           "set": {k: st_set[k] for k in st_set if k != "replicas"},
+           "replica_stats": st_after,
+           "poisoned": {"reason": reason, "rollback_bitwise": True},
+           "chaos": {"delay_ms": CHAOS_DELAY_MS, "requests": CHAOS_REQUESTS,
+                     "fired": fired, **delta},
+           "replica_serving": {"batches": batches, "warmup_compiles": warm,
+                               "golden_drift": drift,
+                               "drift_bound": drift_bound,
+                               "default_bound_rejects": strict_reason,
+                               "launches": k1_serving,
+                               "max_abs_err_vs_plain": worst,
+                               "tolerance": MODEL_TOL},
+           "launches": launches, "profile": prof,
+           "peak_mem_gb": peak_gb, "card": card}
+    log(f"stream: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -2612,6 +3147,7 @@ def main() -> int:
     k1["cases"].append(slice_["layer_case"])
     decode = phase_decode(card)
     train = phase_training(card, k4)
+    stream = phase_stream(card, train["step_ms_median"])
     if train["profile"]:
         # K4's own device time a step (one launch), without host gaps
         k4["device_ms_per_step"] = train["profile"]["device_ms_by_class"] \
@@ -2626,6 +3162,8 @@ def main() -> int:
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
+               "stream": stream["launches"],
+               "replica_serving": stream["replica_serving"]["launches"],
                "classifier": classifier["launches"]}
     kernels = [k1, *k23, k4, k5, k6]
     for k in kernels:
@@ -2636,6 +3174,7 @@ def main() -> int:
     print(json.dumps({"slice": slice_}), flush=True)
     print(json.dumps({"decode": decode}), flush=True)
     print(json.dumps({"training": train}), flush=True)
+    print(json.dumps({"stream": stream}), flush=True)
     print(json.dumps({"classifier": classifier}), flush=True)
     print(json.dumps({"host_sync": host_sync}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

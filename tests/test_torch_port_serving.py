@@ -290,7 +290,11 @@ def test_import_leaves_jax_and_reference_out():
         "bigdl_tpu_torch.models.resnet, bigdl_tpu_torch.models.lenet, "
         "bigdl_tpu_torch.optim.trigger, bigdl_tpu_torch.optim.optimizer, "
         "bigdl_tpu_torch.serving.decode, bigdl_tpu_torch.serving.kvcache, "
-        "bigdl_tpu_torch.quantized\n"
+        "bigdl_tpu_torch.quantized, bigdl_tpu_torch.serving.replicas, "
+        "bigdl_tpu_torch.serving.stream, bigdl_tpu_torch.serving.arrivals, "
+        "bigdl_tpu_torch.faults, bigdl_tpu_torch.utils.retry, "
+        "bigdl_tpu_torch.observability.tracing, "
+        "bigdl_tpu_torch.observability.goodput\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
@@ -309,7 +313,10 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                 "nn/criterion.py", "models/resnet.py", "models/lenet.py",
                 "optim/trigger.py", "data/dataset.py", "data/minibatch.py",
                 "serving/decode.py", "serving/kvcache.py",
-                "quantized/__init__.py"):
+                "quantized/__init__.py", "serving/replicas.py",
+                "serving/stream.py", "serving/arrivals.py",
+                "faults/__init__.py", "utils/retry.py",
+                "observability/tracing.py", "observability/goodput.py"):
         assert f"bigdl_tpu_torch/{new}" in names
     assert len(files) > 10
     for f in files:
