@@ -3,7 +3,7 @@ core and the layers the ported slices use."""
 from .activation import LogSoftMax, ReLU, Tanh
 from .containers import ConcatTable, Container, Identity, Sequential
 from .conv import SpatialConvolution
-from .criterion import ClassNLLCriterion
+from .criterion import ClassNLLCriterion, MSECriterion
 from .init import (InitializationMethod, MsraFiller, Ones, RandomNormal,
                    RandomUniform, Xavier, Zeros)
 from .linear import Linear
@@ -16,7 +16,8 @@ from .table_ops import CAddTable
 
 __all__ = ["BatchNormalization", "CAddTable", "ClassNLLCriterion",
            "ConcatTable", "Container", "Criterion", "Ctx", "Identity",
-           "InitializationMethod", "Linear", "LogSoftMax", "Module",
+           "InitializationMethod", "Linear", "LogSoftMax", "MSECriterion",
+           "Module",
            "MsraFiller", "Ones", "RMSNorm", "RandomNormal", "RandomUniform",
            "ReLU", "Reshape", "Sequential", "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialConvolution",

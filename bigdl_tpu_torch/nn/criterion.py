@@ -1,4 +1,5 @@
-"""Losses (≙ ``bigdl_tpu/nn/criterion.py``): ``ClassNLLCriterion``.
+"""Losses (≙ ``bigdl_tpu/nn/criterion.py``): ``ClassNLLCriterion`` and
+``MSECriterion``.
 
 Targets are 1-based class indices, given as floats and truncated to
 int32 as the reference does.  The gradient is autograd's through
@@ -49,3 +50,14 @@ class ClassNLLCriterion(Criterion):
              else self.weights.to(picked.device)[idx_c])
         w = w * valid.to(picked.dtype)
         return _reduce(-w * picked, self.size_average, w.sum())
+
+
+class MSECriterion(Criterion):
+    """mean (input - target)^2 (sum with ``size_average=False``)."""
+
+    def __init__(self, size_average=True, name=None):
+        super().__init__(name=name)
+        self.size_average = size_average
+
+    def loss(self, output, target):
+        return _reduce((output - target) ** 2, self.size_average)

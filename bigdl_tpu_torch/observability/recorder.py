@@ -89,6 +89,13 @@ class Recorder:
         with self._lock:
             self._gauges[name] = float(value)
 
+    def reset_gauges(self, prefix: str):
+        """Zero every gauge whose name starts with ``prefix``."""
+        with self._lock:
+            for name in self._gauges:
+                if name.startswith(prefix):
+                    self._gauges[name] = 0.0
+
     def counter_value(self, name: str, default: float = 0.0) -> float:
         with self._lock:
             return self._counters.get(name, default)

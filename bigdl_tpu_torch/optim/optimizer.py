@@ -1,6 +1,6 @@
 """The training loop (≙ ``bigdl_tpu/optim/optimizer.py``): the train
-step, gradient accumulation and the ``Optimizer`` / ``LocalOptimizer``
-host loop.
+and eval steps, gradient accumulation and the ``Optimizer`` /
+``LocalOptimizer`` host loop.
 
 The reference's step is functional: ``jax.value_and_grad`` of a loss of
 the params, jitted with its buffers donated.  Here the step runs eagerly
@@ -12,12 +12,16 @@ parameters in place (the counterpart of donation).
 ``LocalOptimizer`` trains on one device (``cuda`` unless the caller
 passes ``device="cpu"``): per batch, the copy of the host arrays to the
 device, one step, the iteration and epoch counters and the end trigger.
-The loss stays on the device until the epoch ends.  A live train→serve
-weight stream attaches with ``set_weight_stream``.  Not ported yet
-(ROADMAP queue A, item 10): validation, checkpoints, telemetry and
-health, retries, the trace context, prefetch and the device loader,
-device augment, gradient accumulation, clipping, mixed precision,
-regularizers and ``freeze``; each ``set_*`` of those raises.
+The loss stays on the device until the epoch ends.  ``set_mixed_precision``
+runs the step on bf16 inputs over fp32 parameters; ``set_prefetch`` stages
+batches ahead on a background thread (``data.device_loader``: pinned
+buffers, a side stream, an event the step waits on); ``set_validation``
+evaluates ``ValidationMethod`` s when its trigger fires.  A live
+train→serve weight stream attaches with ``set_weight_stream``.  Not
+ported yet (ROADMAP queue A, item 10): checkpoints, summaries, telemetry
+and health, retries, the trace context, device augment, gradient
+accumulation in the loop, clipping, regularizers and ``freeze``; each
+``set_*`` of those raises.
 """
 from __future__ import annotations
 
@@ -30,10 +34,12 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..data.dataset import DataSet
+from ..data.device_loader import DeviceLoader, HostToDevice
 from ..kernels.fused_optim import zip_leaves
 from ..nn.module import Ctx
+from ..observability.recorder import Recorder
 from .optim_method import SGD, OptimMethod
-from .trigger import Trigger, _MaxEpoch
+from .trigger import Trigger, _EveryEpoch, _MaxEpoch
 
 
 @dataclass
@@ -118,14 +124,65 @@ def make_accum_grads(loss_fn, n_accum: int, weight_fn=None):
     return grads_fn
 
 
-def make_train_step(model, criterion, optim_method: OptimMethod):
+def to_bf16(x):
+    """``x`` (a tensor, or a tuple or list of them) with every floating
+    tensor cast to bf16: the mixed-precision step's input cast."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_bf16(a) for a in x)
+    if isinstance(x, torch.Tensor) and torch.is_floating_point(x):
+        return x.to(torch.bfloat16)
+    return x
+
+
+def _identity(tree):
+    return tree
+
+
+def make_train_step(model, criterion, optim_method: OptimMethod,
+                    mixed_precision: bool = False, *, gather=_identity,
+                    exchange=_identity, pmean=_identity):
     """The train step ``step(params, opt_state, model_state, x, y) ->
     (params, opt_state, model_state, loss)``: the forward in training mode,
     ``criterion.loss`` on the fp32 output plus the side losses and
     ``model.regularization_loss``, the gradients over the param dict's
     leaves, and ``optim_method.update`` (in place).  The returned model
     state is ``model_state`` with the forward's new state merged in; the
-    loss is a device tensor."""
+    loss is a device tensor.
+
+    ``mixed_precision``: the floating inputs are cast to bf16 and every
+    layer casts its fp32 weights to the input's dtype, so the forward and
+    backward run in bf16; the output is cast to fp32 before the
+    criterion.  The parameters, their gradients and the optimizer state
+    stay fp32 (the reference's ``make_train_step(mixed_precision=True)``).
+
+    The data-parallel hooks (``DistriOptimizer``'s; the identity by
+    default): ``gather(params)`` gives the parameters the forward runs
+    on (fsdp's all-gather of its shards), ``exchange(grads)`` the
+    gradients ``optim_method.update`` takes (their mean over the ranks,
+    or this rank's shards of it), and ``pmean`` averages the loss and the
+    forward's new state over the ranks.
+    """
+    loss_fn = make_loss_fn(model, criterion)
+
+    def step(params, opt_state, model_state, x, y):
+        if mixed_precision:
+            x = to_bf16(x)
+        full = gather(params)
+        (loss, updates), grads = _value_and_grad(loss_fn, full,
+                                                 model_state, x, y)
+        params, opt_state = optim_method.update(
+            exchange(_unflatten(full, grads)), params, opt_state)
+        merged = dict(model_state)
+        merged.update(pmean(updates))
+        return params, opt_state, merged, pmean(loss)
+
+    return step
+
+
+def make_loss_fn(model, criterion):
+    """``loss_fn(params, model_state, x, y) -> (loss, new_state)``: the
+    training-mode forward, the criterion on the fp32 output, the side
+    losses and the regularization loss."""
 
     def loss_fn(params, model_state, x, y):
         ctx = Ctx(state=model_state, training=True)
@@ -138,28 +195,46 @@ def make_train_step(model, criterion, optim_method: OptimMethod):
         loss = loss + model.regularization_loss(params)
         return loss, ctx.new_state
 
-    def step(params, opt_state, model_state, x, y):
-        (loss, updates), grads = _value_and_grad(loss_fn, params,
-                                                 model_state, x, y)
-        params, opt_state = optim_method.update(_unflatten(params, grads),
-                                                params, opt_state)
-        merged = dict(model_state)
-        merged.update(updates)
-        return params, opt_state, merged, loss
+    return loss_fn
 
+
+def make_eval_step(model):
+    """``step(params, model_state, x) -> output``: the forward in
+    inference mode (running statistics), without autograd, on the inputs
+    as given (validation does not cast to bf16, as in the reference)."""
+
+    @torch.no_grad()
+    def step(params, model_state, x):
+        return model.apply(params, x, Ctx(state=model_state,
+                                          training=False))
     return step
+
+
+def evaluate(step, params, model_state, dataset: DataSet, methods, device):
+    """``[(method, result)]``: each of ``methods`` over the eval ``step``'s
+    outputs on ``dataset``'s batches (inputs placed on ``device``), the
+    batches' results merged."""
+    results = [None] * len(methods)
+    for mb in dataset.data(train=False):
+        out = step(params, model_state, to_device(mb.get_input(), device))
+        for i, method in enumerate(methods):
+            r = method(out, mb.get_target())
+            results[i] = r if results[i] is None else results[i] + r
+    return list(zip(methods, results))
+
+
+def to_device(a, device):
+    """A host array (or a tensor) as a tensor on ``device``."""
+    return a.to(device) if isinstance(a, torch.Tensor) else \
+        torch.as_tensor(np.asarray(a)).to(device)
 
 
 # set_* of the reference that are not ported: name -> what it sets
 _UNPORTED_SETTERS = {
-    "set_validation": "validation (validation.py, Evaluator)",
     "set_checkpoint": "checkpointing",
     "set_train_summary": "training summaries",
     "set_val_summary": "validation summaries",
-    "set_gradient_accumulation": "gradient accumulation in LocalOptimizer",
-    "set_mixed_precision": "mixed precision (bf16 autocast, fp32 master "
-                           "weights)",
-    "set_prefetch": "prefetch (DeviceLoader, pinned non_blocking H2D)",
+    "set_gradient_accumulation": "gradient accumulation in the loop",
     "set_device_augment": "device-side augmentation",
     "set_telemetry": "telemetry",
     "set_trace_context": "the trace context",
@@ -183,7 +258,8 @@ class Optimizer:
     its current batch-norm state (written back at the end); it does not
     redraw them.  ``seed`` other than 0 raises: the reference's seed draws
     the initial parameters (here the model's own are taken) and the steps'
-    random keys (no ported layer draws any)."""
+    random keys (no ported layer draws any).  :attr:`recorder` takes the
+    ``dataloader/*`` counters under prefetch."""
 
     def __init__(self, model, training_set, criterion,
                  batch_size: Optional[int] = None, seed: int = 0, *,
@@ -209,7 +285,18 @@ class Optimizer:
         self.optim_method: OptimMethod = SGD()
         self.end_when: Trigger = Trigger.max_epoch(1)
         self.state = TrainingState()
+        self.mixed_precision = False
+        self.prefetch_depth = 0
+        self.val_trigger: Optional[Trigger] = None
+        self.val_dataset: Optional[DataSet] = None
+        self.val_methods = None
+        self._eval_step = None
         self._weight_stream = None
+        self._carry = None            # (params, model_state) of the loop
+        self._h2d = None              # prefetch's HostToDevice
+        self.last_validation = None
+        self.opt_state = None         # the method's state after optimize()
+        self.recorder = Recorder()
 
     # -- fluent config, reference API ----------------------------------- #
     def set_optim_method(self, method):
@@ -218,6 +305,39 @@ class Optimizer:
 
     def set_end_when(self, trigger):
         self.end_when = trigger
+        return self
+
+    def set_mixed_precision(self, enabled=True):
+        """bf16 forward and backward over fp32 parameters and optimizer
+        state (:func:`make_train_step`)."""
+        self.mixed_precision = bool(enabled)
+        return self
+
+    def set_prefetch(self, depth=2):
+        """Stage batches ``depth`` ahead on a background thread
+        (:class:`~bigdl_tpu_torch.data.device_loader.DeviceLoader`): on a
+        CUDA device through pinned buffers and a side stream, the step's
+        stream waiting on each batch's copy event.  0 places each batch
+        inline, as without this setter."""
+        if depth < 0:
+            raise ValueError("depth must be >= 0")
+        self.prefetch_depth = int(depth)
+        return self
+
+    def set_validation(self, trigger, dataset, methods, batch_size=None):
+        """Evaluate ``methods`` over ``dataset`` (a DataSet, or an
+        ``(x, y)`` pair cut into batches of ``batch_size``, 128 by
+        default, in order) whenever ``trigger`` fires: an every-epoch
+        trigger at each epoch's end, any other after each iteration and
+        again at each epoch's end, as the reference reads them.
+        ``state.score`` is the first method's result."""
+        self.val_trigger = trigger
+        if isinstance(dataset, tuple):
+            x, y = dataset
+            dataset = DataSet.minibatch_arrays(x, y, batch_size or 128,
+                                               shuffle=False, drop_last=False)
+        self.val_dataset = dataset
+        self.val_methods = list(methods)
         return self
 
     def set_weight_stream(self, publisher):
@@ -231,12 +351,50 @@ class Optimizer:
         self._weight_stream = publisher
         return self
 
-    # -- main loop ------------------------------------------------------- #
+    # -- hooks overridden by DistriOptimizer ----------------------------- #
+    def _wrap_optim(self, params):
+        return self.optim_method
+
+    def _build_step(self, optim):
+        return make_train_step(self.model, self.criterion, optim,
+                               self.mixed_precision)
+
+    def _layout_params(self, params):
+        return params
+
+    def _host_batch(self, x, y):
+        """The part of a host batch this process trains on."""
+        return x, y
+
     def _place_batch(self, x, y):
         """The host batch copied to the optimizer's device."""
-        return tuple(None if a is None else torch.as_tensor(
-            np.asarray(a)).to(self.device) for a in (x, y))
+        return tuple(None if a is None else to_device(a, self.device)
+                     for a in (x, y))
 
+    def _params_for_eval(self, params):
+        return params
+
+    def _banner_suffix(self):
+        return ""
+
+    # -- validation ------------------------------------------------------ #
+    def _validate(self, params, model_state):
+        """Run the validation methods over the validation set; returns
+        ``[(method, result)]`` and sets ``state.score``."""
+        if self.val_dataset is None or not self.val_methods:
+            return None
+        if self._eval_step is None:      # built once per optimizer
+            self._eval_step = make_eval_step(self.model)
+        named = evaluate(self._eval_step, params, model_state,
+                         self.val_dataset, self.val_methods, self.device)
+        for method, res in named:
+            print(f"  [validation] {method}: {res}")
+        if named and named[0][1] is not None:
+            self.state.score = named[0][1].result()[0]
+        self.last_validation = named
+        return named
+
+    # -- main loop ------------------------------------------------------- #
     def optimize(self):
         params = self.model.param_dict()
         bad = sorted({str(p.device) for (p,) in zip_leaves(params)
@@ -246,15 +404,54 @@ class Optimizer:
                              f" are on {bad}, the optimizer's device is "
                              f"{self.device}; move the model first")
         model_state = self.model.initial_state()
-        opt_state = self.optim_method.init_state(params)
-        step_fn = make_train_step(self.model, self.criterion,
-                                  self.optim_method)
+        optim = self._wrap_optim(params)
+        step_fn = self._build_step(optim)
+        params = self._layout_params(params)
+        opt_state = optim.init_state(params)
         stop = False
-        while not stop:
-            params, opt_state, model_state, stop = self._run_epoch(
-                params, opt_state, model_state, step_fn)
+        try:
+            while not stop:
+                params, opt_state, model_state, stop = self._run_epoch(
+                    params, opt_state, model_state, step_fn)
+        finally:
+            self._carry = None
+        self.opt_state = opt_state
+        with torch.no_grad():
+            # the model's own parameters, unless the loop trained copies
+            # (fsdp's shards)
+            for dst, src in zip_leaves(self.model.param_dict(),
+                                       self._params_for_eval(params)):
+                if dst is not src:
+                    dst.copy_(src)
         self.model.set_state(model_state)
         return self.model
+
+    def _batches(self, epoch):
+        """``(global size, x, y)`` on the device, in the dataset's order:
+        placed inline, or under ``set_prefetch`` staged ahead by a
+        :class:`DeviceLoader` and taken on the step's stream."""
+        def host():
+            for mb in self.dataset.data(train=True, epoch=epoch):
+                yield (mb.size(),) + tuple(
+                    self._host_batch(mb.get_input(), mb.get_target()))
+
+        if not self.prefetch_depth:
+            for size, x, y in host():
+                yield (size,) + self._place_batch(x, y)
+            return
+        stage = self._stager()
+        loader = DeviceLoader(((size, stage((x, y))) for size, x, y in
+                               host()), self.prefetch_depth,
+                              recorder=self.recorder)
+        for size, staged in loader:
+            yield (size,) + staged.take()
+
+    def _stager(self):
+        """The prefetch placement: one :class:`HostToDevice` (and so one
+        ring of pinned buffers) per optimizer."""
+        if self._h2d is None:
+            self._h2d = HostToDevice(self.device, self.prefetch_depth)
+        return self._h2d
 
     def _run_epoch(self, params, opt_state, model_state, step_fn):
         """One epoch; returns the updated carry and whether to stop."""
@@ -264,45 +461,61 @@ class Optimizer:
         st.batch_in_epoch = 0
         epoch_start = time.time()
         n_seen = 0
-        for mb in self.dataset.data(train=True, epoch=st.epoch):
-            size = mb.size()
-            x, y = self._place_batch(mb.get_input(), mb.get_target())
-            params, opt_state, model_state, loss = step_fn(
-                params, opt_state, model_state, x, y)
-            st.iteration += 1
-            st.batch_in_epoch += 1
-            # kept on the device: a float() here would sync the host with
-            # the device every step
-            st.loss = loss
-            n_seen += size
-            if self._weight_stream is not None:
-                # the snapshot is taken inside, synchronously (owning
-                # copies); the publish rides the stream's worker thread
-                self._weight_stream.maybe_publish(params, state=st)
-            if self._fire_mid_epoch():
-                stop = True
-                break
-        else:
-            st.epoch_finished = True
-            if n_seen == 0:
-                raise ValueError(
-                    "dataset produced no batches (batch_size larger "
-                    "than the dataset with drop_last, or empty data)")
-            st.loss = float(st.loss)
-            dur = time.time() - epoch_start
-            print(f"[epoch {st.epoch}] loss={st.loss:.4f} ({n_seen} samples "
-                  f"in {dur:.1f}s, {n_seen / max(dur, 1e-9):.1f}/s)")
-            st.epoch += 1
-            st.batch_in_epoch = 0
-            if self.end_when(st):
-                stop = True
+        batches = self._batches(st.epoch)
+        try:
+            for size, x, y in batches:
+                params, opt_state, model_state, loss = step_fn(
+                    params, opt_state, model_state, x, y)
+                st.iteration += 1
+                st.batch_in_epoch += 1
+                # kept on the device: a float() here would sync the host
+                # with the device every step
+                st.loss = loss
+                n_seen += size
+                self._carry = (params, model_state)
+                if self._fire_mid_epoch():
+                    stop = True
+                    break
+            else:
+                st.epoch_finished = True
+        finally:
+            batches.close()
+        if not st.epoch_finished:
+            return params, opt_state, model_state, stop
+        if n_seen == 0:
+            raise ValueError(
+                "dataset produced no batches (batch_size larger "
+                "than the dataset with drop_last, or empty data)")
+        st.loss = float(st.loss)
+        dur = time.time() - epoch_start
+        print(f"[epoch {st.epoch}] loss={st.loss:.4f} ({n_seen} samples "
+              f"in {dur:.1f}s, {n_seen / max(dur, 1e-9):.1f}/s"
+              f"{self._banner_suffix()})")
+        if self.val_trigger is not None and self.val_trigger(st):
+            self._validate(self._params_for_eval(params), model_state)
+        st.epoch += 1
+        st.batch_in_epoch = 0
+        if self.end_when(st):
+            stop = True
         return params, opt_state, model_state, stop
 
     def _fire_mid_epoch(self) -> bool:
-        """Iteration-level triggers, after each step; True ends training
-        (an epoch-count end trigger is read at the epoch's end)."""
+        """Iteration-level triggers, after each step: validation (a
+        trigger other than every-epoch), the weight stream, then the end
+        trigger (an epoch-count end trigger is read at the epoch's end);
+        True ends training."""
+        st = self.state
+        params, model_state = self._carry
+        if (self.val_trigger is not None
+                and not isinstance(self.val_trigger, _EveryEpoch)
+                and self.val_trigger(st)):
+            self._validate(self._params_for_eval(params), model_state)
+        if self._weight_stream is not None:
+            # the snapshot is taken inside, synchronously (owning
+            # copies); the publish rides the stream's worker thread
+            self._weight_stream.maybe_publish(params, state=st)
         return (not isinstance(self.end_when, _MaxEpoch)
-                and self.end_when(self.state))
+                and self.end_when(st))
 
 
 def _unported_setter(name, what):

@@ -144,10 +144,38 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 512 images for 2 epochs on K6 (one launch a step over its
                 8 leaves), against ``fused=False`` (bitwise).  cuDNN runs
                 deterministic algorithms chosen without benchmarking.
+  8. distri   — the reference's headline: the same ResNet-50 in bf16
+                mixed precision (fp32 parameters and optimizer state) at
+                batch 256, 2 epochs over 4 distinct synthetic batches.
+                First the training BN (``_BNTrain``, the reference's
+                closed-form backward) against autograd through the fp32
+                formula at ResNet-50's widths, fp32 and bf16, and the peak
+                memory of one step with the old BN and the new.  Then
+                ``LocalOptimizer`` in bf16 at batch 64 and 256, K5 against
+                ``fused=False`` (bitwise); bf16 against fp32 at batch 64
+                within a band (a run without the input cast must fall
+                below it); fp32 at batch 256 if it fits.  Then the main
+                path, ``DistriOptimizer(mesh=create_mesh({"dp": 1}),
+                fused_optim=True)`` over NCCL at world size 1 with
+                ``set_mixed_precision()``, ``set_prefetch(2)`` and
+                ``set_validation`` (every epoch, 512 held-out images,
+                Top1/Top5/Loss), counted from 0: bitwise equal to
+                LocalOptimizer's losses, weights and BN state; no batch
+                read before its copy's event completed; validation equal
+                to ``Evaluator.test`` and to numpy on ``Predictor``'s
+                outputs.  dp without prefetch, fsdp, zero1 and 4 MB
+                buckets must be bitwise too, and the bf16/fp16 wire finite
+                within its limit; K5 launches exactly once a step in every
+                run.  Readings: step medians and images/s, dp=1 beside
+                LocalOptimizer, H2D per step with and without prefetch,
+                the bf16 step's device time by class and under batch
+                norm's forward and backward, fsdp's device time beside
+                dp's, peak memory, busy share.
 
 Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"stream": {...}}`` line, a
-``{"classifier": {...}}`` line, a ``{"host_sync": {...}}`` line, a
+``{"classifier": {...}}`` line, a ``{"distri": {...}}`` line, a
+``{"host_sync": {...}}`` line, a
 ``{"kernels": [...]}`` line (all six
 kernels), the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``.
@@ -1141,11 +1169,13 @@ def _device_us(ev):
 
 
 def profile_steps(run_steps, steps: int = 2, classes=KERNEL_CLASSES,
-                  top: int = 0):
+                  top: int = 0, ranges=()):
     """Device time by kernel class, the device records (kernels and
     copies) a step and the device's busy share over ``run_steps()``, which
     runs ``steps`` steps, from torch.profiler (CUPTI); with ``top``, also
-    the ``top`` kernels by device time."""
+    the ``top`` kernels by device time; with ``ranges``, the device time
+    of the kernels launched under each host range of that exact name (an
+    autograd Function's forward and backward, for example)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1155,7 +1185,13 @@ def profile_steps(run_steps, steps: int = 2, classes=KERNEL_CLASSES,
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3
     by_class, by_name, device_us, records = {}, {}, 0.0, 0
+    by_range = {}
     for ev in prof.key_averages():
+        if ev.key in ranges:
+            total = getattr(ev, "device_time_total", None)
+            if total is None:
+                total = getattr(ev, "cuda_time_total", 0.0)
+            by_range[ev.key] = by_range.get(ev.key, 0.0) + total / 1e3 / steps
         us = _device_us(ev)
         if not us:
             continue
@@ -1178,6 +1214,8 @@ def profile_steps(run_steps, steps: int = 2, classes=KERNEL_CLASSES,
     if top:
         out["top_kernels_ms_per_step"] = dict(sorted(
             by_name.items(), key=lambda kv: -kv[1])[:top])
+    if ranges:
+        out["device_ms_by_range"] = by_range
     log(f"profile: {json.dumps(out)}")
     return out
 
@@ -2247,6 +2285,480 @@ def phase_classifier(card: str, k5: dict, k6: dict):
 
 
 # --------------------------------------------------------------------- #
+# phase_distri: bf16, prefetch, validation and DistriOptimizer at dp=1  #
+# --------------------------------------------------------------------- #
+DISTRI_IMAGES, DISTRI_VAL, DISTRI_EPOCHS = 1024, 512, 2
+DISTRI_B64_IMAGES = 256          # batch 64: 4 steps an epoch, as b256
+# the new BN against autograd through the fp32 formula (on the same
+# values), at ResNet-50's widths, relative to each output's largest
+# entry: fp32 outputs differ by reduction order (~1e-6); the statistics,
+# dgamma and dbeta are fp32 sums of the same values in bf16 too.  bf16 dx
+# is one rounding of fp32 math (at most 2^-8 of its value); bf16 y, as
+# the reference computes it, is four (scale, shift, product, sum): at
+# most 4 * 2^-8 of the largest entry, the limit for both
+BN_F32_REL = 2e-5
+BN_BF16_OUT_REL = 2 ** -6
+# bf16 against fp32 from the same weights on the same batches: a bf16
+# run must differ from the fp32 run by more than the classifier's fp32
+# loss limit at some step (a run that did not cast its inputs reads 0:
+# fp32 is bitwise reproducible here) and by at most BF16_LOSS_REL
+# (relative) at every step
+BF16_LOSS_REL = 2e-2
+# the 16-bit wire at dp=1 rounds each gradient to 16 bits once:
+# finite losses within WIRE16_LOSS_REL of the fp32 wire's, every step
+WIRE16_LOSS_REL = 2e-2
+VAL_LOSS_REL = 1e-6
+DISTRI_CLASSES = (("sgd_mom", "K5 fused_sgd_mom"),
+                  ("memcpy htod", "memcpy H2D"), ("memcpy", "memcpy, other"),
+                  ("dgrad", "cuDNN conv backward"),
+                  ("wgrad", "cuDNN conv backward"),
+                  ("bprop", "cuDNN conv backward"),
+                  ("fprop", "cuDNN conv forward"),
+                  ("conv", "cuDNN conv, other"), ("gemm", "matmul (cuBLAS)"),
+                  ("nchw", "layout transposes"), ("nhwc", "layout transposes"),
+                  ("reduce", "reductions (BN statistics, sums)"),
+                  ("pool", "pooling"), ("nccl", "NCCL"),
+                  ("copy", "casts and copies"),
+                  ("elementwise", "elementwise (BN, ReLU, add)"))
+
+
+def _old_bn(x, gamma, beta, axis, eps):
+    """Training BN as the port had it before ``_BNTrain``: the forward
+    formula, differentiated by autograd (with an fp32 copy of x saved)."""
+    axes = tuple(i for i in range(x.ndim) if i != axis)
+    shape = [1] * x.ndim
+    shape[axis] = x.shape[axis]
+    xf = x.float()
+    mean = xf.mean(dim=axes)
+    var = torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+    inv = torch.rsqrt(var + eps)
+    y = (x * (gamma * inv).reshape(shape).to(x.dtype)
+         + (beta - gamma * mean * inv).reshape(shape).to(x.dtype))
+    return y, mean.detach(), var.detach()
+
+
+def _bn_case(shape, dtype, seed):
+    """The new BN against autograd through the fp32 formula (on the same
+    values, upcast): max |err| / max |ref| of y, mean, var, dx, dgamma,
+    dbeta."""
+    from bigdl_tpu_torch.nn.normalization import _BNTrain
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(shape, device="cuda", generator=g) * 2 + 1).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    c = shape[-1]
+    gamma = torch.rand(c, device="cuda", generator=g) + 0.5
+    beta = torch.randn(c, device="cuda", generator=g)
+    outs = []
+    for fn, xx, dd in ((_BNTrain.apply, x, dy),
+                       (_old_bn, x.float(), dy.float())):
+        xx = xx.detach().requires_grad_()
+        gg, bb = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+        y, mean, var = fn(xx, gg, bb, 3, 1e-5)
+        grads = torch.autograd.grad(y, (xx, gg, bb), dd)
+        outs.append([t.detach().float() for t in (y, mean, var, *grads)])
+    return {name: ((a - b).abs().max() / b.abs().max()).item()
+            for name, a, b in zip(("y", "mean", "var", "dx", "dgamma",
+                                   "dbeta"), *outs)}
+
+
+def _step_peak_gb(model, x, y, mixed, old_bn):
+    """Peak device memory of one training forward and backward (the
+    classifier's loss) from a reset, with the new BN or the old one."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion, Ctx
+    from bigdl_tpu_torch.nn import normalization as norm
+    keep = norm._BNTrain.apply
+    params = model.param_dict()
+    leaves = [p for sub in params.values() for p in sub.values()]
+    try:
+        if old_bn:
+            norm._BNTrain.apply = _old_bn
+        xd = torch.from_numpy(x).cuda()
+        if mixed:
+            xd = xd.bfloat16()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ctx = Ctx(state=model.initial_state(), training=True)
+        out = model.apply(params, xd, ctx)
+        loss = ClassNLLCriterion().loss(out.float(), torch.from_numpy(y)
+                                        .cuda())
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del out, loss, grads, ctx, xd
+    finally:
+        norm._BNTrain.apply = keep
+    torch.cuda.empty_cache()
+    return peak
+
+
+def _train_run(model, w0, s0, data, batch, *, mixed=True, fused=True,
+               mesh=None, prefetch=0, val=None, audit=False, no_cast=False,
+               keep_opt=False, **distri_kw):
+    """One training run of ResNet-50 from the weights ``w0`` and BN state
+    ``s0`` for DISTRI_EPOCHS epochs: LocalOptimizer, or DistriOptimizer
+    over ``mesh``.  Returns losses, step ms (CUDA events between the ends
+    of consecutive steps), K5 launches, and the optimizer."""
+    from bigdl_tpu_torch.data.device_loader import HostToDevice
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import (SGD, DistriOptimizer, LocalOptimizer,
+                                       Loss, Top1Accuracy, Top5Accuracy,
+                                       Trigger)
+    from bigdl_tpu_torch.optim import optimizer as optmod
+    with torch.no_grad():
+        for dst, src in zip(model.get_weights() + model.state_list(),
+                            w0 + s0):
+            dst.copy_(src)
+    x, y = data
+    if mesh is None:
+        opt = LocalOptimizer(model, (x, y), ClassNLLCriterion(),
+                             batch_size=batch)
+        method = SGD(fused=fused, **RESNET_SGD)
+    else:
+        opt = DistriOptimizer(model, (x, y), ClassNLLCriterion(),
+                              batch_size=batch, mesh=mesh, fused_optim=True,
+                              **distri_kw)
+        method = SGD(**RESNET_SGD)
+    opt.set_optim_method(method).set_end_when(Trigger.max_epoch(
+        DISTRI_EPOCHS))
+    if mixed:
+        opt.set_mixed_precision()
+    if prefetch:
+        opt.set_prefetch(prefetch)
+        opt._h2d = HostToDevice(opt.device, prefetch, audit=audit)
+    if val is not None:
+        opt.set_validation(Trigger.every_epoch(), val,
+                           [Top1Accuracy(), Top5Accuracy(), Loss()])
+    losses, events = [], [torch.cuda.Event(enable_timing=True)]
+    fire = opt._fire_mid_epoch
+
+    def hook():
+        losses.append(opt.state.loss)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return fire()
+    opt._fire_mid_epoch = hook
+    keep = optmod.to_bf16
+    if no_cast:
+        optmod.to_bf16 = lambda a: a
+    before = _build.launch_counts()
+    try:
+        events[0].record()
+        opt.optimize()
+        torch.cuda.synchronize()
+    finally:
+        optmod.to_bf16 = keep
+    after = _build.launch_counts()
+    launches = {k: after.get(k, 0) - before.get(k, 0) for k in after
+                if after.get(k, 0) != before.get(k, 0)}
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(len(events) - 1)]
+    out = {"losses": [float(v) for v in losses], "step_ms": step_ms,
+           "launches": launches}
+    if keep_opt:
+        out["opt"] = opt
+    return out
+
+
+def _steady(run, batch):
+    """Step median over every step but the first (warm-up), and images/s."""
+    med = float(np.median(run["step_ms"][1:]))
+    return {"step_ms_median": med, "images_per_s": batch / (med / 1e3),
+            "step_ms": run["step_ms"]}
+
+
+def _same_bits(model, want):
+    got = model.get_weights() + model.state_list()
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _max_rel(a, b):
+    return max(abs(u - v) / abs(v) for u, v in zip(a, b))
+
+
+def _numpy_scores(logits, y, batch):
+    """Top1, Top5 (a stable sort, as the methods take it) and the mean
+    ClassNLL loss of log-probs ``logits`` in batches of ``batch``, in
+    numpy."""
+    t = y.astype(np.int64)
+    top1 = int((np.argmax(logits, 1) + 1 == t).sum())
+    order = np.argsort(-logits, axis=1, kind="stable")[:, :5] + 1
+    top5 = int((order == t[:, None]).any(1).sum())
+    total = 0.0
+    for i in range(0, len(t), batch):
+        lp = logits[i:i + batch]
+        picked = lp[np.arange(len(lp)), t[i:i + batch] - 1]
+        total += float(np.mean(-picked, dtype=np.float32)) * len(lp)
+    return top1, top5, total / len(t)
+
+
+def phase_distri(card: str):
+    """ResNet-50 at the reference's headline (bf16 mixed precision, batch
+    256) through LocalOptimizer and DistriOptimizer at dp=1 over NCCL,
+    with prefetch and validation; the new BN on the card; K5 counted."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import Evaluator, Loss, Predictor
+    from bigdl_tpu_torch.optim import Top1Accuracy, Top5Accuracy
+    from bigdl_tpu_torch.parallel import mesh as mesh_lib
+
+    fails = []
+    # 1. the new BN at ResNet-50's widths, fp32 and bf16
+    bn = {}
+    for dtype, shape in ((torch.float32, (64, 56, 56, 256)),
+                         (torch.bfloat16, (256, 28, 28, 512))):
+        errs = _bn_case(shape, dtype, 7)
+        bn[str(dtype).replace("torch.", "")] = {"shape": list(shape),
+                                                "rel_err": errs}
+        for name, err in errs.items():
+            limit = BN_BF16_OUT_REL if dtype == torch.bfloat16 and name in (
+                "y", "dx") else BN_F32_REL
+            if not err <= limit:
+                fails.append(f"BN {dtype} {shape} {name}: {err:.3e} > "
+                             f"{limit:.3e}")
+    log(f"BN against autograd through the fp32 formula: {json.dumps(bn)}")
+
+    model = resnet.build(class_num=1000, depth=50, dataset="imagenet",
+                         format="NHWC", seed=0)
+    w0 = [w.clone() for w in model.get_weights()]
+    s0 = [s.clone() for s in model.state_list()]
+    n_leaves = len(w0)
+    per_update = -(-n_leaves // fo.SGD_CAPACITY)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((DISTRI_IMAGES, 224, 224, 3), dtype=np.float32)
+    y = (rng.integers(0, 1000, DISTRI_IMAGES) + 1).astype(np.float32)
+    xv = rng.standard_normal((DISTRI_VAL, 224, 224, 3), dtype=np.float32)
+    yv = (rng.integers(0, 1000, DISTRI_VAL) + 1).astype(np.float32)
+    d256 = (x, y)
+    d64 = (x[:DISTRI_B64_IMAGES], y[:DISTRI_B64_IMAGES])
+    steps256 = DISTRI_EPOCHS * DISTRI_IMAGES // 256
+    steps64 = DISTRI_EPOCHS * DISTRI_B64_IMAGES // 64
+
+    # peak memory of one step, the old BN against the new
+    peaks = {}
+    for label, xb, yb, mixed in (("fp32_b64", x[:64], y[:64], False),
+                                 ("bf16_b256", x[:256], y[:256], True)):
+        peaks[label] = {"old_bn_gb": _step_peak_gb(model, xb, yb, mixed,
+                                                    True),
+                        "new_bn_gb": _step_peak_gb(model, xb, yb, mixed,
+                                                    False)}
+    log(f"peak memory of one forward+backward: {json.dumps(peaks)}")
+
+    # 2. bf16 through LocalOptimizer: fused against plain, bitwise in the
+    # losses and the final weights and state; against fp32 within the
+    # bf16 band
+    runs, finals = {}, {}
+    for name, data, batch, kw in (
+            ("bf16_b64", d64, 64, {}),
+            ("bf16_b64_plain", d64, 64, dict(fused=False)),
+            ("fp32_b64", d64, 64, dict(mixed=False)),
+            ("no_cast_b64", d64, 64, dict(no_cast=True)),
+            ("bf16_b256", d256, 256, {}),
+            ("bf16_b256_plain", d256, 256, dict(fused=False))):
+        runs[name] = _train_run(model, w0, s0, data, batch, **kw)
+        if name in ("bf16_b64", "bf16_b256"):
+            finals[name] = [t.clone() for t in
+                            model.get_weights() + model.state_list()]
+        if name.endswith("_plain"):
+            runs[name]["bitwise"] = _same_bits(model, finals[name[:-6]])
+        if name == "bf16_b256":
+            # half the held-out labels are the trained model's own
+            # classes, so that Top1 and Top5 read far from 0 (every run
+            # below that must be bitwise this one ends on these weights)
+            yv[:DISTRI_VAL // 2] = Predictor(model, batch_size=128) \
+                .predict_class(xv[:DISTRI_VAL // 2])
+        log(f"{name}: losses {runs[name]['losses']}; launches "
+            f"{runs[name]['launches']}")
+    want_bits = finals["bf16_b256"]
+    try:
+        runs["fp32_b256"] = _train_run(model, w0, s0, d256, 256,
+                                       mixed=False)
+        fp32_b256 = _steady(runs["fp32_b256"], 256)
+    except torch.cuda.OutOfMemoryError as e:
+        fp32_b256 = {"fits": False, "error": str(e)[:200]}
+        torch.cuda.empty_cache()
+    log(f"fp32 b256: {json.dumps(fp32_b256)}")
+    for a, b in (("bf16_b64", "bf16_b64_plain"),
+                 ("bf16_b256", "bf16_b256_plain")):
+        if runs[a]["losses"] != runs[b]["losses"] or not runs[b]["bitwise"]:
+            fails.append(f"{a}: fused and plain differ: losses "
+                         f"{runs[a]['losses']} vs {runs[b]['losses']}, "
+                         f"weights bitwise {runs[b]['bitwise']}")
+    bf16_vs_fp32 = _max_rel(runs["bf16_b64"]["losses"],
+                            runs["fp32_b64"]["losses"])
+    bf16_vs_fp32_abs = max(abs(u - v) for u, v in zip(
+        runs["bf16_b64"]["losses"], runs["fp32_b64"]["losses"]))
+    no_cast_abs = max(abs(u - v) for u, v in zip(
+        runs["no_cast_b64"]["losses"], runs["fp32_b64"]["losses"]))
+    band = {"bf16_vs_fp32_max_rel": bf16_vs_fp32,
+            "bf16_vs_fp32_max_abs": bf16_vs_fp32_abs,
+            "no_cast_vs_fp32_max_abs": no_cast_abs,
+            "must_exceed_abs": CLS_LOSS_TOL, "at_most_rel": BF16_LOSS_REL}
+    log(f"bf16 against fp32 at b64: {json.dumps(band)}")
+    if not (bf16_vs_fp32_abs > CLS_LOSS_TOL and bf16_vs_fp32 <=
+            BF16_LOSS_REL):
+        fails.append(f"bf16 against fp32 outside its band: {band}")
+    # the variant without the input cast must fall below the band
+    if no_cast_abs > CLS_LOSS_TOL:
+        fails.append(f"the run without the input cast differs from fp32 by "
+                     f"{no_cast_abs:.3e}: the band cannot tell it")
+    for name, run in runs.items():
+        want = {fo.SGD_MOM: (steps64 if "b64" in name else steps256)
+                * per_update} if "plain" not in name else {}
+        if run["launches"] != want:
+            fails.append(f"{name}: launches {run['launches']}, expected "
+                         f"{want}")
+
+    # 3. DistriOptimizer at dp=1 over NCCL
+    store = tempfile.mkdtemp(prefix="distri_", dir=str(_build.BUILD_DIR))
+    mesh_lib.init_distributed(f"file://{store}/store", 0, 1)
+    mesh = mesh_lib.create_mesh({"dp": 1})
+    log(f"mesh {mesh}")
+    val = (xv, yv)
+    distri = {}
+    try:
+        # the main path: counts from 0, peak memory from a reset
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        distri["main"] = _train_run(model, w0, s0, d256, 256, mesh=mesh,
+                                    prefetch=2, val=val, audit=True,
+                                    keep_opt=True)
+        main_launches = _build.launch_counts()
+        main_peak = torch.cuda.max_memory_allocated() / 1e9
+        main_opt = distri["main"].pop("opt")
+        main_bits = _same_bits(model, want_bits)
+        # validation against Evaluator and numpy on Predictor's outputs
+        named = main_opt.last_validation
+        got_val = [r.result() for _, r in named]
+        ev = Evaluator(model, batch_size=128).test(
+            val, [Top1Accuracy(), Top5Accuracy(), Loss()])
+        ev_val = [r.result() for _, r in ev]
+        logits = Predictor(model, batch_size=128).predict(xv)
+        top1, top5, nll = _numpy_scores(logits, yv, 128)
+        validation = {"set_validation": got_val, "evaluator": ev_val,
+                      "numpy": [top1, top5, nll],
+                      "score": main_opt.state.score}
+        log(f"validation: {json.dumps(validation)}")
+        if got_val != ev_val:
+            fails.append(f"set_validation {got_val} != Evaluator {ev_val}")
+        if (named[0][1].correct, named[1][1].correct) != (top1, top5):
+            fails.append(f"accuracies {named[0][1].correct}, "
+                         f"{named[1][1].correct} != numpy {top1}, {top5}")
+        if abs(got_val[2][0] - nll) > VAL_LOSS_REL * abs(nll):
+            fails.append(f"validation loss {got_val[2][0]} vs numpy {nll}")
+        if not DISTRI_VAL // 2 <= top1 <= top5:
+            fails.append(f"the planted half of the labels reads Top1 {top1},"
+                         f" Top5 {top5} of {DISTRI_VAL}")
+        audit = main_opt._h2d.audit
+        early = [c.elapsed_time(u) for c, u in audit
+                 if c.elapsed_time(u) < 0]
+        log(f"prefetch: {len(audit)} batches taken, read before their copy "
+            f"completed: {len(early)}")
+        if len(audit) != steps256 or early:
+            fails.append(f"prefetch audit: {len(audit)} batches, {early} "
+                         f"read early")
+        del named, ev, logits, main_opt
+        for name, kw in (("dp", dict(val=val)), ("fsdp", dict(fsdp=True)),
+                         ("zero1", dict(zero1=True)),
+                         ("buckets", dict(bucket_bytes=4 << 20)),
+                         ("bf16_wire", dict(compress="bf16")),
+                         ("fp16_wire", dict(compress="fp16"))):
+            distri[name] = _train_run(model, w0, s0, d256, 256, mesh=mesh,
+                                      **kw)
+            distri[name]["bitwise"] = _same_bits(model, want_bits)
+            log(f"dp=1 {name}: losses {distri[name]['losses']}; launches "
+                f"{distri[name]['launches']}; bitwise to Local "
+                f"{distri[name]['bitwise']}")
+        distri["main"]["bitwise"] = main_bits
+        # where the bf16 b256 step's time goes, with and without prefetch
+        profiles = {
+            "local": profile_steps(lambda: _train_run(
+                model, w0, s0, d256, 256), steps=steps256,
+                classes=DISTRI_CLASSES, top=12,
+                ranges=("_BNTrain", "_BNTrainBackward")),
+            "fsdp1": profile_steps(lambda: _train_run(
+                model, w0, s0, d256, 256, mesh=mesh, fsdp=True),
+                steps=steps256, classes=DISTRI_CLASSES),
+            "dp1_prefetch": profile_steps(lambda: _train_run(
+                model, w0, s0, d256, 256, mesh=mesh, prefetch=2),
+                steps=steps256, classes=DISTRI_CLASSES),
+            "dp1": profile_steps(lambda: _train_run(
+                model, w0, s0, d256, 256, mesh=mesh), steps=steps256,
+                classes=DISTRI_CLASSES)}
+    finally:
+        torch.distributed.destroy_process_group()
+        mesh_lib.set_mesh(None)
+        shutil.rmtree(store, ignore_errors=True)
+
+    for name in ("main", "dp", "fsdp", "zero1", "buckets"):
+        run = distri[name]
+        if run["losses"] != runs["bf16_b256"]["losses"] or not run["bitwise"]:
+            fails.append(f"dp=1 {name} is not bitwise LocalOptimizer's: "
+                         f"{run['losses']} vs {runs['bf16_b256']['losses']}")
+    for name in ("bf16_wire", "fp16_wire"):
+        ls = distri[name]["losses"]
+        rel = _max_rel(ls, distri["dp"]["losses"])
+        distri[name]["max_rel_vs_fp32_wire"] = rel
+        # a run that ignored compress would read 0 and the same weights
+        if not (all(np.isfinite(ls)) and 0 < rel <= WIRE16_LOSS_REL
+                and not distri[name]["bitwise"]):
+            fails.append(f"{name}: losses {ls}, {rel:.3e} from the fp32 "
+                         f"wire's, weights bitwise "
+                         f"{distri[name]['bitwise']}")
+    want = {fo.SGD_MOM: steps256 * per_update}
+    for name, run in distri.items():
+        if run["launches"] != want:
+            fails.append(f"dp=1 {name}: launches {run['launches']}, "
+                         f"expected {want}")
+    if main_launches != want:
+        fails.append(f"main path launches {main_launches}, expected {want}")
+    if not runs["bf16_b256"]["losses"][-1] < runs["bf16_b256"]["losses"][0]:
+        fails.append(f"bf16 b256 loss did not fall: "
+                     f"{runs['bf16_b256']['losses']}")
+
+    def h2d(p):
+        return None if p is None else p["device_ms_by_class"].get(
+            "memcpy H2D")
+    readings = {
+        "fp32_b64": _steady(runs["fp32_b64"], 64),
+        "bf16_b64": _steady(runs["bf16_b64"], 64),
+        "bf16_b256": _steady(runs["bf16_b256"], 256),
+        "fp32_b256": fp32_b256,
+        "dp1_b256": _steady(distri["dp"], 256),
+        "dp1_b256_prefetch": _steady(distri["main"], 256),
+        "fsdp1_b256": _steady(distri["fsdp"], 256),
+        "zero1_b256": _steady(distri["zero1"], 256),
+        "h2d_ms_per_step": {"no_prefetch": h2d(profiles["dp1"]),
+                            "prefetch": h2d(profiles["dp1_prefetch"])},
+        "peak_mem_gb": {"main_path": main_peak, "one_step": peaks},
+        "profile": profiles}
+    out = {"config": "resnet.build(class_num=1000, depth=50, dataset="
+                     "'imagenet', format='NHWC', seed=0); DistriOptimizer("
+                     "batch_size=256, mesh=create_mesh({'dp': 1}), "
+                     "fused_optim=True), SGD(0.1, momentum=0.9, weight_decay"
+                     "=1e-4), set_mixed_precision(), set_prefetch(2), "
+                     "set_validation(every_epoch, 512 images, [Top1, Top5, "
+                     "Loss]); NCCL at world size 1",
+           "bn": bn, "bf16_band": band, "validation": validation,
+           "launches": main_launches, "readings": readings,
+           "local": {k: {"losses": v["losses"], "launches": v["launches"]}
+                     for k, v in runs.items()},
+           "distri": {k: {kk: vv for kk, vv in v.items() if kk != "step_ms"}
+                      for k, v in distri.items()},
+           "card": card}
+    log(f"distri: {json.dumps(out)}")
+    if fails:
+        raise AssertionError("distri phase: " + "; ".join(fails))
+    return out
+
+
+# --------------------------------------------------------------------- #
 DECODE_ENGINE = dict(slots=8, page_size=16, max_context=1024, max_prompt=512,
                      max_new_tokens=64)
 DECODE_REQUESTS, DECODE_CLIENTS, DECODE_NEW = 24, 3, 64
@@ -3159,12 +3671,14 @@ def main() -> int:
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     classifier = phase_classifier(card, k5, k6)
+    distri = phase_distri(card)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
                "stream": stream["launches"],
                "replica_serving": stream["replica_serving"]["launches"],
-               "classifier": classifier["launches"]}
+               "classifier": classifier["launches"],
+               "distri": distri["launches"]}
     kernels = [k1, *k23, k4, k5, k6]
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
@@ -3176,6 +3690,7 @@ def main() -> int:
     print(json.dumps({"training": train}), flush=True)
     print(json.dumps({"stream": stream}), flush=True)
     print(json.dumps({"classifier": classifier}), flush=True)
+    print(json.dumps({"distri": distri}), flush=True)
     print(json.dumps({"host_sync": host_sync}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

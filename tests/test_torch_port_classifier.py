@@ -579,11 +579,16 @@ def test_local_optimizer_unported_setters_raise():
                               np.ones(2, np.float32)),
                          tnn.ClassNLLCriterion(), batch_size=1,
                          device="cpu")
-    for name in ("set_validation", "set_checkpoint", "set_prefetch",
-                 "set_mixed_precision", "set_gradient_accumulation",
-                 "set_gradient_clipping_by_l2_norm", "set_telemetry"):
+    for name in ("set_checkpoint", "set_gradient_accumulation",
+                 "set_gradient_clipping_by_l2_norm",
+                 "set_constant_gradient_clipping", "set_telemetry"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
             getattr(opt, name)(None)
+    # ported since: each returns the optimizer
+    assert opt.set_mixed_precision() is opt and opt.mixed_precision
+    assert opt.set_prefetch(2) is opt and opt.prefetch_depth == 2
+    assert opt.set_validation(Trigger.every_epoch(), (
+        np.zeros((2, 784), np.float32), np.ones(2, np.float32)), []) is opt
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LocalOptimizer(tm, (np.zeros((2, 784)), np.ones(2)),
                        tnn.ClassNLLCriterion(), batch_size=1, seed=1,

@@ -294,7 +294,13 @@ def test_import_leaves_jax_and_reference_out():
         "bigdl_tpu_torch.serving.stream, bigdl_tpu_torch.serving.arrivals, "
         "bigdl_tpu_torch.faults, bigdl_tpu_torch.utils.retry, "
         "bigdl_tpu_torch.observability.tracing, "
-        "bigdl_tpu_torch.observability.goodput\n"
+        "bigdl_tpu_torch.observability.goodput, "
+        "bigdl_tpu_torch.observability.collectives, "
+        "bigdl_tpu_torch.optim.distri_optimizer, "
+        "bigdl_tpu_torch.optim.validation, bigdl_tpu_torch.optim.predictor, "
+        "bigdl_tpu_torch.parallel.mesh, bigdl_tpu_torch.parallel.allreduce, "
+        "bigdl_tpu_torch.parallel.bucketer, bigdl_tpu_torch.parallel.zero, "
+        "bigdl_tpu_torch.data.device_loader, bigdl_tpu_torch.data.prefetch\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
@@ -316,7 +322,12 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                 "quantized/__init__.py", "serving/replicas.py",
                 "serving/stream.py", "serving/arrivals.py",
                 "faults/__init__.py", "utils/retry.py",
-                "observability/tracing.py", "observability/goodput.py"):
+                "observability/tracing.py", "observability/goodput.py",
+                "observability/collectives.py", "optim/distri_optimizer.py",
+                "optim/validation.py", "optim/predictor.py",
+                "parallel/mesh.py", "parallel/allreduce.py",
+                "parallel/bucketer.py", "parallel/zero.py",
+                "data/device_loader.py", "data/prefetch.py"):
         assert f"bigdl_tpu_torch/{new}" in names
     assert len(files) > 10
     for f in files:
