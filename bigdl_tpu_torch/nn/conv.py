@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from .init import Xavier, Zeros, init_tensor
-from .module import Module, regularizer_unported
+from .module import Module, check_regularizers
 
 
 def _same_pad(in_size, stride, ksize, dilation=1):
@@ -62,7 +62,7 @@ class SpatialConvolution(Module):
             raise ValueError("channels must be multiples of n_group")
         if format not in ("NCHW", "NHWC"):
             raise ValueError(f"unknown format {format!r}")
-        regularizer_unported(self, w_regularizer, b_regularizer)
+        check_regularizers(self, w_regularizer, b_regularizer)
         self.n_input_plane = n_input_plane
         self.n_output_plane = n_output_plane
         self.kernel = (kernel_h, kernel_w)

@@ -5,7 +5,7 @@ import torch
 import torch.nn.functional as F
 
 from .init import Xavier, Zeros, init_tensor
-from .module import Module, regularizer_unported
+from .module import Module, check_regularizers
 
 
 class Linear(Module):
@@ -17,7 +17,7 @@ class Linear(Module):
                  w_regularizer=None, b_regularizer=None, name=None, *,
                  gen: torch.Generator = None):
         super().__init__(name=name)
-        regularizer_unported(self, w_regularizer, b_regularizer)
+        check_regularizers(self, w_regularizer, b_regularizer)
         self.input_size = input_size
         self.output_size = output_size
         self.with_bias = with_bias

@@ -77,12 +77,16 @@ def _weights_order(sub) -> List[str]:
     return sorted(sub, key=rank)
 
 
-def regularizer_unported(module, w_regularizer, b_regularizer) -> None:
-    """Raise if a layer is built with a per-layer regularizer."""
-    if w_regularizer is not None or b_regularizer is not None:
-        raise NotImplementedError(
-            f"{type(module).__name__}: w_regularizer/b_regularizer are not "
-            f"ported yet (ROADMAP queue A, item 10: regularizers)")
+def check_regularizers(module, w_regularizer, b_regularizer) -> None:
+    """Keep a layer's per-layer regularizers (``optim.regularizer``, or
+    any callable ``param -> penalty``); raise for anything else."""
+    for what, reg in (("w_regularizer", w_regularizer),
+                      ("b_regularizer", b_regularizer)):
+        if reg is not None and not callable(reg):
+            raise TypeError(f"{type(module).__name__}: {what} must be a "
+                            f"callable param -> penalty, got {reg!r}")
+    module.w_regularizer = w_regularizer
+    module.b_regularizer = b_regularizer
 
 
 class Module(torch.nn.Module):
@@ -96,6 +100,11 @@ class Module(torch.nn.Module):
     # reference's ``set_init_method``): None takes the layer's default
     weight_init = None
     bias_init = None
+    # per-layer penalties summed by ``regularization_loss`` (set by the
+    # layers that take ``w_regularizer`` / ``b_regularizer``)
+    w_regularizer = None
+    b_regularizer = None
+    _frozen = False
 
     def __init__(self, name: Optional[str] = None):
         super().__init__()
@@ -151,9 +160,54 @@ class Module(torch.nn.Module):
                     t, requires_grad=old.requires_grad)
 
     def regularization_loss(self, params):
-        """The per-layer regularizers' penalty: 0, since a layer built with
-        one raises (ROADMAP queue A, item 10)."""
-        return 0.0
+        """The sum of the per-layer regularizers' penalties on ``params``
+        (``w_regularizer`` on a module's ``weight``, ``b_regularizer`` on
+        its ``bias``); 0.0 when no module has one."""
+        loss = 0.0
+        for m in self._ref_modules():
+            p = params.get(m.name)
+            if not p:
+                continue
+            if m.w_regularizer is not None and "weight" in p:
+                loss = loss + m.w_regularizer(p["weight"])
+            if m.b_regularizer is not None and "bias" in p:
+                loss = loss + m.b_regularizer(p["bias"])
+        return loss
+
+    # -- freezing (Layer.freeze) ---------------------------------------- #
+    def freeze(self, names=None) -> "Module":
+        """Mark this module, or the named submodules and everything under
+        them, non-trainable: the training steps zero their gradients
+        (``optim.optimizer.mask_frozen_grads``), per-layer regularizers'
+        included.  An optimization method's ``weight_decay`` still applies
+        to every parameter, so prefer layer regularizers when freezing."""
+        if names is None:
+            for m in self._ref_modules():
+                m._frozen = True
+            return self
+        wanted, hit = set(names), set()
+        for m in self._ref_modules():
+            if m.name in wanted:
+                hit.add(m.name)
+                for sub in m._ref_modules():
+                    sub._frozen = True
+        missing = wanted - hit
+        if missing:
+            raise ValueError(f"freeze: no submodule named {missing}")
+        return self
+
+    def unfreeze(self, names=None) -> "Module":
+        """Undo :meth:`freeze` for this module or the named submodules."""
+        wanted = None if names is None else set(names)
+        for m in self._ref_modules():
+            if wanted is None or m.name in wanted:
+                for sub in m._ref_modules():
+                    sub._frozen = False
+        return self
+
+    def frozen_param_names(self) -> set:
+        """Names of the modules whose parameters must not update."""
+        return {m.name for m in self._ref_modules() if m._frozen}
 
     # -- weights as a flat list (pyspark Layer.get_weights) -------------- #
     def get_weights(self) -> List[torch.Tensor]:

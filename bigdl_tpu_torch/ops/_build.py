@@ -16,6 +16,12 @@ library.
 Each wrapper counts its launches here, one count per kernel name
 (:func:`count_launch`), so that a run can show which kernels its main
 path went through.
+
+The port's native host runtime (``bigdl_tpu_torch/native/src/*.cpp``:
+crc32c, the prefetching record ring, batched image prep) is built by the
+same machinery with ``g++`` into ``build/native/``
+(:func:`build_native`), one library over the three sources, named after
+their hash and the flags.
 """
 from __future__ import annotations
 
@@ -26,10 +32,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NATIVE_SRC = Path(__file__).resolve().parent.parent / "native" / "src"
+NATIVE_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+NATIVE_SOURCES = ("crc32c", "prefetch", "imageprep")
+CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-pthread", "-shared")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # fused_adam, fused_sgd: no FMA contraction, so that every multiply and add
@@ -87,25 +97,32 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    """Start ``nvcc`` for ``csrc/<name>.cu`` unless its library exists;
-    returns ``(target, process or None)``."""
-    out = _target(name)
-    if out.exists():
-        return out, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _spawn(out: Path, compiler: list, sources: list):
+    """Start ``compiler -o <tmp> sources`` with its output in a ``.log``
+    beside ``out``; returns the job :func:`_finish` completes."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [*compiler, "-o", str(tmp), *map(str, sources)]
     log = open(out.with_suffix(".log"), "w")
     try:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
     except OSError:
         log.close()
         raise
-    return out, (proc, tmp, log)
+    return proc, tmp, log
 
 
-def _finish(name: str, out: Path, job) -> None:
+def _start(name: str):
+    """Start ``nvcc`` for ``csrc/<name>.cu`` unless its library exists;
+    returns ``(target, job or None)``."""
+    out = _target(name)
+    if out.exists():
+        return out, None
+    return out, _spawn(out, [_nvcc(), *_flags(name)],
+                       [CSRC / f"{name}.cu"])
+
+
+def _finish(what: str, out: Path, job) -> None:
     if job is None:
         return
     proc, tmp, log = job
@@ -115,8 +132,7 @@ def _finish(name: str, out: Path, job) -> None:
         log.close()
     if rc != 0:
         tail = out.with_suffix(".log").read_text()[-4000:]
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu (rc={rc}):\n"
-                           f"{tail}")
+        raise RuntimeError(f"{what} failed (rc={rc}):\n{tail}")
     os.replace(tmp, out)
 
 
@@ -127,7 +143,7 @@ def build_all(names: Iterable[str]) -> Dict[str, Path]:
     with _lock:
         jobs = {n: _start(n) for n in names}
         for n, (out, job) in jobs.items():
-            _finish(n, out, job)
+            _finish(f"nvcc for csrc/{n}.cu", out, job)
     return {n: out for n, (out, _) in jobs.items()}
 
 
@@ -137,7 +153,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             out, job = _start(name)
-            _finish(name, out, job)
+            _finish(f"nvcc for csrc/{name}.cu", out, job)
             lib = _libs[name] = ctypes.CDLL(str(out))
         return lib
 
@@ -147,3 +163,35 @@ def build_log(name: str) -> str:
     the library was already there)."""
     log = _target(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def native_target() -> Path:
+    """The native runtime's library: its name hashes the sources and
+    :data:`CXX_FLAGS`."""
+    h = hashlib.sha256()
+    for name in NATIVE_SOURCES:
+        h.update(name.encode() + b"\0"
+                 + (NATIVE_SRC / f"{name}.cpp").read_bytes())
+    h.update("\0".join(CXX_FLAGS).encode())
+    return NATIVE_DIR / f"libbigdl_torch_rt_{h.hexdigest()[:16]}.so"
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the port's native runtime is "
+                           "built from source at first use")
+    return found
+
+
+def build_native() -> Path:
+    """Compile ``native/src/*.cpp`` with ``g++`` unless the library
+    exists; returns its path.  A failed build raises: the port has no
+    Python stand-in for its native runtime."""
+    out = native_target()
+    with _lock:
+        if not out.exists():
+            job = _spawn(out, [_gxx(), *CXX_FLAGS],
+                         [NATIVE_SRC / f"{n}.cpp" for n in NATIVE_SOURCES])
+            _finish("g++ for native/src", out, job)
+    return out

@@ -1,12 +1,17 @@
 """Optimization of the port (≙ ``bigdl_tpu/optim``): the optimization
-methods, learning-rate schedules, triggers, gradient accumulation, the
-``LocalOptimizer`` and ``DistriOptimizer`` loops, validation methods and
-the ``Predictor`` and ``Evaluator`` entry points."""
+methods, learning-rate schedules, regularizers, triggers, gradient
+accumulation and clipping, the ``LocalOptimizer`` and ``DistriOptimizer``
+loops, validation methods and the ``Predictor`` and ``Evaluator`` entry
+points."""
 from .distri_optimizer import DistriOptimizer
-from .lr_schedule import Default, LearningRateSchedule
+from .lr_schedule import (Default, EpochDecay, EpochStep, Exponential,
+                          LearningRateSchedule, MultiStep, NaturalExp,
+                          Plateau, Poly, SequentialSchedule, Step, Warmup)
 from .optim_method import SGD, Adam, AdamW, OptimMethod
 from .optimizer import (LocalOptimizer, Optimizer, TrainingState,
-                        make_accum_grads, make_eval_step, make_train_step)
+                        make_accum_grads, make_accum_train_step,
+                        make_eval_step, make_train_step, mask_frozen_grads)
+from .regularizer import L1L2Regularizer, L1Regularizer, L2Regularizer
 from .predictor import Evaluator, LocalPredictor, Predictor
 from .trigger import Trigger
 from .validation import (MAE, NDCG, AccuracyResult, ContiguousResult,
@@ -14,9 +19,13 @@ from .validation import (MAE, NDCG, AccuracyResult, ContiguousResult,
                          Top5Accuracy, ValidationMethod, ValidationResult)
 
 __all__ = ["AccuracyResult", "Adam", "AdamW", "ContiguousResult", "Default",
-           "DistriOptimizer", "Evaluator", "HitRatio", "LearningRateSchedule",
-           "LocalOptimizer", "LocalPredictor", "Loss", "LossResult", "MAE",
-           "NDCG", "OptimMethod", "Optimizer", "Predictor", "SGD",
+           "DistriOptimizer", "EpochDecay", "EpochStep", "Evaluator",
+           "Exponential", "HitRatio", "L1L2Regularizer", "L1Regularizer",
+           "L2Regularizer", "LearningRateSchedule", "LocalOptimizer",
+           "LocalPredictor", "Loss", "LossResult", "MAE", "MultiStep",
+           "NDCG", "NaturalExp", "OptimMethod", "Optimizer", "Plateau",
+           "Poly", "Predictor", "SGD", "SequentialSchedule", "Step",
            "Top1Accuracy", "Top5Accuracy", "TrainingState", "Trigger",
-           "ValidationMethod", "ValidationResult", "make_accum_grads",
-           "make_eval_step", "make_train_step"]
+           "ValidationMethod", "ValidationResult", "Warmup",
+           "make_accum_grads", "make_accum_train_step", "make_eval_step",
+           "make_train_step", "mask_frozen_grads"]

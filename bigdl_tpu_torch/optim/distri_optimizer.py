@@ -24,7 +24,14 @@ The loss and the batch-norm running statistics are averaged over dp
 on a shallow copy of the method with ``fused=True``: K5/K6 for SGD, K4
 for Adam(W), on the shard buffers under zero1 and fsdp.  The host loop
 (triggers, validation, prefetch, mixed precision) is ``Optimizer``'s.
-Gradient clipping and accumulation are not ported (their setters raise).
+
+Gradient accumulation runs on each rank over its own block before the
+exchange (one exchange a step, whatever ``n_accum`` is).  Clipping by
+norm takes the global norm: the replicated gradients' under dp, the
+shards' squares summed over the ranks plus the replicated leaves' once
+under fsdp, every shard-space leaf's summed over the ranks under zero1.
+A device augmentation runs on each rank's own rows, drawing from a
+generator of the rank's own (``seed + 13 + 1000003 · rank``).
 """
 from __future__ import annotations
 
@@ -105,12 +112,21 @@ class DistriOptimizer(Optimizer):
         if self.zero1:
             self._z1 = Zero1Layout(params, self.n_dp,
                                    bucket_bytes=self.bucket_bytes)
-            optim = Zero1Optim(optim, self._z1, self.mesh, self.recorder)
+            # every shard-space leaf is 1/n of a global tensor
+            optim = Zero1Optim(self._clip(optim, self.mesh.group), self._z1,
+                               self.mesh, self.recorder)
         elif self.fsdp:
             self._shardable = shardable_mask_dim0(params, self.n_dp)
-        elif self.bucket_bytes:
-            self._bucketer = GradBucketer(params, self.bucket_bytes)
+            optim = self._clip(optim, self.mesh.group, self._shardable)
+        else:
+            if self.bucket_bytes:
+                self._bucketer = GradBucketer(params, self.bucket_bytes)
+            optim = self._clip(optim)      # replicated after the exchange
         return optim
+
+    def _generator(self):
+        return torch.Generator(device=self.device).manual_seed(
+            self.seed + 13 + 1000003 * self.mesh.rank)
 
     def _layout_params(self, params):
         if not self.fsdp:
@@ -161,7 +177,8 @@ class DistriOptimizer(Optimizer):
                                            recorder=rec)
         core = make_train_step(self.model, self.criterion, optim,
                                self.mixed_precision, gather=gather,
-                               exchange=exchange, pmean=self._pmean)
+                               exchange=exchange, pmean=self._pmean,
+                               **self._step_options())
 
         def step(params, opt_state, model_state, x, y):
             reset_step(rec)

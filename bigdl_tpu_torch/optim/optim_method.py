@@ -35,7 +35,7 @@ import torch
 from ..kernels.fused_optim import (fused_adam_update,
                                    fused_adam_update_plain, fused_sgd_update,
                                    fused_sgd_update_plain, zip_leaves)
-from .lr_schedule import Default
+from .lr_schedule import Default, _fill
 
 
 def _tmap(f, tree):
@@ -67,9 +67,9 @@ class OptimMethod:
 def _current_lr(method, state):
     """``rate(step) / (1 + step * lr_decay)``: an fp32 device scalar."""
     step = state["step"]
-    # a fill on the device, not a copy of a host value: no host sync
-    rate = torch.full((), method.schedule.rate(method, step),
-                      dtype=torch.float32, device=step.device)
+    # a device tensor as the schedule computed it, or a host float filled
+    # on the device (not copied from the host): no host sync
+    rate = _fill(method.schedule.rate(method, step), step)
     return rate / (1.0 + step * method.lr_decay)
 
 
@@ -77,16 +77,16 @@ class SGD(OptimMethod):
     """optim/SGD.scala: learning-rate schedule and per-step decay, weight
     decay, momentum with dampening (which defaults to ``momentum``, not to
     0 as in ``torch.optim.SGD``) and Nesterov.  The velocity starts at 0
-    and exists only when ``momentum > 0``."""
+    and exists only when ``momentum > 0``.
+
+    ``learning_rates`` and ``weight_decays`` (the reference's per-parameter
+    tensors) are accepted as the reference accepts them: it stores
+    neither and does not use them, and so the port does the same."""
 
     def __init__(self, learning_rate=1e-3, learning_rate_decay=0.0,
                  weight_decay=0.0, momentum=0.0, dampening=None,
                  nesterov=False, learning_rate_schedule=None,
                  learning_rates=None, weight_decays=None, fused=False):
-        if learning_rates is not None or weight_decays is not None:
-            raise NotImplementedError(
-                "SGD: per-parameter learning_rates / weight_decays are not "
-                "ported yet (ROADMAP queue A, item 10)")
         self.lr = learning_rate
         self.lr_decay = learning_rate_decay
         self.weight_decay = weight_decay

@@ -1,6 +1,6 @@
 """The training loop (≙ ``bigdl_tpu/optim/optimizer.py``): the train
-and eval steps, gradient accumulation and the ``Optimizer`` /
-``LocalOptimizer`` host loop.
+and eval steps, gradient accumulation, clipping, frozen gradients and the
+``Optimizer`` / ``LocalOptimizer`` host loop.
 
 The reference's step is functional: ``jax.value_and_grad`` of a loss of
 the params, jitted with its buffers donated.  Here the step runs eagerly
@@ -16,12 +16,17 @@ The loss stays on the device until the epoch ends.  ``set_mixed_precision``
 runs the step on bf16 inputs over fp32 parameters; ``set_prefetch`` stages
 batches ahead on a background thread (``data.device_loader``: pinned
 buffers, a side stream, an event the step waits on); ``set_validation``
-evaluates ``ValidationMethod`` s when its trigger fires.  A live
-train→serve weight stream attaches with ``set_weight_stream``.  Not
-ported yet (ROADMAP queue A, item 10): checkpoints, summaries, telemetry
-and health, retries, the trace context, device augment, gradient
-accumulation in the loop, clipping, regularizers and ``freeze``; each
-``set_*`` of those raises.
+evaluates ``ValidationMethod`` s when its trigger fires;
+``set_device_augment`` runs a crop / flip / normalize on the device in
+the step (uint8 on the wire), drawing from the loop's generator, which
+``seed`` seeds; ``set_gradient_accumulation`` splits each batch into
+microbatches for one update; ``set_gradient_clipping_by_l2_norm`` and
+``set_constant_gradient_clipping`` clip the gradients before the update;
+``Module.freeze`` zeroes the frozen modules' gradients; a ``Plateau``
+schedule reads the epoch's score at each epoch's end.  A live train→serve
+weight stream attaches with ``set_weight_stream``.  Not ported yet
+(ROADMAP queue A): checkpoints, summaries, telemetry and health, retries
+and the trace context; each ``set_*`` of those raises.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from ..data.device_loader import DeviceLoader, HostToDevice
 from ..kernels.fused_optim import zip_leaves
 from ..nn.module import Ctx
 from ..observability.recorder import Recorder
+from ..parallel.allreduce import tree_leaves, tree_map
 from .optim_method import SGD, OptimMethod
 from .trigger import Trigger, _EveryEpoch, _MaxEpoch
 
@@ -124,6 +130,31 @@ def make_accum_grads(loss_fn, n_accum: int, weight_fn=None):
     return grads_fn
 
 
+def mask_frozen_grads(model, grads):
+    """``grads`` with the gradients of the modules frozen by
+    ``Module.freeze`` replaced by zeros."""
+    frozen = model.frozen_param_names()
+    if not frozen:
+        return grads
+    return {name: ({k: torch.zeros_like(g) for k, g in sub.items()}
+                   if name in frozen else sub)
+            for name, sub in grads.items()}
+
+
+def _add_regularization(model, params, loss, grads):
+    """``(loss + reg, grads + d reg / d params)`` for the model's per-layer
+    regularizers: the accumulated step adds them once, outside the
+    microbatch loop, as the reference does."""
+    reg = model.regularization_loss(params)
+    if not isinstance(reg, torch.Tensor):
+        return loss, grads
+    leaves = [p for (p,) in zip_leaves(params)]
+    reg_grads = torch.autograd.grad(reg, leaves, allow_unused=True)
+    flat = [g if r is None else g + r
+            for (g,), r in zip(zip_leaves(grads), reg_grads)]
+    return loss + reg.detach(), _unflatten(params, flat)
+
+
 def to_bf16(x):
     """``x`` (a tensor, or a tuple or list of them) with every floating
     tensor cast to bf16: the mixed-precision step's input cast."""
@@ -139,15 +170,17 @@ def _identity(tree):
 
 
 def make_train_step(model, criterion, optim_method: OptimMethod,
-                    mixed_precision: bool = False, *, gather=_identity,
+                    mixed_precision: bool = False, *, n_accum: int = 1,
+                    device_augment=None, generator=None, gather=_identity,
                     exchange=_identity, pmean=_identity):
     """The train step ``step(params, opt_state, model_state, x, y) ->
     (params, opt_state, model_state, loss)``: the forward in training mode,
     ``criterion.loss`` on the fp32 output plus the side losses and
     ``model.regularization_loss``, the gradients over the param dict's
-    leaves, and ``optim_method.update`` (in place).  The returned model
-    state is ``model_state`` with the forward's new state merged in; the
-    loss is a device tensor.
+    leaves (the frozen modules' zeroed, :func:`mask_frozen_grads`), and
+    ``optim_method.update`` (in place).  The returned model state is
+    ``model_state`` with the forward's new state merged in; the loss is a
+    device tensor.
 
     ``mixed_precision``: the floating inputs are cast to bf16 and every
     layer casts its fp32 weights to the input's dtype, so the forward and
@@ -155,23 +188,37 @@ def make_train_step(model, criterion, optim_method: OptimMethod,
     criterion.  The parameters, their gradients and the optimizer state
     stay fp32 (the reference's ``make_train_step(mixed_precision=True)``).
 
+    ``device_augment(x, generator)`` (a
+    :class:`~bigdl_tpu_torch.data.device_augment.DeviceAugment`) runs on
+    the batch first, drawing from ``generator``.  ``n_accum`` > 1 splits
+    the batch into that many microbatches (:func:`make_accum_grads`) for
+    one update on their mean gradient; the regularizers' loss and
+    gradient are then added once, outside the loop
+    (:func:`make_accum_train_step`).
+
     The data-parallel hooks (``DistriOptimizer``'s; the identity by
     default): ``gather(params)`` gives the parameters the forward runs
     on (fsdp's all-gather of its shards), ``exchange(grads)`` the
     gradients ``optim_method.update`` takes (their mean over the ranks,
     or this rank's shards of it), and ``pmean`` averages the loss and the
-    forward's new state over the ranks.
+    forward's new state over the ranks.  Accumulation runs before the
+    exchange: one exchange a step, whatever ``n_accum`` is.
     """
-    loss_fn = make_loss_fn(model, criterion)
+    grads_fn = make_accum_grads(
+        make_loss_fn(model, criterion, regularize=n_accum < 2), n_accum)
 
     def step(params, opt_state, model_state, x, y):
+        if device_augment is not None:
+            x = device_augment(x, generator)
         if mixed_precision:
             x = to_bf16(x)
         full = gather(params)
-        (loss, updates), grads = _value_and_grad(loss_fn, full,
-                                                 model_state, x, y)
-        params, opt_state = optim_method.update(
-            exchange(_unflatten(full, grads)), params, opt_state)
+        (loss, updates), grads = grads_fn(full, model_state, x, y)
+        if n_accum >= 2:
+            loss, grads = _add_regularization(model, full, loss, grads)
+        grads = mask_frozen_grads(model, grads)
+        params, opt_state = optim_method.update(exchange(grads), params,
+                                                opt_state)
         merged = dict(model_state)
         merged.update(pmean(updates))
         return params, opt_state, merged, pmean(loss)
@@ -179,10 +226,21 @@ def make_train_step(model, criterion, optim_method: OptimMethod,
     return step
 
 
-def make_loss_fn(model, criterion):
+def make_accum_train_step(model, criterion, optim_method: OptimMethod,
+                          n_accum: int, mixed_precision: bool = False,
+                          device_augment=None, generator=None):
+    """The gradient-accumulation step (≙ the reference's
+    ``make_accum_train_step``): :func:`make_train_step` with ``n_accum``
+    microbatches a batch and one update on their mean gradient."""
+    return make_train_step(model, criterion, optim_method, mixed_precision,
+                           n_accum=n_accum, device_augment=device_augment,
+                           generator=generator)
+
+
+def make_loss_fn(model, criterion, regularize: bool = True):
     """``loss_fn(params, model_state, x, y) -> (loss, new_state)``: the
     training-mode forward, the criterion on the fp32 output, the side
-    losses and the regularization loss."""
+    losses and (with ``regularize``) the regularization loss."""
 
     def loss_fn(params, model_state, x, y):
         ctx = Ctx(state=model_state, training=True)
@@ -192,22 +250,88 @@ def make_loss_fn(model, criterion):
         loss = criterion.loss(out, y)
         for sl in ctx.side_losses:
             loss = loss + sl
-        loss = loss + model.regularization_loss(params)
+        if regularize:
+            loss = loss + model.regularization_loss(params)
         return loss, ctx.new_state
 
     return loss_fn
 
 
-def make_eval_step(model):
+def make_eval_step(model, device_augment=None):
     """``step(params, model_state, x) -> output``: the forward in
     inference mode (running statistics), without autograd, on the inputs
-    as given (validation does not cast to bf16, as in the reference)."""
+    as given (validation does not cast to bf16, as in the reference), or
+    as ``device_augment`` gives them in eval mode (its center crop and
+    normalization)."""
 
     @torch.no_grad()
     def step(params, model_state, x):
+        if device_augment is not None:
+            x = device_augment(x, None, training=False)
         return model.apply(params, x, Ctx(state=model_state,
                                           training=False))
     return step
+
+
+class _ClippedOptim(OptimMethod):
+    """Gradient clipping around an optimization method (≙ the
+    reference's ``_ClippedOptim``, Optimizer.setGradientClipping*):
+    ``clip_const = (lo, hi)`` clamps every element, then ``clip_norm``
+    scales the gradients by ``min(1, clip_norm / max(‖g‖₂, 1e-12))``.  The
+    norm and the scale are fp32 device scalars (no host sync), and the
+    scaled gradients are what the inner update (K5/K6/K4 when fused)
+    reads.
+
+    Under data parallelism the norm is the global one: with ``group``,
+    the squares of the leaves that ``sharded_mask`` marks (every leaf
+    when it is None: zero1's shard space) are summed over the ranks and
+    the replicated leaves counted once (fsdp).  :attr:`last_norm` is the
+    last update's norm before clipping."""
+
+    def __init__(self, inner, clip_norm=None, clip_const=None, group=None,
+                 sharded_mask=None):
+        self.inner = inner
+        self.clip_norm = clip_norm
+        self.clip_const = clip_const
+        self.group = group
+        self.sharded_mask = sharded_mask
+        self.last_norm = None
+
+    def init_state(self, params):
+        return self.inner.init_state(params)
+
+    def get_learning_rate(self, state):
+        return self.inner.get_learning_rate(state)
+
+    def _sum_sq(self, grads):
+        """Σ g² over the leaves in fp32, over the ranks as the class
+        docstring says."""
+        leaves = tree_leaves(grads)
+        mask = [True] * len(leaves) if self.sharded_mask is None \
+            else tree_leaves(self.sharded_mask)
+        zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        sharded, replicated = (
+            sum((torch.sum(g.float() ** 2) for g, m in zip(leaves, mask)
+                 if m == want), zero) for want in (True, False))
+        if self.group is not None:
+            import torch.distributed as dist
+            sharded = sharded.reshape(1)
+            dist.all_reduce(sharded, group=self.group)
+            sharded = sharded.reshape(())
+        return sharded + replicated
+
+    def update(self, grads, params, state):
+        if self.clip_const is not None:
+            lo, hi = self.clip_const
+            grads = tree_map(lambda g: torch.clamp(g, lo, hi), grads)
+        if self.clip_norm is not None:
+            total = torch.sqrt(self._sum_sq(grads))
+            self.last_norm = total
+            scale = torch.clamp(self.clip_norm / torch.clamp(total,
+                                                             min=1e-12),
+                                max=1.0)
+            grads = tree_map(lambda g: g * scale, grads)
+        return self.inner.update(grads, params, state)
 
 
 def evaluate(step, params, model_state, dataset: DataSet, methods, device):
@@ -234,15 +358,11 @@ _UNPORTED_SETTERS = {
     "set_checkpoint": "checkpointing",
     "set_train_summary": "training summaries",
     "set_val_summary": "validation summaries",
-    "set_gradient_accumulation": "gradient accumulation in the loop",
-    "set_device_augment": "device-side augmentation",
     "set_telemetry": "telemetry",
     "set_trace_context": "the trace context",
     "set_trace_every": "profiler traces",
     "set_health": "training health",
     "set_auto_retry": "retries",
-    "set_gradient_clipping_by_l2_norm": "gradient clipping",
-    "set_constant_gradient_clipping": "gradient clipping",
 }
 
 
@@ -256,10 +376,13 @@ class Optimizer:
 
     :meth:`optimize` trains the model's current parameters (in place) and
     its current batch-norm state (written back at the end); it does not
-    redraw them.  ``seed`` other than 0 raises: the reference's seed draws
-    the initial parameters (here the model's own are taken) and the steps'
-    random keys (no ported layer draws any).  :attr:`recorder` takes the
-    ``dataloader/*`` counters under prefetch."""
+    redraw them.  ``seed`` seeds the loop's device generator, a new
+    ``torch.Generator`` on the device at each :meth:`optimize` seeded with
+    ``seed + 13`` (≙ the reference's ``PRNGKey(seed + 13)``), which the
+    device augmentation draws from; the reference's seed also draws the
+    initial parameters, where the port takes the model's own
+    (``build(seed=)``).  :attr:`recorder` takes the ``dataloader/*``
+    counters under prefetch."""
 
     def __init__(self, model, training_set, criterion,
                  batch_size: Optional[int] = None, seed: int = 0, *,
@@ -269,12 +392,6 @@ class Optimizer:
             if batch_size is None:
                 raise ValueError("batch_size required for array data")
             training_set = DataSet.minibatch_arrays(x, y, batch_size)
-        if seed != 0:
-            raise NotImplementedError(
-                f"{type(self).__name__}: seed={seed!r} seeds nothing yet: "
-                f"the parameters are the model's own (build(seed=)) and no "
-                f"ported layer draws random numbers in a step (ROADMAP "
-                f"queue A, item 10)")
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -285,8 +402,13 @@ class Optimizer:
         self.optim_method: OptimMethod = SGD()
         self.end_when: Trigger = Trigger.max_epoch(1)
         self.state = TrainingState()
+        self.seed = int(seed)
         self.mixed_precision = False
         self.prefetch_depth = 0
+        self._grad_accum = 1
+        self._grad_clip_norm = None
+        self._grad_clip_const = None
+        self._device_augment = None
         self.val_trigger: Optional[Trigger] = None
         self.val_dataset: Optional[DataSet] = None
         self.val_methods = None
@@ -324,6 +446,39 @@ class Optimizer:
         self.prefetch_depth = int(depth)
         return self
 
+    def set_gradient_accumulation(self, n_accum: int):
+        """Split each batch into ``n_accum`` microbatches and apply one
+        update on their mean gradient (:func:`make_accum_train_step`); the
+        batch (under ``DistriOptimizer`` each rank's block) must divide by
+        ``n_accum``."""
+        if n_accum < 1:
+            raise ValueError("n_accum must be >= 1")
+        self._grad_accum = int(n_accum)
+        return self
+
+    def set_gradient_clipping_by_l2_norm(self, clip_norm):
+        """Scale the gradients to a global L2 norm of at most
+        ``clip_norm`` before each update (:class:`_ClippedOptim`)."""
+        self._grad_clip_norm = clip_norm
+        return self
+
+    def set_constant_gradient_clipping(self, min_v, max_v):
+        """Clamp every gradient element to ``[min_v, max_v]`` before each
+        update (:class:`_ClippedOptim`)."""
+        self._grad_clip_const = (min_v, max_v)
+        return self
+
+    def set_device_augment(self, augment):
+        """Run ``augment`` (a
+        :class:`~bigdl_tpu_torch.data.device_augment.DeviceAugment`, or
+        any ``(x, generator, training) -> x`` callable) on each batch on
+        the device: in the train step with the loop's generator, and in
+        validation in eval mode (its center crop).  The host then ships
+        raw uint8 batches.  Takes effect at the next :meth:`optimize`."""
+        self._device_augment = augment
+        self._eval_step = None        # the cached one ran the old augment
+        return self
+
     def set_validation(self, trigger, dataset, methods, batch_size=None):
         """Evaluate ``methods`` over ``dataset`` (a DataSet, or an
         ``(x, y)`` pair cut into batches of ``batch_size``, 128 by
@@ -352,12 +507,33 @@ class Optimizer:
         return self
 
     # -- hooks overridden by DistriOptimizer ----------------------------- #
+    def _clip(self, optim, group=None, sharded_mask=None):
+        """``optim`` behind the clipping wrapper, when clipping is set."""
+        if self._grad_clip_norm is None and self._grad_clip_const is None:
+            return optim
+        return _ClippedOptim(optim, self._grad_clip_norm,
+                             self._grad_clip_const, group, sharded_mask)
+
     def _wrap_optim(self, params):
-        return self.optim_method
+        return self._clip(self.optim_method)
+
+    def _generator(self):
+        """The loop's device generator, seeded with ``seed + 13``."""
+        return torch.Generator(device=self.device).manual_seed(
+            self.seed + 13)
 
     def _build_step(self, optim):
         return make_train_step(self.model, self.criterion, optim,
-                               self.mixed_precision)
+                               self.mixed_precision,
+                               **self._step_options())
+
+    def _step_options(self) -> dict:
+        """The step's accumulation and augmentation (with a new loop
+        generator)."""
+        return dict(n_accum=self._grad_accum,
+                    device_augment=self._device_augment,
+                    generator=None if self._device_augment is None
+                    else self._generator())
 
     def _layout_params(self, params):
         return params
@@ -384,7 +560,8 @@ class Optimizer:
         if self.val_dataset is None or not self.val_methods:
             return None
         if self._eval_step is None:      # built once per optimizer
-            self._eval_step = make_eval_step(self.model)
+            self._eval_step = make_eval_step(self.model,
+                                             self._device_augment)
         named = evaluate(self._eval_step, params, model_state,
                          self.val_dataset, self.val_methods, self.device)
         for method, res in named:
@@ -493,6 +670,13 @@ class Optimizer:
               f"{self._banner_suffix()})")
         if self.val_trigger is not None and self.val_trigger(st):
             self._validate(self._params_for_eval(params), model_state)
+        # a metric-driven schedule (Plateau) reads the epoch's score, or
+        # its loss without one; the step reads its factor at every step
+        sched = getattr(self.optim_method, "schedule", None)
+        if hasattr(sched, "on_epoch_end"):
+            metric = st.score if st.score is not None else st.loss
+            if metric is not None:
+                sched.on_epoch_end(float(metric))
         st.epoch += 1
         st.batch_in_epoch = 0
         if self.end_when(st):

@@ -170,11 +170,53 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 LocalOptimizer, H2D per step with and without prefetch,
                 the bf16 step's device time by class and under batch
                 norm's forward and backward, fsdp's device time beside
-                dp's, peak memory, busy share.
+                dp's, peak memory, busy share.  Also measured, changing
+                nothing: cuDNN's training BN (``F.batch_norm``, bf16 input,
+                fp32 statistics) against ``_BNTrain``, forward plus
+                backward by CUDA events at ResNet-50's 53 BN shapes at
+                b256, each with its error against the fp32 formula.
+  9. recipe   — BigDL's ImageNet recipe from records on disk: 2048 training
+                records (4 files) and 512 held out (1 file), each a 4-byte
+                little-endian 1-based label and 256x256x3 uint8 BGR
+                pixels from a seeded generator (labels 1..16, each with a
+                stripe of its own), written to a temporary directory; the
+                port's native runtime built by g++ from its own sources.
+                Checks: the ring returns the plain reader's multiset of
+                records; ``prepare_image_batch`` equals its plain version
+                bitwise; ``DeviceAugment`` at the host transformers' draws
+                equals BGRImgCropper -> HFlip -> BGRImgNormalizer bitwise
+                (fp32, and bf16 as one rounding of it).  The same
+                ResNet-50 (seed 0, an L2Regularizer(1e-4) on its Linear)
+                through ``DistriOptimizer(mesh=create_mesh({"dp": 1}),
+                fused_optim=True)`` over NCCL on ``FileRecordDataSet(...,
+                n_workers=2) >> SampleToMiniBatch(256)`` (uint8 on the
+                wire), ``set_prefetch(2)``, ``set_mixed_precision()``,
+                ``set_device_augment(DeviceAugment(crop=(224, 224),
+                flip=True, BGR mean/std, NHWC, bf16))``, ``SGD(0.1,
+                momentum=0.9, weight_decay=1e-4)`` under
+                ``SequentialSchedule(Warmup(0.0125), Poly(0.5, 8))``,
+                clipping by the median norm of an unclipped epoch, and
+                validation every epoch, for 2 epochs (16 steps), counted
+                from 0: K5 once a step, each record once an epoch, each
+                step's rate on the device equal to the closed form, the
+                clipped norm <= c where clipping fired and the gradients
+                untouched where it did not (both must happen), the loss
+                finite and falling, validation (half the held-out labels
+                the model's own classes) equal to ``Evaluator.test``.  One
+                epoch with one worker, fused and plain, bitwise; 4 steps
+                of accumulation 2 x 128 with the first stage frozen
+                (bitwise unchanged, K5 once a step).  Readings: step
+                median and images/s beside ``phase_distri``'s prefetch
+                run, H2D of a uint8 and an fp32 batch, the host's ms a
+                batch (ring pop, decode, batching), the ring's records/s,
+                the native prep and the numpy chain a batch, the device's
+                time by class with the augmentation's share, busy share,
+                peak memory.
 
 Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"stream": {...}}`` line, a
 ``{"classifier": {...}}`` line, a ``{"distri": {...}}`` line, a
+``{"recipe": {...}}`` line, a
 ``{"host_sync": {...}}`` line, a
 ``{"kernels": [...]}`` line (all six
 kernels), the card's name and power limit as nvidia-smi gives them, and
@@ -1928,14 +1970,16 @@ def _syncs(fn) -> Optional[str]:
 
 
 def phase_host_sync() -> dict:
-    """One SGD.update (K5) and one AdamW.update (K4) on the card must make
-    no host sync: each runs under ``set_sync_debug_mode("error")`` after a
-    warm update.  The mode must catch a read of a device value
+    """One SGD.update (K5), one AdamW.update (K4) and one SGD.update under
+    ``SequentialSchedule(Warmup, Poly)`` behind clipping by L2 norm (the
+    recipe's) on the card must make no host sync: each runs under
+    ``set_sync_debug_mode("error")`` after a warm update.  The mode must catch a read of a device value
     (``.item()``), so that the check can see a sync at all; whether it
     also reports a device scalar made from a host float, as the updates
     built theirs before (``torch.as_tensor(rate, device=...)``), is
     logged."""
     from bigdl_tpu_torch.optim import SGD, AdamW
+    from bigdl_tpu_torch.optim.optimizer import _ClippedOptim
     g = torch.Generator(device="cuda").manual_seed(14)
 
     def tree():
@@ -1947,7 +1991,12 @@ def phase_host_sync() -> dict:
              SGD(learning_rate=0.1, momentum=0.9, weight_decay=1e-4,
                  fused=True)),
             ("AdamW(3e-4, fused=True)", AdamW(learning_rate=3e-4,
-                                              fused=True))):
+                                              fused=True)),
+            ("SGD(0.1, momentum=0.9, SequentialSchedule(Warmup, Poly), "
+             "fused=True) clipped by L2 norm 1.0",
+             _ClippedOptim(SGD(learning_rate=0.1, momentum=0.9, fused=True,
+                               learning_rate_schedule=_recipe_schedule()),
+                           clip_norm=1.0))):
         params, grads = tree(), tree()
         state = [method.init_state(params)]
         state[0] = method.update(grads, params, state[0])[1]
@@ -1963,7 +2012,7 @@ def phase_host_sync() -> dict:
         f"{out}")
     if out["control: .item() of a device value"] is None:
         raise AssertionError("set_sync_debug_mode did not report .item()")
-    bad = [k for k in list(out)[:2] if out[k] is not None]
+    bad = [k for k in list(out)[:3] if out[k] is not None]
     if bad:
         raise AssertionError(f"an optimizer update synchronizes the host: "
                              f"{ {k: out[k] for k in bad} }")
@@ -2493,6 +2542,83 @@ def _numpy_scores(logits, y, batch):
     return top1, top5, total / len(t)
 
 
+# ResNet-50's 53 training BNs at batch 256, NHWC: (H, W, C) -> count
+RESNET50_BN_SHAPES = {(112, 112, 64): 1, (56, 56, 64): 6, (56, 56, 256): 4,
+                      (56, 56, 128): 1, (28, 28, 128): 7, (28, 28, 512): 5,
+                      (28, 28, 256): 1, (14, 14, 256): 11,
+                      (14, 14, 1024): 7, (14, 14, 512): 1, (7, 7, 512): 5,
+                      (7, 7, 2048): 4}
+
+
+def _bn_fwd_bwd(kind, x, dy, gamma, beta):
+    """One training BN forward and backward of the NHWC bf16 ``x``:
+    ``_BNTrain`` (the port's, fp32 statistics and closed-form backward) or
+    cuDNN's through ``F.batch_norm`` (the same bf16 values as an NCHW
+    channels-last view, fp32 affine and running statistics).  Returns
+    (y, dx, dgamma, dbeta)."""
+    import torch.nn.functional as F
+    from bigdl_tpu_torch.nn.normalization import _BNTrain
+    xx = x.detach().requires_grad_()
+    gg, bb = gamma.detach().requires_grad_(), beta.detach().requires_grad_()
+    if kind == "bntrain":
+        y = _BNTrain.apply(xx, gg, bb, 3, 1e-5)[0]
+    else:
+        c = x.shape[-1]
+        rm = torch.zeros(c, device=x.device)
+        rv = torch.ones(c, device=x.device)
+        y = F.batch_norm(xx.permute(0, 3, 1, 2), rm, rv, gg, bb,
+                         training=True, momentum=0.1, eps=1e-5) \
+            .permute(0, 2, 3, 1)
+    return (y, *torch.autograd.grad(y, (xx, gg, bb), dy))
+
+
+def bn_cudnn_vs_bntrain(card: str) -> dict:
+    """cuDNN's training BN (``F.batch_norm``) against ``_BNTrain`` at
+    ResNet-50's BN shapes at batch 256 in bf16: forward plus backward by
+    CUDA events (median of 10 after 2 warm), summed over the 53 layers of
+    one step, and each one's max error against autograd through the fp32
+    formula (relative to the largest entry) at one shape.  Measures only:
+    the model keeps ``_BNTrain``."""
+    g = torch.Generator(device="cuda").manual_seed(23)
+    per_shape, totals = {}, {"bntrain": 0.0, "cudnn": 0.0}
+    for (h, w, c), count in RESNET50_BN_SHAPES.items():
+        shape = (256, h, w, c)
+        x = (torch.randn(shape, device="cuda", generator=g) * 2 + 1) \
+            .bfloat16()
+        dy = torch.randn(shape, device="cuda", generator=g).bfloat16()
+        gamma = torch.rand(c, device="cuda", generator=g) + 0.5
+        beta = torch.randn(c, device="cuda", generator=g)
+        row = {}
+        for kind in ("bntrain", "cudnn"):
+            row[kind] = cuda_ms(lambda: _bn_fwd_bwd(kind, x, dy, gamma, beta),
+                                iters=10, warm=2)
+            totals[kind] += row[kind] * count
+        per_shape[f"{h}x{w}x{c} x{count}"] = row
+        del x, dy
+    shape = (256, 28, 28, 512)
+    x = (torch.randn(shape, device="cuda", generator=g) * 2 + 1).bfloat16()
+    dy = torch.randn(shape, device="cuda", generator=g).bfloat16()
+    gamma = torch.rand(512, device="cuda", generator=g) + 0.5
+    beta = torch.randn(512, device="cuda", generator=g)
+    xf = x.float().requires_grad_()
+    gf, bf = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+    yf = _old_bn(xf, gf, bf, 3, 1e-5)[0]
+    ref = (yf, *torch.autograd.grad(yf, (xf, gf, bf), dy.float()))
+    errors = {}
+    for kind in ("bntrain", "cudnn"):
+        got = _bn_fwd_bwd(kind, x, dy, gamma, beta)
+        errors[kind] = {name: ((a.float() - b).abs().max()
+                               / b.abs().max()).item()
+                        for name, a, b in zip(("y", "dx", "dgamma", "dbeta"),
+                                              got, ref)}
+    out = {"ms_per_step": totals, "per_shape_ms": per_shape,
+           "rel_err_vs_fp32_formula_at_256x28x28x512": errors,
+           "layers": sum(RESNET50_BN_SHAPES.values()), "card": card}
+    log(f"BN, cuDNN against _BNTrain (bf16 b256, fwd+bwd): "
+        f"{json.dumps(out)}")
+    return out
+
+
 def phase_distri(card: str):
     """ResNet-50 at the reference's headline (bf16 mixed precision, batch
     256) through LocalOptimizer and DistriOptimizer at dp=1 over NCCL,
@@ -2522,9 +2648,16 @@ def phase_distri(card: str):
                 fails.append(f"BN {dtype} {shape} {name}: {err:.3e} > "
                              f"{limit:.3e}")
     log(f"BN against autograd through the fp32 formula: {json.dumps(bn)}")
+    bn_cudnn = bn_cudnn_vs_bntrain(card)
 
     model = resnet.build(class_num=1000, depth=50, dataset="imagenet",
                          format="NHWC", seed=0)
+    n_bn = sum(type(m).__name__ == "SpatialBatchNormalization"
+               for m in model.modules())
+    if n_bn != sum(RESNET50_BN_SHAPES.values()):
+        fails.append(f"the BN timing's table holds "
+                     f"{sum(RESNET50_BN_SHAPES.values())} layers, the model "
+                     f"{n_bn}")
     w0 = [w.clone() for w in model.get_weights()]
     s0 = [s.clone() for s in model.state_list()]
     n_leaves = len(w0)
@@ -2745,7 +2878,8 @@ def phase_distri(card: str):
                      "=1e-4), set_mixed_precision(), set_prefetch(2), "
                      "set_validation(every_epoch, 512 images, [Top1, Top5, "
                      "Loss]); NCCL at world size 1",
-           "bn": bn, "bf16_band": band, "validation": validation,
+           "bn": bn, "bn_cudnn": bn_cudnn, "bf16_band": band,
+           "validation": validation,
            "launches": main_launches, "readings": readings,
            "local": {k: {"losses": v["losses"], "launches": v["launches"]}
                      for k, v in runs.items()},
@@ -2755,6 +2889,631 @@ def phase_distri(card: str):
     log(f"distri: {json.dumps(out)}")
     if fails:
         raise AssertionError("distri phase: " + "; ".join(fails))
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phase_recipe: BigDL's ImageNet recipe from records on disk            #
+# --------------------------------------------------------------------- #
+RECIPE_TRAIN, RECIPE_VAL = 2048, 512          # records, in 4 and 1 files
+RECIPE_TRAIN_FILES = 4
+RECIPE_HW, RECIPE_CROP, RECIPE_BATCH = 256, 224, 256
+RECIPE_RECORD = 4 + RECIPE_HW * RECIPE_HW * 3   # LE int32 label + BGR u8
+RECIPE_CLASSES = 16             # labels 1..16, each with its own stripe
+RECIPE_EPOCHS = 2               # 8 steps an epoch
+# ImageNet's mean and std in 0..255 units, in the records' BGR order: the
+# model sees BGR, as the reference's OpenCV pipeline feeds it
+RECIPE_MEAN = (103.53, 116.28, 123.675)
+RECIPE_STD = (57.375, 57.12, 58.395)
+RECIPE_SGD = dict(learning_rate=0.1, momentum=0.9, weight_decay=1e-4)
+RECIPE_WARMUP = 0.0125          # 0.1 -> 0.1875 over the first 8 steps
+RECIPE_L2 = 1e-4                # on the classifier's Linear
+RECIPE_LR_REL = 1e-6            # device rate against the closed form
+RECIPE_CLIP_REL = 1e-6          # clipped norm <= c * (1 + this)
+RECIPE_ACCUM_STEPS = 4
+RECIPE_CLASSES_PROFILE = (("sgd_mom", "K5 fused_sgd_mom"),
+                          ("memcpy htod", "memcpy H2D"),
+                          ("memcpy", "memcpy, other"),
+                          ("index", "augment gather (crop)"),
+                          ("dgrad", "cuDNN conv backward"),
+                          ("wgrad", "cuDNN conv backward"),
+                          ("bprop", "cuDNN conv backward"),
+                          ("fprop", "cuDNN conv forward"),
+                          ("conv", "cuDNN conv, other"),
+                          ("gemm", "matmul (cuBLAS)"),
+                          ("nchw", "layout transposes"),
+                          ("nhwc", "layout transposes"),
+                          ("reduce", "reductions (BN statistics, norms)"),
+                          ("pool", "pooling"), ("nccl", "NCCL"),
+                          ("copy", "casts and copies"),
+                          ("elementwise", "elementwise"))
+
+
+def _recipe_schedule():
+    from bigdl_tpu_torch.optim import Poly, SequentialSchedule, Warmup
+    return SequentialSchedule(8).add(Warmup(RECIPE_WARMUP), 8) \
+        .add(Poly(0.5, 8), 8)
+
+
+def _recipe_rate(step: int) -> float:
+    """The schedule's closed form (float64): lr + δ·s for s < 8, then
+    lr·(1 − min((s − 8)/8, 1))^0.5."""
+    lr = RECIPE_SGD["learning_rate"]
+    if step < 8:
+        return lr + RECIPE_WARMUP * step
+    return lr * (1.0 - min((step - 8) / 8, 1.0)) ** 0.5
+
+
+def _write_recipe_records(d, n, n_files, seed, prefix):
+    """``n`` records of RECIPE_RECORD bytes in ``n_files`` files: a 1-based
+    label, then 256x256x3 uint8 pixels from a seeded generator with a
+    bright stripe whose rows and channel the label sets.  Returns the
+    paths and the labels in file order."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(1, RECIPE_CLASSES + 1, n).astype(np.int32)
+    per = n // n_files
+    paths = []
+    for f in range(n_files):
+        px = rng.integers(0, 256, (per, RECIPE_HW, RECIPE_HW, 3),
+                          dtype=np.uint8)
+        lab = labels[f * per:(f + 1) * per]
+        for i, c in enumerate(lab):
+            row = 16 + 14 * (int(c) - 1)
+            px[i, row:row + 10, :, int(c) % 3] = 255
+        rec = np.empty((per, RECIPE_RECORD), np.uint8)
+        rec[:, :4] = lab.astype("<i4").view(np.uint8).reshape(per, 4)
+        rec[:, 4:] = px.reshape(per, -1)
+        p = f"{d}/{prefix}{f}.bin"
+        rec.tofile(p)
+        paths.append(p)
+    return paths, labels
+
+
+def _recipe_decode(seen=None):
+    """Record bytes -> ``Sample(uint8 HWC, label)``; appends each label
+    to ``seen`` when given."""
+    from bigdl_tpu_torch.data import Sample
+
+    def decode(rec):
+        label = int(np.frombuffer(rec, "<i4", 1)[0])
+        if seen is not None:
+            seen.append(label)
+        px = np.frombuffer(rec, np.uint8, offset=4).reshape(
+            RECIPE_HW, RECIPE_HW, 3)
+        return Sample(px, np.float32(label))
+    return decode
+
+
+def _recipe_augment(dtype=None, out_format="NHWC"):
+    from bigdl_tpu_torch.data import DeviceAugment
+    return DeviceAugment(crop=(RECIPE_CROP, RECIPE_CROP), flip=True,
+                         mean=RECIPE_MEAN, std=RECIPE_STD,
+                         out_format=out_format,
+                         dtype=dtype or torch.bfloat16)
+
+
+class _Batches:
+    """A dataset over fixed MiniBatches (for ``Evaluator.test``)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def data(self, train=False, epoch=None):
+        return iter(self.batches)
+
+
+def _recipe_run(model, w0, s0, mesh, train_paths, *, epochs, workers=2,
+                fused=True, clip=None, val_ds=None, seen=None, accum=1,
+                freeze=None, weight_decay=RECIPE_SGD["weight_decay"],
+                probe=False, max_iter=None, profile_range=False):
+    """One run of the recipe from the weights ``w0`` and BN state ``s0``:
+    ``DistriOptimizer`` over ``mesh`` on the records through the native
+    ring (``workers`` threads) at batch 256, bf16, prefetch 2, the device
+    augment, ``SGD(0.1, momentum 0.9)`` under
+    ``SequentialSchedule(Warmup, Poly)``, an L2 regularizer on the
+    classifier and clipping by norm ``clip``.  Returns per-step losses,
+    step ms (CUDA events), K5 launches, the rate, pre-clip and post-clip
+    gradient norms the update saw each step (device scalars), and the
+    optimizer."""
+    from bigdl_tpu_torch.data import FileRecordDataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import (SGD, DistriOptimizer, Loss,
+                                       Top1Accuracy, Top5Accuracy, Trigger)
+    with torch.no_grad():
+        for dst, src in zip(model.get_weights() + model.state_list(),
+                            w0 + s0):
+            dst.copy_(src)
+    model.unfreeze()
+    if freeze is not None:
+        model.freeze(freeze)
+    ds = FileRecordDataSet(train_paths, RECIPE_RECORD, _recipe_decode(seen),
+                           n_workers=workers) >> SampleToMiniBatch(
+                               RECIPE_BATCH)
+    aug = _recipe_augment()
+    if profile_range:
+        plain_aug = aug
+
+        def aug(x, gen=None, training=True):
+            with torch.profiler.record_function("DeviceAugment"):
+                return plain_aug(x, gen, training)
+    opt = (DistriOptimizer(model, ds, ClassNLLCriterion(), mesh=mesh,
+                           fused_optim=fused)
+           .set_optim_method(SGD(learning_rate_schedule=_recipe_schedule(),
+                                 **dict(RECIPE_SGD,
+                                        weight_decay=weight_decay)))
+           .set_end_when(Trigger.max_iteration(max_iter) if max_iter
+                         else Trigger.max_epoch(epochs))
+           .set_prefetch(2).set_mixed_precision().set_device_augment(aug)
+           .set_gradient_accumulation(accum))
+    if clip is not None:
+        opt.set_gradient_clipping_by_l2_norm(clip)
+    if val_ds is not None:
+        opt.set_validation(Trigger.every_epoch(), val_ds,
+                           [Top1Accuracy(), Top5Accuracy(), Loss()])
+    seen_by_update = {"lr": [], "pre": [], "post": []}
+    wrap = opt._wrap_optim
+
+    def keep(params):
+        clipped = wrap(params)
+        sgd = clipped.inner
+        orig = sgd.update
+
+        def update(grads, p, state):
+            # device scalars only: no host sync in the step
+            seen_by_update["lr"].append(sgd.get_learning_rate(state))
+            seen_by_update["pre"].append(clipped.last_norm)
+            if not probe:
+                seen_by_update["post"].append(
+                    torch.sqrt(clipped._sum_sq(grads)))
+            return orig(grads, p, state)
+        sgd.update = update
+        return clipped
+    if clip is not None:
+        opt._wrap_optim = keep
+    losses, events = [], [torch.cuda.Event(enable_timing=True)]
+    fire = opt._fire_mid_epoch
+
+    def hook():
+        losses.append(opt.state.loss)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        return fire()
+    opt._fire_mid_epoch = hook
+    before = _build.launch_counts()
+    events[0].record()
+    opt.optimize()
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    launches = {k: after.get(k, 0) - before.get(k, 0) for k in after
+                if after.get(k, 0) != before.get(k, 0)}
+    return {"losses": [float(v) for v in losses],
+            "step_ms": [events[i].elapsed_time(events[i + 1])
+                        for i in range(len(events) - 1)],
+            "launches": launches, "opt": opt,
+            "lr": [float(v) for v in seen_by_update["lr"]],
+            "pre_norm": [float(v) for v in seen_by_update["pre"]],
+            "post_norm": [float(v) for v in seen_by_update["post"]]}
+
+
+def _host_parts(paths, batches):
+    """Host time a batch by part over ``batches`` batches read through the
+    ring with 2 workers: ring pop, decode, batching (ms a batch)."""
+    from bigdl_tpu_torch.data import samples_to_minibatch
+    from bigdl_tpu_torch.native import NativePrefetcher
+    decode = _recipe_decode()
+    pf = NativePrefetcher(paths, RECIPE_RECORD, n_workers=2)
+    parts = {"ring_pop": 0.0, "decode": 0.0, "batching": 0.0}
+    try:
+        for _ in range(batches):
+            buf = []
+            for _ in range(RECIPE_BATCH):
+                t0 = time.perf_counter()
+                rec = pf.next()
+                t1 = time.perf_counter()
+                buf.append(decode(rec))
+                t2 = time.perf_counter()
+                parts["ring_pop"] += t1 - t0
+                parts["decode"] += t2 - t1
+            t0 = time.perf_counter()
+            samples_to_minibatch(buf)
+            parts["batching"] += time.perf_counter() - t0
+    finally:
+        pf.close()
+    return {k: v * 1e3 / batches for k, v in parts.items()}
+
+
+def _host_routes(images, batches, card):
+    """The two host routes to a normalized fp32 NCHW batch of crops,
+    without training: the native ``prepare_image_batch`` (4 threads) and
+    the numpy transformer chain; ms a batch of 256."""
+    from bigdl_tpu_torch.data import image as img
+    from bigdl_tpu_torch.native import prepare_image_batch
+    rng = np.random.default_rng(5)
+    n = RECIPE_BATCH
+    span = RECIPE_HW - RECIPE_CROP + 1
+    t_native = []
+    for b in range(batches):
+        x = images[b * n:(b + 1) * n]
+        offs = rng.integers(0, span, (n, 2)).astype(np.int32)
+        flips = rng.integers(0, 2, n).astype(np.uint8)
+        t0 = time.perf_counter()
+        prepare_image_batch(x, RECIPE_CROP, RECIPE_CROP, offs, flips,
+                            RECIPE_MEAN, RECIPE_STD, n_threads=4)
+        t_native.append(time.perf_counter() - t0)
+    chain = (img.BytesToBGRImg() >> img.BGRImgCropper(RECIPE_CROP,
+                                                      RECIPE_CROP, seed=1)
+             >> img.HFlip(0.5, seed=2)
+             >> img.BGRImgNormalizer(RECIPE_MEAN, RECIPE_STD)
+             >> img.BGRImgToBatch(n, to_rgb=False))
+    t_chain = []
+    for b in range(batches):
+        x = images[b * n:(b + 1) * n]
+        t0 = time.perf_counter()
+        for _ in chain(zip(x, np.ones(n))):
+            pass
+        t_chain.append(time.perf_counter() - t0)
+    out = {"native_prepare_4_threads_ms": float(np.median(t_native)) * 1e3,
+           "numpy_chain_ms": float(np.median(t_chain)) * 1e3,
+           "batches": batches, "card": card}
+    log(f"host routes a batch of {n}: {json.dumps(out)}")
+    return out
+
+
+def _h2d_ms(card):
+    """H2D of one batch from pinned memory by CUDA events (median of 5):
+    uint8 records (256x256x256x3) against fp32 host-prepared crops
+    (256x3x224x224)."""
+    out = {}
+    for name, shape, dtype in (
+            ("uint8_256x256x256x3", (RECIPE_BATCH, RECIPE_HW, RECIPE_HW, 3),
+             torch.uint8),
+            ("fp32_256x3x224x224", (RECIPE_BATCH, 3, RECIPE_CROP,
+                                    RECIPE_CROP), torch.float32)):
+        host = torch.zeros(shape, dtype=dtype, pin_memory=True)
+        dev = torch.empty(shape, dtype=dtype, device="cuda")
+        out[name] = {"ms": cuda_ms(lambda: dev.copy_(host, non_blocking=True),
+                                   iters=5, warm=1),
+                     "mb": host.numel() * host.element_size() / 1e6}
+        del host, dev
+    out["card"] = card
+    log(f"H2D a batch: {json.dumps(out)}")
+    return out
+
+
+def _augment_checks(images, fails):
+    """DeviceAugment at the host transformers' draws against the host
+    chain (BGRImgCropper -> HFlip -> BGRImgNormalizer -> BGRImgToBatch,
+    BGR kept), bitwise: the crop and flip move the same bytes, and the
+    normalization is the same IEEE fp32 subtract and divide on the same
+    integer values on both sides (PyTorch builds its CUDA kernels without
+    fast math).  The bf16 NHWC output of the main path is that fp32
+    value rounded once: bitwise the host's fp32 cast to bf16.  Also
+    ``prepare_image_batch`` against its plain version, bitwise."""
+    from bigdl_tpu_torch.data import image as img
+    from bigdl_tpu_torch.native import (prepare_image_batch,
+                                        prepare_image_batch_plain)
+    n = 32
+    x = images[:n]
+    host = (img.BytesToBGRImg() >> img.BGRImgCropper(
+        RECIPE_CROP, RECIPE_CROP, seed=31) >> img.HFlip(0.5, seed=32)
+        >> img.BGRImgNormalizer(RECIPE_MEAN, RECIPE_STD)
+        >> img.BGRImgToBatch(n, to_rgb=False))
+    (mb,) = list(host(zip(x, np.ones(n))))
+    crop_rng, flip_rng = np.random.RandomState(31), np.random.RandomState(32)
+    span = RECIPE_HW - RECIPE_CROP + 1
+    oy, ox, flips = [], [], []
+    for _ in range(n):
+        oy.append(crop_rng.randint(0, span))
+        ox.append(crop_rng.randint(0, span))
+        flips.append(flip_rng.uniform() < 0.5)
+    xd = torch.from_numpy(x).cuda()
+    draws = [torch.tensor(v, device="cuda") for v in (oy, ox, flips)]
+    f32 = _recipe_augment(torch.float32, "NCHW").apply(xd, *draws)
+    bf16 = _recipe_augment().apply(xd, *draws)
+    want = torch.from_numpy(mb.get_input())
+    res = {"fp32_bitwise": torch.equal(f32.cpu(), want),
+           "fp32_max_abs_err": (f32.cpu() - want).abs().max().item(),
+           "bf16_nhwc_bitwise": torch.equal(
+               bf16.cpu(), want.permute(0, 2, 3, 1).bfloat16()),
+           "flips": int(sum(flips))}
+    rng = np.random.default_rng(33)
+    offs = rng.integers(0, span, (RECIPE_BATCH, 2)).astype(np.int32)
+    fl = rng.integers(0, 2, RECIPE_BATCH).astype(np.uint8)
+    a = prepare_image_batch(images[:RECIPE_BATCH], RECIPE_CROP, RECIPE_CROP,
+                            offs, fl, RECIPE_MEAN, RECIPE_STD, n_threads=4)
+    b = prepare_image_batch_plain(images[:RECIPE_BATCH], RECIPE_CROP,
+                                  RECIPE_CROP, offs, fl, RECIPE_MEAN,
+                                  RECIPE_STD)
+    res["prepare_image_batch_bitwise"] = bool(np.array_equal(a, b))
+    log(f"augment against the host chain: {json.dumps(res)}")
+    for k in ("fp32_bitwise", "bf16_nhwc_bitwise",
+              "prepare_image_batch_bitwise"):
+        if not res[k]:
+            fails.append(f"augment check {k} failed: {res}")
+    return res
+
+
+def phase_recipe(card: str, distri_prefetch: dict) -> dict:
+    """BigDL's ImageNet recipe on ResNet-50 from records on disk: the
+    native ring, decode and batching on the host, uint8 on the wire, the
+    augmentation on the card, DistriOptimizer at dp=1 over NCCL in bf16 at
+    batch 256 with SequentialSchedule(Warmup, Poly), an L2 regularizer,
+    clipping by norm and validation, K5 counted."""
+    import collections
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch import native
+    from bigdl_tpu_torch.data import FileRecordDataSet, SampleToMiniBatch
+    from bigdl_tpu_torch.data.minibatch import MiniBatch
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import (Evaluator, L2Regularizer, Loss,
+                                       Top1Accuracy, Top5Accuracy)
+    from bigdl_tpu_torch.parallel import mesh as mesh_lib
+
+    fails = []
+    t0 = time.monotonic()
+    lib = native.load()
+    built = {"library": str(_build.native_target().relative_to(
+        _build.NATIVE_DIR.parents[1])), "sources": [
+        str((_build.NATIVE_SRC / f"{n}.cpp").relative_to(
+            _build.NATIVE_DIR.parents[1])) for n in _build.NATIVE_SOURCES]}
+    if lib._name != str(_build.native_target()) \
+            or any("bigdl_tpu/" in s for s in built["sources"]):
+        fails.append(f"native runtime not built from the port's sources: "
+                     f"{built}")
+    log(f"native runtime: {json.dumps(built)}")
+    work = tempfile.mkdtemp(prefix="recipe_", dir=str(_build.BUILD_DIR))
+    try:
+        train_paths, train_labels = _write_recipe_records(
+            work, RECIPE_TRAIN, RECIPE_TRAIN_FILES, 12, "train")
+        val_paths, _ = _write_recipe_records(work, RECIPE_VAL, 1, 13, "val")
+        write_s = time.monotonic() - t0
+        # the ring against the plain reader: the same multiset of records
+        t1 = time.monotonic()
+        pf = native.NativePrefetcher(train_paths, RECIPE_RECORD, n_workers=2)
+        ring = list(pf)
+        pf.close()
+        ring_s = time.monotonic() - t1
+        plain = list(native.read_records_plain(train_paths, RECIPE_RECORD))
+        ring_ok = collections.Counter(ring) == collections.Counter(plain)
+        images = np.stack([np.frombuffer(r, np.uint8, offset=4).reshape(
+            RECIPE_HW, RECIPE_HW, 3) for r in plain[:2 * RECIPE_BATCH]])
+        del ring, plain
+        if not ring_ok:
+            fails.append("the ring's records are not read_records_plain's")
+        log(f"records written in {write_s:.1f} s; ring: {RECIPE_TRAIN} "
+            f"records in {ring_s:.3f} s, same multiset as the plain reader "
+            f"{ring_ok}")
+        augment = _augment_checks(images, fails)
+        host_parts = _host_parts(train_paths, 2)
+        routes = _host_routes(images, 2, card)
+        h2d = _h2d_ms(card)
+
+        model = resnet.build(class_num=1000, depth=50, dataset="imagenet",
+                             format="NHWC", seed=0)
+        fc = [m for m in model.modules() if type(m).__name__ == "Linear"][-1]
+        fc.w_regularizer = L2Regularizer(RECIPE_L2)
+        first_stage = [m for m in model.modules()
+                       if type(m).__name__ == "Sequential"][1].name
+        w0 = [w.clone() for w in model.get_weights()]
+        s0 = [s.clone() for s in model.state_list()]
+        init = {n: {k: v.detach().clone() for k, v in sub.items()}
+                for n, sub in model.param_dict().items()}
+        per_update = -(-len(w0) // fo.SGD_CAPACITY)
+        store = tempfile.mkdtemp(prefix="recipe_pg_",
+                                 dir=str(_build.BUILD_DIR))
+        mesh_lib.init_distributed(f"file://{store}/store", 0, 1)
+        mesh = mesh_lib.create_mesh({"dp": 1})
+        try:
+            # the clipping norm: the median of an unclipped epoch's global
+            # gradient norms (an infinite c computes them and scales by 1)
+            probe = _recipe_run(model, w0, s0, mesh, train_paths, epochs=1,
+                                clip=float("inf"), probe=True)
+            clip = float(np.median(probe["pre_norm"]))
+            log(f"probe: norms {probe['pre_norm']}; clip at {clip}")
+            # bitwise: one worker (file order), fused on and off
+            bitwise = {}
+            finals = {}
+            for fused in (True, False):
+                run = _recipe_run(model, w0, s0, mesh, train_paths, epochs=1,
+                                  workers=1, fused=fused, clip=clip)
+                finals[fused] = [t.clone() for t in model.get_weights()
+                                 + model.state_list()]
+                bitwise[f"fused={fused}"] = {
+                    "losses": run["losses"], "launches": run["launches"]}
+            same = bitwise["fused=True"]["losses"] == \
+                bitwise["fused=False"]["losses"] and all(
+                    torch.equal(a, b) for a, b in zip(finals[True],
+                                                      finals[False]))
+            del finals
+            log(f"n_workers=1, fused on/off: bitwise {same}; "
+                f"{json.dumps(bitwise)}")
+            if not same:
+                fails.append(f"fused and plain runs differ: {bitwise}")
+            if bitwise["fused=True"]["launches"] != {fo.SGD_MOM:
+                                                     8 * per_update} \
+                    or bitwise["fused=False"]["launches"]:
+                fails.append(f"bitwise runs' launches: {bitwise}")
+
+            # the main path: counts from 0, peak memory from a reset
+            val_ds = FileRecordDataSet(val_paths, RECIPE_RECORD,
+                                       _recipe_decode(), n_workers=1) \
+                >> SampleToMiniBatch(128)
+            seen = []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            main = _recipe_run(model, w0, s0, mesh, train_paths,
+                               epochs=RECIPE_EPOCHS, clip=clip,
+                               val_ds=val_ds, seen=seen)
+            main_launches = _build.launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            main_opt = main.pop("opt")
+            steps = RECIPE_EPOCHS * RECIPE_TRAIN // RECIPE_BATCH
+            want_counts = collections.Counter(train_labels.tolist())
+            per_epoch = [collections.Counter(seen[e * RECIPE_TRAIN:
+                                                  (e + 1) * RECIPE_TRAIN])
+                         for e in range(RECIPE_EPOCHS)]
+            once = len(seen) == RECIPE_EPOCHS * RECIPE_TRAIN and all(
+                c == want_counts for c in per_epoch)
+            if not once:
+                fails.append(f"records read {len(seen)} times in "
+                             f"{RECIPE_EPOCHS} epochs, not once an epoch")
+            if main_launches != {fo.SGD_MOM: steps * per_update} \
+                    or main["launches"] != main_launches:
+                fails.append(f"main path launches {main_launches}, "
+                             f"expected {steps * per_update}")
+            lr_err = max(abs(got - _recipe_rate(s)) / _recipe_rate(s)
+                         for s, got in enumerate(main["lr"])
+                         if _recipe_rate(s) > 0)
+            if len(main["lr"]) != steps or lr_err > RECIPE_LR_REL:
+                fails.append(f"learning rates {main['lr']} off the closed "
+                             f"form by {lr_err:.3e}")
+            fired = [p > clip for p in main["pre_norm"]]
+            clip_bad = [s for s, (f, pre, post) in enumerate(zip(
+                fired, main["pre_norm"], main["post_norm"]))
+                if (f and not post <= clip * (1 + RECIPE_CLIP_REL))
+                or (not f and post != pre)]
+            if clip_bad or all(fired) or not any(fired):
+                fails.append(f"clipping at {clip}: fired {fired}, steps "
+                             f"{clip_bad} wrong (pre {main['pre_norm']}, "
+                             f"post {main['post_norm']})")
+            ls = main["losses"]
+            if not (all(np.isfinite(ls)) and ls[-1] < ls[0]):
+                fails.append(f"recipe losses {ls}")
+
+            # validation against Evaluator.test on the same records, half
+            # of the labels set to the trained model's own classes (the
+            # validation's eval step runs the augment's center crop and
+            # normalization itself; Evaluator gets them applied)
+            eval_step = main_opt._eval_step
+            params, state = model.param_dict(), model.initial_state()
+            in_run = [r.result() for _, r in main_opt.last_validation]
+            aug = _recipe_augment()
+            batches, preds = [], []
+            for mb in val_ds.data(train=False):
+                raw = torch.from_numpy(mb.get_input()).cuda()
+                preds.append(torch.argmax(eval_step(params, state, raw)
+                                          .float(), 1).cpu().numpy() + 1)
+                batches.append([aug(raw, training=False), mb.get_target()])
+            preds = np.concatenate(preds)
+            records = np.fromfile(val_paths[0], np.uint8).reshape(
+                RECIPE_VAL, RECIPE_RECORD)
+            half = RECIPE_VAL // 2
+            records[:half, :4] = preds[:half].astype("<i4").view(
+                np.uint8).reshape(half, 4)
+            records.tofile(val_paths[0])
+            k = 0
+            for b in batches:
+                n = b[0].shape[0]
+                labels = b[1].copy()
+                top = max(0, min(n, half - k))
+                labels[:top] = preds[k:k + top]
+                b[1] = labels
+                k += n
+            named = main_opt._validate(
+                main_opt._params_for_eval(params), state)
+            got_val = [r.result() for _, r in named]
+            ev = Evaluator(model, batch_size=128).test(
+                _Batches([MiniBatch(x, y) for x, y in batches]),
+                [Top1Accuracy(), Top5Accuracy(), Loss()])
+            ev_val = [r.result() for _, r in ev]
+            validation = {"in_run_epoch_2": in_run,
+                          "set_validation": got_val, "evaluator": ev_val,
+                          "score": main_opt.state.score}
+            log(f"recipe validation: {json.dumps(validation)}")
+            if got_val != ev_val:
+                fails.append(f"validation {got_val} != Evaluator {ev_val}")
+            if not half <= named[0][1].correct <= named[1][1].correct:
+                fails.append(f"the planted half reads Top1 "
+                             f"{named[0][1].correct}, Top5 "
+                             f"{named[1][1].correct} of {RECIPE_VAL}")
+            del main_opt, named, ev, batches
+
+            # accumulation 2 x 128 with the first stage frozen (no weight
+            # decay: SGD's decay moves frozen weights, as the reference's)
+            accum = _recipe_run(model, w0, s0, mesh, train_paths, epochs=1,
+                                clip=clip, accum=2, freeze=[first_stage],
+                                weight_decay=0.0,
+                                max_iter=RECIPE_ACCUM_STEPS)
+            accum.pop("opt")
+            frozen = model.frozen_param_names()
+            moved_frozen = [f"{n}.{kk}" for n, sub in
+                            model.param_dict().items() if n in frozen
+                            for kk, v in sub.items()
+                            if not torch.equal(v, init[n][kk])]
+            moved_other = sum(not torch.equal(v, init[n][kk])
+                              for n, sub in model.param_dict().items()
+                              if n not in frozen for kk, v in sub.items())
+            model.unfreeze()
+            accum_res = {"losses": accum["losses"],
+                         "launches": accum["launches"],
+                         "frozen_modules": len(frozen),
+                         "frozen_moved": moved_frozen,
+                         "others_moved": moved_other}
+            log(f"accumulation 2 x 128 with {first_stage} frozen: "
+                f"{json.dumps(accum_res)}")
+            if moved_frozen or not moved_other or accum["launches"] != {
+                    fo.SGD_MOM: RECIPE_ACCUM_STEPS * per_update} or not all(
+                    np.isfinite(accum["losses"])):
+                fails.append(f"accumulation/freeze run: {accum_res}")
+
+            # where the device time goes: one epoch under the profiler
+            profile = profile_steps(lambda: _recipe_run(
+                model, w0, s0, mesh, train_paths, epochs=1, clip=clip,
+                profile_range=True), steps=RECIPE_TRAIN // RECIPE_BATCH,
+                classes=RECIPE_CLASSES_PROFILE, ranges=("DeviceAugment",))
+        finally:
+            torch.distributed.destroy_process_group()
+            mesh_lib.set_mesh(None)
+            shutil.rmtree(store, ignore_errors=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    steady = _steady(main, RECIPE_BATCH)
+    readings = {
+        "step_ms_median": steady["step_ms_median"],
+        "images_per_s": steady["images_per_s"],
+        "step_ms": main["step_ms"],
+        "beside_phase_distri_prefetch": distri_prefetch,
+        "h2d_a_batch": h2d,
+        "host_ms_a_batch": host_parts,
+        "ring_records_per_s": RECIPE_TRAIN / ring_s,
+        "host_routes": routes,
+        "profile": profile,
+        "peak_mem_gb": peak_gb,
+        "phase_s": time.monotonic() - t0}
+    out = {"config": "resnet.build(class_num=1000, depth=50, dataset="
+                     "'imagenet', format='NHWC', seed=0), L2Regularizer(1e-4)"
+                     " on fc1000; DistriOptimizer(FileRecordDataSet(4 files "
+                     "of 512 records, n_workers=2) >> SampleToMiniBatch(256), "
+                     "mesh=create_mesh({'dp': 1}), fused_optim=True), SGD(0.1,"
+                     " momentum=0.9, weight_decay=1e-4, SequentialSchedule(8)"
+                     ".add(Warmup(0.0125), 8).add(Poly(0.5, 8), 8)), "
+                     "set_mixed_precision(), set_prefetch(2), "
+                     "set_device_augment(DeviceAugment(crop=(224, 224), "
+                     "flip=True, BGR mean/std, NHWC, bf16)), "
+                     "set_gradient_clipping_by_l2_norm(median of an unclipped"
+                     " epoch), set_validation(every_epoch, 512 records, "
+                     "[Top1, Top5, Loss]); 2 epochs; NCCL at world size 1",
+           "channel_order": "BGR (records as stored; mean/std given BGR)",
+           "clip_norm": clip, "probe_norms": probe["pre_norm"],
+           "losses": main["losses"], "lr": main["lr"],
+           "pre_clip_norm": main["pre_norm"],
+           "post_clip_norm": main["post_norm"],
+           "lr_max_rel_err": lr_err, "records_once_an_epoch": once,
+           "ring_same_multiset": ring_ok, "augment": augment,
+           "bitwise_workers1": bitwise, "validation": validation,
+           "accumulation_freeze": accum_res, "launches": main_launches,
+           "readings": readings, "card": card}
+    log(f"recipe: {json.dumps(out)}")
+    if fails:
+        raise AssertionError("recipe phase: " + "; ".join(fails))
     return out
 
 
@@ -3672,13 +4431,17 @@ def main() -> int:
     torch.backends.cudnn.deterministic = True
     classifier = phase_classifier(card, k5, k6)
     distri = phase_distri(card)
+    prefetch_run = distri["readings"]["dp1_b256_prefetch"]
+    recipe = phase_recipe(card, {k: prefetch_run[k] for k in (
+        "step_ms_median", "images_per_s")})
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
                "stream": stream["launches"],
                "replica_serving": stream["replica_serving"]["launches"],
                "classifier": classifier["launches"],
-               "distri": distri["launches"]}
+               "distri": distri["launches"],
+               "recipe": recipe["launches"]}
     kernels = [k1, *k23, k4, k5, k6]
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
@@ -3691,6 +4454,7 @@ def main() -> int:
     print(json.dumps({"stream": stream}), flush=True)
     print(json.dumps({"classifier": classifier}), flush=True)
     print(json.dumps({"distri": distri}), flush=True)
+    print(json.dumps({"recipe": recipe}), flush=True)
     print(json.dumps({"host_sync": host_sync}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

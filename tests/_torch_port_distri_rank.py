@@ -136,7 +136,7 @@ def main():
         for setter in ("set_gradient_clipping_by_l2_norm",
                        "set_gradient_accumulation"):
             try:
-                getattr(opt, setter)(1.0)
+                getattr(opt, setter)(1)
                 refusals[f"{setter} {mode}"] = None
             except NotImplementedError as e:
                 refusals[f"{setter} {mode}"] = str(e)

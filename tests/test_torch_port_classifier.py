@@ -373,12 +373,18 @@ def test_init_tensor_reads_a_layers_override():
 
 
 def test_regularizers_raise():
+    """Per-layer regularizers are ported: a layer keeps a callable one,
+    and only something that is not a penalty function raises."""
+    from bigdl_tpu_torch.optim import L2Regularizer
     for kw in (dict(w_regularizer=object()), dict(b_regularizer=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="callable"):
             tnn.Linear(2, 2, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="callable"):
             tnn.SpatialConvolution(2, 2, 1, 1, **kw)
     assert tnn.Linear(2, 2).regularization_loss({}) == 0.0
+    lin = tnn.Linear(2, 2, w_regularizer=L2Regularizer(0.5))
+    conv = tnn.SpatialConvolution(2, 2, 1, 1, b_regularizer=L2Regularizer(2.0))
+    assert lin.w_regularizer is not None and conv.b_regularizer is not None
 
 
 # --------------------------------------------------------------------- #
@@ -579,20 +585,23 @@ def test_local_optimizer_unported_setters_raise():
                               np.ones(2, np.float32)),
                          tnn.ClassNLLCriterion(), batch_size=1,
                          device="cpu")
-    for name in ("set_checkpoint", "set_gradient_accumulation",
-                 "set_gradient_clipping_by_l2_norm",
-                 "set_constant_gradient_clipping", "set_telemetry"):
+    for name in ("set_checkpoint", "set_telemetry"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
             getattr(opt, name)(None)
     # ported since: each returns the optimizer
+    assert opt.set_gradient_accumulation(2) is opt and opt._grad_accum == 2
+    assert opt.set_gradient_clipping_by_l2_norm(1.0) is opt
+    assert opt.set_constant_gradient_clipping(-1.0, 1.0) is opt
+    assert opt.set_device_augment(None) is opt
     assert opt.set_mixed_precision() is opt and opt.mixed_precision
     assert opt.set_prefetch(2) is opt and opt.prefetch_depth == 2
     assert opt.set_validation(Trigger.every_epoch(), (
         np.zeros((2, 784), np.float32), np.ones(2, np.float32)), []) is opt
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LocalOptimizer(tm, (np.zeros((2, 784)), np.ones(2)),
-                       tnn.ClassNLLCriterion(), batch_size=1, seed=1,
-                       device="cpu")
+    # seed seeds the loop's device generator (seed + 13)
+    seeded = LocalOptimizer(tm, (np.zeros((2, 784)), np.ones(2)),
+                            tnn.ClassNLLCriterion(), batch_size=1, seed=1,
+                            device="cpu")
+    assert seeded._generator().initial_seed() == 14
     with pytest.raises(ValueError, match="batch_size required"):
         LocalOptimizer(tm, (np.zeros((2, 784)), np.ones(2)),
                        tnn.ClassNLLCriterion(), device="cpu")

@@ -280,9 +280,9 @@ def test_sgd_reference_defaults_and_checks():
     for bad in (dict(nesterov=True), dict(momentum=0.9, nesterov=True)):
         with pytest.raises(ValueError, match="Nesterov"):
             SGD(**bad)
-    for bad in (dict(learning_rates=[0.1]), dict(weight_decays=[0.1])):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SGD(**bad)
+    # accepted and unused, as the reference's SGD takes them
+    for kw in (dict(learning_rates=[0.1]), dict(weight_decays=[0.1])):
+        assert SGD(**kw).lr == 1e-3
     clr = m.get_learning_rate(st)
     assert clr.dtype == torch.float32 and clr.numel() == 1
     assert float(clr) == np.float32(1e-3)
