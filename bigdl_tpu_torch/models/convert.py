@@ -90,8 +90,11 @@ def from_jax_weights(weights: Sequence[np.ndarray], model: Module,
     then bias, then the rest (the order of :meth:`Module.get_weights`).
     ``state`` is the reference's batch-norm state as a list in the same
     module order, each module's keys alphabetically (``running_mean``,
-    ``running_var``; :meth:`Module.state_list`).  The counts at both ends
-    and every shape are checked before anything is copied."""
+    ``running_var``; :meth:`Module.state_list`).  A ``Graph`` registers
+    its modules in the reference's topological order and a ``Remat``
+    wrapper owns no weights, so graph models and the remat ResNet cross
+    the same way.  The counts at both ends and every shape are checked
+    before anything is copied."""
     ours = model.get_weights()
     weights = _check_shapes(ours, weights, "from_jax_weights (weights)")
     if state is not None:

@@ -1,20 +1,26 @@
 """ResNet (≙ ``bigdl_tpu/models/resnet.py``).
 
 ImageNet depths 18, 34, 50, 101, 152 and 200 (basic or bottleneck
-blocks) and the CIFAR-10 variant of depth 6n+2, shortcut types B and C,
-NCHW or NHWC, built module for module as the reference builds them, so
-that ``get_weights`` lists the weights in the reference's order.  Not
-ported yet (ROADMAP queue A, item 10): shortcut type A (it needs
-``Padding``), ``stem="s2d"``, ``remat=True`` and ``sync_bn_axis``; each
-raises.
+blocks) and the CIFAR-10 variant of depth 6n+2, shortcut types A, B and
+C, NCHW or NHWC, built module for module as the reference builds them, so
+that ``get_weights`` lists the weights in the reference's order.
+``stem="s2d"`` computes the 7x7/2 stem through
+``SpaceToDepthConvolution``, ``remat=True`` wraps every residual block in
+``nn.Remat`` after the build (so no auto name shifts), and
+``sync_bn_axis`` makes every BN a sync BN over that mesh axis.
+
+Shortcut type A in NHWC raises: the reference builds its channel padding
+as ``Padding(1, n, 4)``, which pads the batch dim of an NHWC activity and
+fails in the residual add (ROADMAP C6).  In NCHW it is ported.
 """
 from __future__ import annotations
 
 import torch
 
 from .._device import DeviceLike, resolve_device
-from ..nn import (CAddTable, ConcatTable, Identity, Linear, LogSoftMax, ReLU,
-                  Sequential, SpatialAveragePooling, SpatialBatchNormalization,
+from ..nn import (CAddTable, ConcatTable, Identity, Linear, LogSoftMax,
+                  Padding, ReLU, Remat, Sequential, SpaceToDepthConvolution,
+                  SpatialAveragePooling, SpatialBatchNormalization,
                   SpatialConvolution, SpatialMaxPooling, View)
 
 
@@ -24,23 +30,21 @@ class ShortcutType:
     C = "C"  # projection on every shortcut
 
 
-def _unported(what):
-    return NotImplementedError(f"resnet.build: {what} is not ported yet "
-                               f"(ROADMAP queue A, item 10)")
-
-
 class _Builder:
-    def __init__(self, shortcut_type, format, gen):
+    def __init__(self, shortcut_type, format, gen, sync_bn_axis=None):
         self.i_channels = 0
         self.shortcut_type = shortcut_type
         self.format = format
         self.gen = gen
+        self.sync_bn_axis = sync_bn_axis
+        self.block_sites = []
 
     def conv(self, *a, **kw):
         return SpatialConvolution(*a, format=self.format, gen=self.gen, **kw)
 
     def bn(self, n):
-        return SpatialBatchNormalization(n, format=self.format)
+        return SpatialBatchNormalization(n, format=self.format,
+                                         sync_axis=self.sync_bn_axis)
 
     def shortcut(self, n_input, n_output, stride):
         use_conv = (self.shortcut_type == ShortcutType.C
@@ -52,8 +56,11 @@ class _Builder:
                           with_bias=False),
                 self.bn(n_output))
         if n_input != n_output:
-            raise _unported("shortcut type A (zero-padded identity, "
-                            "nn.Padding)")
+            # type A: strided identity, channels zero-padded
+            return Sequential(
+                SpatialAveragePooling(1, 1, stride, stride,
+                                      format=self.format),
+                Padding(1, n_output - n_input, 3))
         if stride != 1:
             return SpatialAveragePooling(1, 1, stride, stride,
                                          format=self.format)
@@ -95,6 +102,7 @@ class _Builder:
         s = Sequential()
         for i in range(count):
             s.add(block(features, stride if i == 0 else 1))
+            self.block_sites.append((s, str(len(s) - 1)))
         return s
 
 
@@ -118,22 +126,27 @@ def build(class_num=1000, depth=50, shortcut_type=ShortcutType.B,
     ``format="NHWC"`` takes (B, H, W, C) input."""
     if stem not in ("conv", "s2d"):
         raise ValueError(f"unknown stem {stem!r}")
-    if stem == "s2d":
-        raise _unported("stem='s2d' (SpaceToDepthConvolution)")
-    if remat:
-        raise _unported("remat=True (nn.Remat)")
-    if sync_bn_axis is not None:
-        raise _unported(f"sync_bn_axis={sync_bn_axis!r} (sync BN)")
+    if stem == "s2d" and (format != "NHWC" or dataset != "imagenet"):
+        raise ValueError("stem='s2d' requires format='NHWC' imagenet")
+    if shortcut_type == ShortcutType.A and format == "NHWC":
+        raise ValueError(
+            "resnet.build: shortcut type A in NHWC pads the batch dim in "
+            "the reference (Padding(1, n, 4) on a 4-dim activity), whose "
+            "forward then fails in the residual add; ROADMAP C6.  Use "
+            "format='NCHW' or shortcut type B")
     dev = resolve_device(device)
     b = _Builder(shortcut_type, format, torch.Generator().manual_seed(
-        int(seed)))
+        int(seed)), sync_bn_axis)
     model = Sequential(name=f"ResNet{depth}_{dataset}")
     if dataset == "imagenet":
         (c1, c2, c3, c4), n_features, kind = _IMAGENET_CFG[depth]
         block = b.bottleneck if kind == "bottleneck" else b.basic_block
         b.i_channels = 64
+        stem_cls = (SpaceToDepthConvolution if stem == "s2d"
+                    else SpatialConvolution)
         (model
-         .add(b.conv(3, 64, 7, 7, 2, 2, 3, 3, with_bias=False, name="conv1"))
+         .add(stem_cls(3, 64, 7, 7, 2, 2, 3, 3, with_bias=False,
+                       format=format, name="conv1", gen=b.gen))
          .add(b.bn(64))
          .add(ReLU())
          .add(SpatialMaxPooling(3, 3, 2, 2, 1, 1, format=format))
@@ -163,4 +176,7 @@ def build(class_num=1000, depth=50, shortcut_type=ShortcutType.B,
         raise ValueError(f"unknown dataset {dataset}")
     if with_logsoftmax:
         model.add(LogSoftMax())
+    if remat:
+        for seq, key in b.block_sites:
+            seq._modules[key] = Remat(seq._modules[key])
     return model.to(dev)

@@ -10,7 +10,10 @@ followed by a dense 1x1 conv (``conv.py:93``), so that the TPU's input
 gradient does not multiply inserted zeros.  That is a TPU matter and is
 not kept: ``F.conv2d`` with the stride computes the same function.
 
-``SpaceToDepthConvolution`` is not ported yet (ROADMAP queue A, item 10).
+``SpaceToDepthConvolution`` computes a stride-2 conv (ResNet's 7x7/2
+stem) as a stride-1 conv over the 2x2 space-to-depth input, on the same
+parameter tensor: the reference's reparameterization, copied step for
+step.
 """
 from __future__ import annotations
 
@@ -99,3 +102,52 @@ class SpatialConvolution(Module):
                      stride=self.stride, padding=padding,
                      groups=self.n_group)
         return from_nchw(y, self.format)
+
+
+class SpaceToDepthConvolution(SpatialConvolution):
+    """A stride-2 conv computed on the 2x2 space-to-depth input: the
+    kernel is zero-padded to even size and its taps ``k = 2a + d``
+    regrouped into a ``(k/2, k/2)`` kernel over ``(dh, dw, c)`` channels
+    (``transpose(0, 3, 5, 1, 2, 4)``), the input padded (or trimmed) to
+    the even extent that covers every tap and regrouped the same way, and
+    the conv runs with stride 1.  The same parameter tensor and the same
+    function as the parent conv.  NHWC, stride 2, one group and explicit
+    padding only, as the reference's."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        if self.format != "NHWC":
+            raise ValueError("SpaceToDepthConvolution requires NHWC")
+        if self.stride != (2, 2):
+            raise ValueError("SpaceToDepthConvolution requires stride 2")
+        if self.n_group != 1:
+            raise ValueError("SpaceToDepthConvolution requires n_group=1")
+        if -1 in self.pad:
+            raise ValueError("SpaceToDepthConvolution does not support "
+                             "SAME (-1) padding; pass explicit pads")
+
+    def apply(self, params, x, ctx):
+        p = self.own(params)
+        w = p["weight"].to(x.dtype)                 # OIHW (O, C, kh, kw)
+        o, c, kh, kw = w.shape
+        ph, pw = self.pad
+        b, h, wd, _ = x.shape
+        out_h = (h + 2 * ph - kh) // 2 + 1
+        out_w = (wd + 2 * pw - kw) // 2 + 1
+        k2h, k2w = -(-kh // 2) * 2, -(-kw // 2) * 2
+        wp = F.pad(w, (0, k2w - kw, 0, k2h - kh))
+        wp = wp.reshape(o, c, k2h // 2, 2, k2w // 2, 2) \
+            .permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, k2h // 2, k2w // 2)
+        need_h = 2 * (out_h + k2h // 2 - 1)
+        need_w = 2 * (out_w + k2w // 2 - 1)
+        xp = F.pad(x, (0, 0, pw, max(0, need_w - wd - pw),
+                       ph, max(0, need_h - h - ph)))
+        xp = xp[:, :need_h, :need_w, :]
+        hp, wpd = xp.shape[1], xp.shape[2]
+        xs = xp.reshape(b, hp // 2, 2, wpd // 2, 2, c) \
+            .permute(0, 1, 3, 2, 4, 5).reshape(b, hp // 2, wpd // 2, 4 * c)
+        y = F.conv2d(to_nchw(xs, "NHWC"), wp, None)
+        y = from_nchw(y, "NHWC")[:, :out_h, :out_w, :]
+        if self.with_bias:
+            y = y + p["bias"].to(x.dtype)
+        return y

@@ -1,5 +1,5 @@
-"""Losses (≙ ``bigdl_tpu/nn/criterion.py``): ``ClassNLLCriterion`` and
-``MSECriterion``.
+"""Losses (≙ ``bigdl_tpu/nn/criterion.py``): ``ClassNLLCriterion``,
+``CrossEntropyCriterion`` and ``MSECriterion``.
 
 Targets are 1-based class indices, given as floats and truncated to
 int32 as the reference does.  The gradient is autograd's through
@@ -50,6 +50,20 @@ class ClassNLLCriterion(Criterion):
              else self.weights.to(picked.device)[idx_c])
         w = w * valid.to(picked.dtype)
         return _reduce(-w * picked, self.size_average, w.sum())
+
+
+class CrossEntropyCriterion(Criterion):
+    """Log softmax over the last dim, then :class:`ClassNLLCriterion`
+    (1-based targets unless ``zero_based_label``)."""
+
+    def __init__(self, weights=None, size_average=True,
+                 zero_based_label=False, name=None):
+        super().__init__(name=name)
+        self.nll = ClassNLLCriterion(weights, size_average,
+                                     zero_based_label=zero_based_label)
+
+    def loss(self, output, target):
+        return self.nll.loss(torch.log_softmax(output, dim=-1), target)
 
 
 class MSECriterion(Criterion):

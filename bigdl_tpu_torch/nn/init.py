@@ -81,7 +81,23 @@ class MsraFiller(InitializationMethod):
 
 def init_tensor(module, gen, shape, fan_in, fan_out, default, kind="weight"):
     """The module's override (``weight_init`` / ``bias_init``) or the
-    layer's ``default``, drawn from ``gen``."""
+    layer's ``default``, drawn from ``gen``.  The draw's plan is kept on
+    the module (``_init_plan[kind]``) for :func:`redraw`."""
+    plan = module.__dict__.setdefault("_init_plan", {})
+    plan[kind] = (tuple(shape), fan_in, fan_out, default)
     override = module.weight_init if kind == "weight" else module.bias_init
     method = override if override is not None else default
     return method(gen, shape, fan_in, fan_out)
+
+
+@torch.no_grad()
+def redraw(module) -> None:
+    """Draw ``module``'s own ``weight`` and ``bias`` again from torch's
+    default generator with its current overrides
+    (``Module.set_init_method``)."""
+    for kind, (shape, fan_in, fan_out, default) in getattr(
+            module, "_init_plan", {}).items():
+        param = getattr(module, kind, None)
+        if isinstance(param, torch.nn.Parameter):
+            param.copy_(init_tensor(module, None, shape, fan_in, fan_out,
+                                    default, kind))

@@ -1,10 +1,12 @@
-"""Dense layer (≙ ``bigdl_tpu/nn/linear.py``)."""
+"""Dense layer and the learned elementwise scale and shift (≙
+``bigdl_tpu/nn/linear.py``): ``Linear``, ``CMul`` and ``CAdd``."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .init import Xavier, Zeros, init_tensor
+from .init import RandomUniform, Xavier, Zeros, init_tensor
 from .module import Module, check_regularizers
 
 
@@ -33,3 +35,35 @@ class Linear(Module):
         p = self.own(params)
         return F.linear(x, p["weight"].to(x.dtype),
                         p["bias"].to(x.dtype) if self.with_bias else None)
+
+
+class CMul(Module):
+    """x times a learned tensor of ``size`` (broadcast), drawn
+    U(±1/sqrt(n)) with n its element count."""
+
+    def __init__(self, size, name=None, *, gen: torch.Generator = None):
+        super().__init__(name=name)
+        self.size = tuple(size)
+        n = int(np.prod(self.size))
+        self.weight = torch.nn.Parameter(init_tensor(
+            self, gen, self.size, n, n, RandomUniform()))
+
+    def apply(self, params, x, ctx):
+        return x * self.own(params)["weight"].to(x.dtype)
+
+
+class CAdd(Module):
+    """x plus a learned tensor of ``size`` (broadcast), drawn
+    U(±1/sqrt(n))."""
+
+    def __init__(self, size, b_regularizer=None, name=None, *,
+                 gen: torch.Generator = None):
+        super().__init__(name=name)
+        check_regularizers(self, None, b_regularizer)
+        self.size = tuple(size)
+        n = int(np.prod(self.size))
+        self.bias = torch.nn.Parameter(init_tensor(
+            self, gen, self.size, n, n, RandomUniform(), kind="bias"))
+
+    def apply(self, params, x, ctx):
+        return x + self.own(params)["bias"].to(x.dtype)

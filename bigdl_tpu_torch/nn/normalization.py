@@ -80,6 +80,27 @@ class _BNTrain(torch.autograd.Function):
         return dx.to(x.dtype), dgamma, dbeta, None, None
 
 
+class _AllReduceMean(torch.autograd.Function):
+    """``pmean`` over a process group with its gradient: the forward
+    all-reduces (sum) and divides by ``world``; the backward does the same
+    to the cotangent, as JAX transposes ``pmean``."""
+
+    @staticmethod
+    def forward(ctx, t, group, world):
+        import torch.distributed as dist
+        ctx.group, ctx.world = group, world
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out / world
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        out = g.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out / ctx.world, None, None
+
+
 class BatchNormalization(Module):
     """Batch norm over (B, C) or (B, C, ...), statistics over every dim but
     the channel dim (axis 1; axis 3 for ``SpatialBatchNormalization`` in
@@ -93,9 +114,19 @@ class BatchNormalization(Module):
     unbiased with ``n`` = the elements per channel.  In inference it
     normalizes with the running statistics from ``ctx.state``.
 
+    With ``sync_axis`` (sync BN, the reference's own formula, not
+    ``_bn_train``): the fp32 mean and E[x²] of this rank's batch are
+    averaged over the mesh axis (``pmean``: one all-reduce of both, then
+    ÷ the axis size), the variance is ``max(E[x²] − mean², 0)``, and
+    ``y = x·scale + shift`` with scale and shift cast to x's dtype.  The
+    backward is autograd's, through :class:`_AllReduceMean`, whose
+    backward all-reduces the cotangents the same way; the running variance
+    counts ``n · world`` elements.  The axis resolves to the process group
+    of the current mesh (``parallel.mesh.create_mesh``); outside a mesh
+    the training forward raises.
+
     The running statistics are buffers of the module (see
-    ``Module.initial_state``).  ``sync_axis`` (cross-replica statistics)
-    is not ported yet (ROADMAP queue A, item 10).
+    ``Module.initial_state``).
     """
 
     channel_axis = 1
@@ -103,11 +134,7 @@ class BatchNormalization(Module):
     def __init__(self, n_output, eps=1e-5, momentum=0.1, affine=True,
                  sync_axis=None, name=None):
         super().__init__(name=name)
-        if sync_axis is not None:
-            raise NotImplementedError(
-                f"{type(self).__name__}: sync_axis={sync_axis!r} (sync BN) "
-                f"needs data parallelism, which is not ported yet (ROADMAP "
-                f"queue A, item 10)")
+        self.sync_axis = sync_axis
         self.n_output = n_output
         self.eps = eps
         self.momentum = momentum
@@ -130,6 +157,8 @@ class BatchNormalization(Module):
 
     def apply(self, params, x, ctx):
         st = ctx.get_state(self)
+        if ctx.training and self.sync_axis is not None:
+            return self._sync_train(params, x, ctx, st)
         if ctx.training:
             if self.affine:
                 p = self.own(params)
@@ -154,9 +183,28 @@ class BatchNormalization(Module):
         return (x * scale.reshape(shape).to(x.dtype)
                 + shift.reshape(shape).to(x.dtype))
 
-    def _update_running(self, ctx, st, mean, var, x):
+    def _sync_train(self, params, x, ctx, st):
+        from ..parallel.mesh import axis_group
+        group, world = axis_group(self.sync_axis)
+        axes = tuple(i for i in range(x.ndim) if i != self.channel_axis)
+        xf = x.float()
+        moments = torch.stack([xf.mean(dim=axes), (xf * xf).mean(dim=axes)])
+        mean, m2 = _AllReduceMean.apply(moments, group, world)
+        var = torch.clamp_min(m2 - mean * mean, 0.0)
+        self._update_running(ctx, st, mean.detach(), var.detach(), x, world)
+        inv = torch.rsqrt(var + self.eps)
+        scale, shift = inv, -mean * inv
+        if self.affine:
+            p = self.own(params)
+            scale = scale * p["weight"]
+            shift = shift * p["weight"] + p["bias"]
+        shape = self._bshape(x)
+        return (x * scale.reshape(shape).to(x.dtype)
+                + shift.reshape(shape).to(x.dtype))
+
+    def _update_running(self, ctx, st, mean, var, x, world=1):
         m = self.momentum
-        n = x.numel() // x.shape[self.channel_axis]
+        n = x.numel() // x.shape[self.channel_axis] * world
         unbiased = var * n / max(n - 1, 1)
         ctx.put_state(self, {
             "running_mean": (1 - m) * st["running_mean"] + m * mean,

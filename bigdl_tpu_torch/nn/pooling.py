@@ -48,6 +48,14 @@ class SpatialMaxPooling(Module):
         self.format = format
         self.ceil_mode = ceil_mode
 
+    def ceil(self):
+        self.ceil_mode = True
+        return self
+
+    def floor(self):
+        self.ceil_mode = False
+        return self
+
     def apply(self, params, x, ctx):
         xc = to_nchw(x, self.format)
         pads = [_pool_pads(xc.shape[2 + i], self.kernel[i], self.stride[i],
@@ -74,6 +82,10 @@ class SpatialAveragePooling(Module):
         self.count_include_pad = count_include_pad
         self.divide = divide
         self.format = format
+
+    def ceil(self):
+        self.ceil_mode = True
+        return self
 
     def apply(self, params, x, ctx):
         xc = to_nchw(x, self.format)

@@ -190,7 +190,8 @@ def make_train_step(model, criterion, optim_method: OptimMethod,
 
     ``device_augment(x, generator)`` (a
     :class:`~bigdl_tpu_torch.data.device_augment.DeviceAugment`) runs on
-    the batch first, drawing from ``generator``.  ``n_accum`` > 1 splits
+    the batch first, drawing from ``generator``; the model's random
+    layers (dropout) draw from it after, through the step's ``Ctx``.  ``n_accum`` > 1 splits
     the batch into that many microbatches (:func:`make_accum_grads`) for
     one update on their mean gradient; the regularizers' loss and
     gradient are then added once, outside the loop
@@ -205,7 +206,8 @@ def make_train_step(model, criterion, optim_method: OptimMethod,
     exchange: one exchange a step, whatever ``n_accum`` is.
     """
     grads_fn = make_accum_grads(
-        make_loss_fn(model, criterion, regularize=n_accum < 2), n_accum)
+        make_loss_fn(model, criterion, regularize=n_accum < 2,
+                     generator=generator), n_accum)
 
     def step(params, opt_state, model_state, x, y):
         if device_augment is not None:
@@ -237,13 +239,15 @@ def make_accum_train_step(model, criterion, optim_method: OptimMethod,
                            generator=generator)
 
 
-def make_loss_fn(model, criterion, regularize: bool = True):
+def make_loss_fn(model, criterion, regularize: bool = True,
+                 generator=None):
     """``loss_fn(params, model_state, x, y) -> (loss, new_state)``: the
-    training-mode forward, the criterion on the fp32 output, the side
-    losses and (with ``regularize``) the regularization loss."""
+    training-mode forward (its random layers drawing from ``generator``),
+    the criterion on the fp32 output, the side losses and (with
+    ``regularize``) the regularization loss."""
 
     def loss_fn(params, model_state, x, y):
-        ctx = Ctx(state=model_state, training=True)
+        ctx = Ctx(state=model_state, training=True, generator=generator)
         out = model.apply(params, x, ctx)
         if torch.is_floating_point(out):
             out = out.float()
@@ -379,7 +383,7 @@ class Optimizer:
     redraw them.  ``seed`` seeds the loop's device generator, a new
     ``torch.Generator`` on the device at each :meth:`optimize` seeded with
     ``seed + 13`` (≙ the reference's ``PRNGKey(seed + 13)``), which the
-    device augmentation draws from; the reference's seed also draws the
+    device augmentation and then the model's dropout draw from; the reference's seed also draws the
     initial parameters, where the port takes the model's own
     (``build(seed=)``).  :attr:`recorder` takes the ``dataloader/*``
     counters under prefetch."""
@@ -528,12 +532,11 @@ class Optimizer:
                                **self._step_options())
 
     def _step_options(self) -> dict:
-        """The step's accumulation and augmentation (with a new loop
-        generator)."""
+        """The step's accumulation and augmentation, and a new loop
+        generator (the augmentation's and the model's draws)."""
         return dict(n_accum=self._grad_accum,
                     device_augment=self._device_augment,
-                    generator=None if self._device_augment is None
-                    else self._generator())
+                    generator=self._generator())
 
     def _layout_params(self, params):
         return params

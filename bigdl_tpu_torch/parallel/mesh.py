@@ -128,6 +128,18 @@ def get_mesh() -> Mesh:
     return _current_mesh
 
 
+def axis_group(axis: str):
+    """``(process group, size)`` of the current mesh's axis ``axis`` (a
+    sync BN's ``sync_axis``).  Outside a mesh it raises: it never starts
+    one."""
+    if _current_mesh is None:
+        raise RuntimeError(f"axis {axis!r}: no mesh is current; call "
+                           f"parallel.mesh.create_mesh first")
+    if axis not in _current_mesh.shape:
+        raise ValueError(f"axis {axis!r} is not an axis of {_current_mesh}")
+    return _current_mesh.group, _current_mesh.shape[axis]
+
+
 def set_mesh(mesh: Optional[Mesh]):
     global _current_mesh
     _current_mesh = mesh

@@ -212,11 +212,36 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 the native prep and the numpy chain a batch, the device's
                 time by class with the augmentation's share, busy share,
                 peak memory.
+ 10. vgg      — the rest of the nn shell.  (a) BigDL's VGG-16 for
+                CIFAR-10 at the reference's benchmark setting
+                (``bench.py`` ``bench_vgg16``): ``vgg.build(class_num=10,
+                dataset="cifar10", format="NHWC", seed=0)`` with dropout,
+                bf16 over fp32 masters, batch 512, ``SGD(0.1,
+                momentum=0.9, weight_decay=1e-4, fused=True)`` through
+                ``LocalOptimizer`` on synthetic CIFAR-10 (``data/cifar.py``,
+                normalized) for 2 epochs of 6 steps with validation on 512
+                held-out images, counted from 0: K5 once a step, bitwise
+                the ``fused=False`` run at the same seed (the masks come
+                from the loop's generator), another seed's losses differ,
+                two evaluations give the same bits, the loss falls; one
+                Dropout(0.4) on a 512x32x32x64 bf16 tensor zeroes
+                0.4 +- 0.005 and keeps x / bf16(0.6) exactly.  (b) LeNet-5
+                as a ``Graph`` against the ``Sequential`` (the same seed
+                draws the same weights): 8 steps of the Torch-shell loop
+                and 2 epochs of ``LocalOptimizer`` with ``SGD(fused=True)``
+                (K6 once a step), each bitwise.  (c) ResNet-50 ImageNet
+                NHWC bf16 b256 through ``DistriOptimizer`` at dp=1 over
+                NCCL, 4 steps: A plain, B ``remat=True`` (bitwise A in
+                losses, weights and BN state; peak memory below A's), C
+                ``stem="s2d", remat=True, sync_bn_axis="dp"`` (within 2e-2
+                of A at every step); K5 once a step.  Readings: VGG's step
+                median, images/s, device time by class, busy share and
+                peak memory; step and peak of A, B, C and B at b512.
 
 Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"stream": {...}}`` line, a
 ``{"classifier": {...}}`` line, a ``{"distri": {...}}`` line, a
-``{"recipe": {...}}`` line, a
+``{"recipe": {...}}`` line, a ``{"vgg": {...}}`` line, a
 ``{"host_sync": {...}}`` line, a
 ``{"kernels": [...]}`` line (all six
 kernels), the card's name and power limit as nvidia-smi gives them, and
@@ -2442,11 +2467,12 @@ def _step_peak_gb(model, x, y, mixed, old_bn):
 
 def _train_run(model, w0, s0, data, batch, *, mixed=True, fused=True,
                mesh=None, prefetch=0, val=None, audit=False, no_cast=False,
-               keep_opt=False, **distri_kw):
-    """One training run of ResNet-50 from the weights ``w0`` and BN state
-    ``s0`` for DISTRI_EPOCHS epochs: LocalOptimizer, or DistriOptimizer
-    over ``mesh``.  Returns losses, step ms (CUDA events between the ends
-    of consecutive steps), K5 launches, and the optimizer."""
+               keep_opt=False, seed=0, **distri_kw):
+    """One training run of a classifier (ResNet-50, VGG-16) from the
+    weights ``w0`` and BN state ``s0`` for DISTRI_EPOCHS epochs:
+    LocalOptimizer, or DistriOptimizer over ``mesh``, with the loop's
+    ``seed``.  Returns losses, step ms (CUDA events between the ends of
+    consecutive steps), K5 launches, and the optimizer."""
     from bigdl_tpu_torch.data.device_loader import HostToDevice
     from bigdl_tpu_torch.nn import ClassNLLCriterion
     from bigdl_tpu_torch.ops import _build
@@ -2461,12 +2487,12 @@ def _train_run(model, w0, s0, data, batch, *, mixed=True, fused=True,
     x, y = data
     if mesh is None:
         opt = LocalOptimizer(model, (x, y), ClassNLLCriterion(),
-                             batch_size=batch)
+                             batch_size=batch, seed=seed)
         method = SGD(fused=fused, **RESNET_SGD)
     else:
         opt = DistriOptimizer(model, (x, y), ClassNLLCriterion(),
                               batch_size=batch, mesh=mesh, fused_optim=True,
-                              **distri_kw)
+                              seed=seed, **distri_kw)
         method = SGD(**RESNET_SGD)
     opt.set_optim_method(method).set_end_when(Trigger.max_epoch(
         DISTRI_EPOCHS))
@@ -3518,6 +3544,482 @@ def phase_recipe(card: str, distri_prefetch: dict) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# phase_vgg: the nn shell on the card (VGG-16 CIFAR-10, LeNet's Graph,  #
+# ResNet-50 with the s2d stem, Remat and sync BN)                       #
+# --------------------------------------------------------------------- #
+VGG_BATCH, VGG_STEPS_PER_EPOCH, VGG_VAL = 512, 6, 512   # 2 epochs
+VGG_DROPOUT_SHAPE = (512, 32, 32, 64)   # the first Dropout(0.3)'s input
+VGG_DROPOUT_P, VGG_DROPOUT_SHARE_TOL = 0.4, 0.005
+RES_IMAGES, RES_BATCH = 2048, 256       # leg (c): 2 epochs of 8 steps
+RES_BIG_BATCH, RES_BIG_IMAGES = 512, 1024   # and B at b512, 2 epochs of 2
+RES_BAND_REL = BF16_LOSS_REL            # C against A, every step
+# leg (c)'s parts on their own, at the shapes C gives them.  The s2d stem
+# against the plain 7x7/2 conv on the same weights, fp32 with TF32 off,
+# relative to the largest entry: both are fp32 sums of the same 147
+# products a pixel in other orders (~1e-6); the weight gradient sums 3.2 M
+# of them a tap, held to the repo's per-leaf gradient rule.  A planted
+# fault (the kernel regrouped in the order (0, 5, 3, 1, 2, 4)) must fail
+# S2D_REL.
+S2D_SHAPE = (256, 224, 224, 3)
+S2D_REL, S2D_DW_REL = 1e-5, 1e-4
+# sync BN at world size 1 against _BNTrain on C's first BN: in fp32 both
+# compute max(E[x²] − mean², 0) in fp32, so every output and the running
+# statistics within BN_F32_REL; in bf16, against autograd through the
+# fp32 formula, y and dx within _BNTrain's limit BN_BF16_OUT_REL, and
+# dgamma and dbeta within the bf16 band BF16_LOSS_REL: autodiff rounds
+# the cotangents of the bf16 scale and shift to bf16 before they combine,
+# as the reference's sync path does
+SYNC_BN_SHAPE = (256, 112, 112, 64)
+
+
+def _cifar_nhwc(n, seed):
+    """``n`` images of ``data/cifar.py``'s synthetic CIFAR-10, normalized
+    by its per-channel mean and std, NHWC fp32, with 1-based labels."""
+    from bigdl_tpu_torch.data import cifar
+    x, y = cifar._synthetic(n, seed)
+    mean = np.asarray(cifar.TRAIN_MEAN, np.float32)[:, None, None]
+    std = np.asarray(cifar.TRAIN_STD, np.float32)[:, None, None]
+    xf = ((x.astype(np.float32) - mean) / std).transpose(0, 2, 3, 1)
+    return np.ascontiguousarray(xf), (y.astype(np.float32) + 1)
+
+
+def _dropout_check(fails):
+    """One Dropout(0.4) forward on a bf16 tensor of VGG's first stage:
+    the zeroed share, and every kept value x / bf16(0.6) rounded to
+    bf16."""
+    from bigdl_tpu_torch.nn import Ctx, Dropout
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.rand(VGG_DROPOUT_SHAPE, device="cuda", generator=g)
+         + 0.5).to(torch.bfloat16)
+    d = Dropout(VGG_DROPOUT_P)
+    y = d.apply({}, x, Ctx(training=True, generator=g))
+    zero = float((y == 0).float().mean())
+    kept = y != 0
+    want = (x.float() / torch.tensor(1 - VGG_DROPOUT_P,
+                                     dtype=torch.bfloat16).float()
+            ).to(torch.bfloat16)
+    exact = bool(torch.equal(y[kept], want[kept]))
+    fp32_scale = bool(torch.equal(y[kept], (x.float() / (1 - VGG_DROPOUT_P))
+                                  .to(torch.bfloat16)[kept]))
+    out = {"shape": list(VGG_DROPOUT_SHAPE), "p": VGG_DROPOUT_P,
+           "zero_share": zero, "kept_bitwise_x_over_bf16_keep": exact,
+           "kept_equal_fp32_division": fp32_scale}
+    log(f"dropout: {json.dumps(out)}")
+    if abs(zero - VGG_DROPOUT_P) > VGG_DROPOUT_SHARE_TOL or not exact:
+        fails.append(f"Dropout({VGG_DROPOUT_P}) on bf16: {out}")
+    return out
+
+
+def _shell_run(model, w0, data, steps, lr):
+    """``steps`` steps of the Torch-shell loop (forward,
+    Criterion.forward/backward, backward, update_parameters,
+    zero_grad_parameters) from the weights ``w0``; returns the losses and
+    the final weights."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    x, y, batch = data
+    with torch.no_grad():
+        for dst, src in zip(model.get_weights(), w0):
+            dst.copy_(src)
+    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+    crit = ClassNLLCriterion()
+    model.train()
+    losses = []
+    for i in range(steps):
+        lo = (i * batch) % len(x)
+        xb, yb = xd[lo:lo + batch], yd[lo:lo + batch]
+        out = model.forward(xb)
+        losses.append(crit.forward(out, yb).detach())
+        model.backward(xb, crit.backward(out, yb))
+        model.update_parameters(lr)
+        model.zero_grad_parameters()
+    model.evaluate()
+    return ([float(v) for v in losses],
+            [w.detach().clone() for w in model.get_weights()])
+
+
+def _vgg_leg(card, fails):
+    """Leg (a): VGG-16 CIFAR-10 at the reference's benchmark setting."""
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.models import vgg
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import Evaluator, Predictor, Top1Accuracy
+
+    model = vgg.build(class_num=10, dataset="cifar10", format="NHWC",
+                      seed=0)
+    w0 = [w.clone() for w in model.get_weights()]
+    s0 = [s.clone() for s in model.state_list()]
+    n_params = sum(w.numel() for w in w0)
+    n_drop = sum(type(m).__name__ == "Dropout" for m in model.modules())
+    log(f"VGG-16 CIFAR-10 built: {len(w0)} leaves, {n_params} params, "
+        f"{n_drop} Dropout layers")
+    x, y = _cifar_nhwc(VGG_BATCH * VGG_STEPS_PER_EPOCH, 0)
+    xv, yv = _cifar_nhwc(VGG_VAL, 1)
+    steps = DISTRI_EPOCHS * VGG_STEPS_PER_EPOCH
+    per_update = -(-len(w0) // fo.SGD_CAPACITY)
+    dropout = _dropout_check(fails)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    main = _train_run(model, w0, s0, (x, y), VGG_BATCH, val=(xv, yv),
+                      keep_opt=True)
+    launches = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    opt = main.pop("opt")
+    val = [r.result() for _, r in opt.last_validation]
+    final = [t.clone() for t in model.get_weights() + model.state_list()]
+    # inference twice: dropout is off, so the same bits
+    p1 = Predictor(model, batch_size=VGG_VAL).predict(xv)
+    p2 = Predictor(model, batch_size=VGG_VAL).predict(xv)
+    ev1 = [r.result() for _, r in Evaluator(model, VGG_VAL).test(
+        (xv, yv), [Top1Accuracy()])]
+    ev2 = [r.result() for _, r in Evaluator(model, VGG_VAL).test(
+        (xv, yv), [Top1Accuracy()])]
+    plain = _train_run(model, w0, s0, (x, y), VGG_BATCH, fused=False)
+    plain_bits = _same_bits(model, final)
+    other = _train_run(model, w0, s0, (x, y), VGG_BATCH, seed=1)
+    if _build.launch_counts() != {fo.SGD_MOM: 2 * steps * per_update}:
+        fails.append(f"VGG: the plain run launched, or the seed=1 run did "
+                     f"not: {_build.launch_counts()}")
+    profile = profile_steps(lambda: _train_run(model, w0, s0, (x, y),
+                                               VGG_BATCH), steps=steps,
+                            classes=DISTRI_CLASSES, top=12,
+                            ranges=("_BNTrain", "_BNTrainBackward"))
+    want = {fo.SGD_MOM: steps * per_update}
+    if launches != want:
+        fails.append(f"VGG launches {launches}, expected {want}")
+    if main["losses"] != plain["losses"] or not plain_bits:
+        fails.append(f"VGG fused and plain differ: {main['losses']} vs "
+                     f"{plain['losses']}, weights bitwise {plain_bits}")
+    if other["losses"] == main["losses"]:
+        fails.append("VGG: the seed=1 run gave the seed=0 losses: the "
+                     "dropout draws do not reach the model")
+    if not (np.array_equal(p1, p2) and ev1 == ev2):
+        fails.append(f"VGG: two evaluations differ: Top1 {ev1} vs {ev2}")
+    if not all(np.isfinite(main["losses"])) or not \
+            main["losses"][-1] < main["losses"][0]:
+        fails.append(f"VGG loss did not fall: {main['losses']}")
+    if not (np.isfinite(p1).all() and p1.shape == (VGG_VAL, 10)):
+        fails.append(f"VGG predictions {p1.shape}, finite "
+                     f"{np.isfinite(p1).all()}")
+    return {"config": "vgg.build(class_num=10, dataset='cifar10', format="
+                      "'NHWC', seed=0), dropout on; LocalOptimizer(batch_"
+                      "size=512, seed=0), set_mixed_precision(), SGD(0.1, "
+                      "momentum=0.9, weight_decay=1e-4, fused=True), 2 "
+                      "epochs of 6 steps on synthetic CIFAR-10, "
+                      "set_validation(every_epoch, 512 images, [Top1, Top5,"
+                      " Loss])",
+            "leaves": len(w0), "params": n_params, "dropout_layers": n_drop,
+            "losses": main["losses"], "losses_plain": plain["losses"],
+            "losses_seed1": other["losses"],
+            "fused_vs_plain_bitwise": main["losses"] == plain["losses"]
+            and plain_bits, "validation": val, "top1_twice": [ev1, ev2],
+            "dropout": dropout, "launches": launches,
+            "readings": {**_steady(main, VGG_BATCH), "peak_mem_gb": peak,
+                         "profile": profile}}
+
+
+def _lenet_graph_leg(fails):
+    """Leg (b): LeNet-5 as a Graph against the Sequential, through the
+    Torch shell and through LocalOptimizer on K6."""
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import SGD
+
+    seq, graph = lenet.build(10, seed=0), lenet.build_graph(10, seed=0)
+    w0 = [w.clone() for w in seq.get_weights()]
+    same_init = all(torch.equal(a, b) for a, b in zip(
+        w0, graph.get_weights()))
+    rs = np.random.RandomState(3)
+    lx = rs.randn(LENET_ROWS, 1, 28, 28).astype(np.float32)
+    proj = rs.randn(784, 10).astype(np.float32)
+    ly = (np.argmax(lx.reshape(LENET_ROWS, -1) @ proj, 1) + 1).astype(
+        np.float32)
+    data = (lx, ly, LENET_BATCH)
+    steps = LENET_EPOCHS * LENET_ROWS // LENET_BATCH
+    shell = {name: _shell_run(m, w0, data, steps, LENET_SGD["learning_rate"])
+             for name, m in (("sequential", seq), ("graph", graph))}
+    shell_bits = (shell["sequential"][0] == shell["graph"][0] and all(
+        torch.equal(a, b) for a, b in zip(shell["sequential"][1],
+                                          shell["graph"][1])))
+    loop, launches = {}, {}
+    for name, m in (("graph", graph), ("sequential", seq)):
+        _build.reset_launch_counts()
+        loop[name], _ = _classifier_run(m, data, SGD(fused=True,
+                                                     **LENET_SGD),
+                                        LENET_EPOCHS, w0, [])
+        launches[name] = _build.launch_counts()
+    loop_bits = loop["graph"] == loop["sequential"] and all(
+        torch.equal(a, b) for a, b in zip(seq.get_weights(),
+                                          graph.get_weights()))
+    want = {fo.SGD_PLAIN: -(-len(w0) // fo.SGD_CAPACITY) * steps}
+    if not same_init:
+        fails.append("lenet.build_graph(seed=0) drew other weights than "
+                     "lenet.build(seed=0)")
+    if not shell_bits:
+        fails.append(f"LeNet Torch shell: Graph {shell['graph'][0]} vs "
+                     f"Sequential {shell['sequential'][0]}")
+    if not loop_bits:
+        fails.append(f"LeNet LocalOptimizer: Graph {loop['graph']} vs "
+                     f"Sequential {loop['sequential']}")
+    if any(v != want for v in launches.values()):
+        fails.append(f"LeNet launches {launches}, expected {want} each")
+    for name, losses in (("shell", shell["graph"][0]),
+                         ("loop", loop["graph"])):
+        if not losses[-1] < losses[0]:
+            fails.append(f"LeNet {name} loss did not fall: {losses}")
+    return {"config": "lenet.build_graph(10, seed=0) against lenet.build("
+                      "10, seed=0): 8 steps of the Torch shell at lr 0.05, "
+                      "then LocalOptimizer SGD(0.05, fused=True)",
+            "shell_losses": shell["graph"][0],
+            "shell_bitwise": shell_bits, "loop_losses": loop["graph"],
+            "loop_bitwise": loop_bits, "launches_by_run": launches,
+            "launches": launches["graph"]}
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()
+            ).item()
+
+
+def _s2d_check(fails):
+    """``SpaceToDepthConvolution`` against ``SpatialConvolution`` on the
+    same weights at ResNet-50's stem (S2D_SHAPE, fp32): the output and the
+    weight gradient; then the planted wrong regroup order."""
+    from bigdl_tpu_torch.nn import (Ctx, SpaceToDepthConvolution,
+                                    SpatialConvolution)
+    args = (3, 64, 7, 7, 2, 2, 3, 3)
+    conv = SpatialConvolution(*args, with_bias=False, format="NHWC")
+    s2d = SpaceToDepthConvolution(*args, with_bias=False, format="NHWC")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    w = conv.weight.detach().cuda().requires_grad_()
+    x = torch.randn(S2D_SHAPE, device="cuda", generator=g)
+    dy = torch.randn((S2D_SHAPE[0], 112, 112, 64), device="cuda",
+                     generator=g)
+
+    def run(m):
+        y = m.apply({m.name: {"weight": w}}, x, Ctx())
+        return y.detach(), torch.autograd.grad(y, w, dy)[0]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        (y0, g0), (y1, g1) = run(conv), run(s2d)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    permute = torch.Tensor.permute
+
+    def swapped(t, *dims):
+        return permute(t, *((0, 5, 3, 1, 2, 4) if dims == (0, 3, 5, 1, 2, 4)
+                            else dims))
+    torch.Tensor.permute = swapped
+    try:
+        with torch.no_grad():
+            y2 = s2d.apply({s2d.name: {"weight": w}}, x, Ctx())
+    finally:
+        torch.Tensor.permute = permute
+    out = {"shape": list(S2D_SHAPE), "y_rel": _rel(y1, y0),
+           "dw_rel": _rel(g1, g0), "planted_y_rel": _rel(y2, y0),
+           "limits": [S2D_REL, S2D_DW_REL]}
+    log(f"s2d stem against the plain conv: {json.dumps(out)}")
+    if not (out["y_rel"] <= S2D_REL and out["dw_rel"] <= S2D_DW_REL):
+        fails.append(f"s2d stem against the plain conv: {out}")
+    if not out["planted_y_rel"] > S2D_REL:
+        fails.append(f"the planted s2d regroup passed: {out}")
+    return out
+
+
+def _bn_train_pass(sync, x, dy, gamma, beta):
+    """One training pass of an NHWC ``SpatialBatchNormalization``, with
+    ``sync_axis="dp"`` or on ``_BNTrain``: y, dx, dgamma, dbeta and the new
+    running mean and variance, in fp32."""
+    from bigdl_tpu_torch.nn import Ctx, SpatialBatchNormalization
+    m = SpatialBatchNormalization(x.shape[-1], format="NHWC",
+                                  sync_axis="dp" if sync else None).cuda()
+    xx = x.detach().requires_grad_()
+    gg, bb = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+    ctx = Ctx(state=m.initial_state(), training=True)
+    y = m.apply({m.name: {"weight": gg, "bias": bb}}, xx, ctx)
+    grads = torch.autograd.grad(y, (xx, gg, bb), dy)
+    st = ctx.new_state[m.name]
+    return [t.detach().float() for t in (y, *grads, st["running_mean"],
+                                         st["running_var"])]
+
+
+def _sync_bn_check(fails):
+    """Sync BN at world size 1 (NCCL) against ``_BNTrain`` on C's first BN
+    (SYNC_BN_SHAPE), fp32 and bf16; inside the current dp mesh."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    c = SYNC_BN_SHAPE[-1]
+    x = torch.randn(SYNC_BN_SHAPE, device="cuda", generator=g) * 2 + 1
+    dy = torch.randn(SYNC_BN_SHAPE, device="cuda", generator=g)
+    gamma = torch.rand(c, device="cuda", generator=g) + 0.5
+    beta = torch.randn(c, device="cuda", generator=g)
+    names = ("y", "dx", "dgamma", "dbeta", "running_mean", "running_var")
+    sync = _bn_train_pass(True, x, dy, gamma, beta)
+    plain = _bn_train_pass(False, x, dy, gamma, beta)
+    f32 = {n: _rel(a, b) for n, a, b in zip(names, sync, plain)}
+    xb, dyb = x.bfloat16(), dy.bfloat16()
+    xf = xb.float().requires_grad_()
+    gf, bf = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+    yf = _old_bn(xf, gf, bf, 3, 1e-5)[0]
+    ref = (yf, *torch.autograd.grad(yf, (xf, gf, bf), dyb.float()))
+    bf16 = {kind: {n: _rel(a, b) for n, a, b in zip(
+        names, _bn_train_pass(kind == "sync", xb, dyb, gamma, beta), ref)}
+        for kind in ("sync", "bntrain")}
+    out = {"shape": list(SYNC_BN_SHAPE), "fp32_sync_vs_bntrain": f32,
+           "bf16_vs_fp32_formula": bf16,
+           "limits": {"fp32": BN_F32_REL, "bf16_y_dx": BN_BF16_OUT_REL,
+                      "bf16_dgamma_dbeta": BF16_LOSS_REL}}
+    log(f"sync BN against _BNTrain: {json.dumps(out)}")
+    bad = [f"fp32 {n} {e:.3e}" for n, e in f32.items() if not e <= BN_F32_REL]
+    bad += [f"bf16 {n} {bf16['sync'][n]:.3e}" for n, limit in (
+        ("y", BN_BF16_OUT_REL), ("dx", BN_BF16_OUT_REL),
+        ("dgamma", BF16_LOSS_REL), ("dbeta", BF16_LOSS_REL))
+        if not bf16["sync"][n] <= limit]
+    if bad:
+        fails.append(f"sync BN against _BNTrain: {', '.join(bad)}")
+    return out
+
+
+def _resnet_leg(card, fails):
+    """Leg (c): the s2d stem and sync BN on their own, then ResNet-50
+    ImageNet NHWC bf16 b256 through DistriOptimizer at dp=1: A conv stem,
+    B + remat, C s2d stem + remat + sync BN."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.parallel import mesh as mesh_lib
+
+    s2d = _s2d_check(fails)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((max(RES_IMAGES, RES_BIG_IMAGES), 224, 224, 3),
+                            dtype=np.float32)
+    y = (rng.integers(0, 1000, len(x)) + 1).astype(np.float32)
+    d256 = (x[:RES_IMAGES], y[:RES_IMAGES])
+    d512 = (x[:RES_BIG_IMAGES], y[:RES_BIG_IMAGES])
+    d_prof = (x[:2 * RES_BATCH], y[:2 * RES_BATCH])   # profiled: 2 x 2 steps
+    variants = {"A": dict(), "B": dict(remat=True),
+                "C": dict(stem="s2d", remat=True, sync_bn_axis="dp")}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    store = tempfile.mkdtemp(prefix="vgg_", dir=str(_build.BUILD_DIR))
+    mesh_lib.init_distributed(f"file://{store}/store", 0, 1)
+    mesh = mesh_lib.create_mesh({"dp": 1})
+    runs, finals, launches, peaks, profiles = {}, {}, {}, {}, {}
+    steps = DISTRI_EPOCHS * RES_IMAGES // RES_BATCH
+    try:
+        sync_bn = _sync_bn_check(fails)
+        torch.cuda.empty_cache()
+        w0 = s0 = None
+        for name, kw in variants.items():
+            model = resnet.build(class_num=1000, depth=50, format="NHWC",
+                                 seed=0, **kw)
+            if w0 is None:
+                w0 = [w.clone() for w in model.get_weights()]
+                s0 = [s.clone() for s in model.state_list()]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            runs[name] = _train_run(model, w0, s0, d256, RES_BATCH,
+                                    mesh=mesh)
+            launches[name] = _build.launch_counts()
+            peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+            finals[name] = [t.clone() for t in
+                            model.get_weights() + model.state_list()]
+            log(f"ResNet-50 {name} {kw}: losses {runs[name]['losses']}; "
+                f"peak {peaks[name]:.2f} GB; launches {launches[name]}")
+            if name in ("A", "C"):
+                profiles[name] = profile_steps(
+                    lambda: _train_run(model, w0, s0, d_prof, RES_BATCH,
+                                       mesh=mesh),
+                    steps=DISTRI_EPOCHS * 2, classes=DISTRI_CLASSES)
+            if name == "B":
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                runs["B_b512"] = _train_run(model, w0, s0, d512,
+                                            RES_BIG_BATCH, mesh=mesh)
+                peaks["B_b512"] = torch.cuda.max_memory_allocated() / 1e9
+            del model
+    finally:
+        torch.distributed.destroy_process_group()
+        mesh_lib.set_mesh(None)
+        shutil.rmtree(store, ignore_errors=True)
+    want = {fo.SGD_MOM: steps * -(-len(w0) // fo.SGD_CAPACITY)}
+    for name in variants:
+        if launches[name] != want:
+            fails.append(f"ResNet-50 {name} launches {launches[name]}, "
+                         f"expected {want}")
+    b_bits = runs["B"]["losses"] == runs["A"]["losses"] and all(
+        torch.equal(a, b) for a, b in zip(finals["A"], finals["B"]))
+    if not b_bits:
+        fails.append(f"ResNet-50 remat is not bitwise the plain run: "
+                     f"{runs['B']['losses']} vs {runs['A']['losses']}")
+    band = _max_rel(runs["C"]["losses"], runs["A"]["losses"])
+    if not (all(np.isfinite(runs["C"]["losses"])) and band <= RES_BAND_REL):
+        fails.append(f"ResNet-50 s2d + sync BN outside the bf16 band of A: "
+                     f"{band:.3e} > {RES_BAND_REL}")
+    if not peaks["B"] < peaks["A"]:
+        fails.append(f"remat did not lower the peak: B {peaks['B']:.2f} GB "
+                     f"vs A {peaks['A']:.2f} GB")
+    for name in ("A", "C"):
+        if not runs[name]["losses"][-1] < runs[name]["losses"][0]:
+            fails.append(f"ResNet-50 {name} loss did not fall: "
+                         f"{runs[name]['losses']}")
+    readings = {name: {**_steady(runs[name], RES_BIG_BATCH if name ==
+                                 "B_b512" else RES_BATCH),
+                       "peak_mem_gb": peaks[name]} for name in runs}
+    total = {}
+    for name in variants:
+        for k, v in launches[name].items():
+            total[k] = total.get(k, 0) + v
+    return {"config": "resnet.build(class_num=1000, depth=50, format="
+                      "'NHWC', seed=0) + A: stem='conv'; B: remat=True; C: "
+                      "stem='s2d', remat=True, sync_bn_axis='dp'; "
+                      "DistriOptimizer(batch_size=256, mesh=create_mesh("
+                      "{'dp': 1}), fused_optim=True), set_mixed_precision(),"
+                      " SGD(0.1, momentum=0.9, weight_decay=1e-4), 2 epochs"
+                      " of 8 steps; B again at batch 512, 2 epochs of 2; "
+                      "NCCL at world size 1",
+            "s2d_check": s2d, "sync_bn_check": sync_bn,
+            "losses": {k: v["losses"] for k, v in runs.items()},
+            "remat_bitwise": b_bits, "s2d_sync_vs_conv_max_rel": band,
+            "band": RES_BAND_REL, "launches_by_run": launches,
+            "launches": total, "readings": readings, "profiles": profiles}
+
+
+def phase_vgg(card: str):
+    """The rest of the nn shell on the card: (a) VGG-16 CIFAR-10 at the
+    reference's benchmark configuration on K5, (b) LeNet-5 as a Graph
+    through the Torch shell and on K6, (c) ResNet-50 with Remat and with
+    the s2d stem and sync BN on K5."""
+    fails = []
+    t0 = time.monotonic()
+    vgg = _vgg_leg(card, fails)
+    log(f"vgg leg (a): {time.monotonic() - t0:.1f} s")
+    lenet_graph = _lenet_graph_leg(fails)
+    log(f"vgg leg (b): {time.monotonic() - t0:.1f} s")
+    resnet_variants = _resnet_leg(card, fails)
+    log(f"vgg leg (c): {time.monotonic() - t0:.1f} s")
+    launches = {}
+    for leg in (vgg, lenet_graph, resnet_variants):
+        for k, v in leg["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    out = {"vgg16_cifar10": vgg, "lenet_graph": lenet_graph,
+           "resnet50_variants": resnet_variants, "launches": launches,
+           "seconds": time.monotonic() - t0, "card": card}
+    log(f"vgg: {json.dumps(out)}")
+    if fails:
+        raise AssertionError("vgg phase: " + "; ".join(fails))
+    return out
+
+
+# --------------------------------------------------------------------- #
 DECODE_ENGINE = dict(slots=8, page_size=16, max_context=1024, max_prompt=512,
                      max_new_tokens=64)
 DECODE_REQUESTS, DECODE_CLIENTS, DECODE_NEW = 24, 3, 64
@@ -4434,6 +4936,7 @@ def main() -> int:
     prefetch_run = distri["readings"]["dp1_b256_prefetch"]
     recipe = phase_recipe(card, {k: prefetch_run[k] for k in (
         "step_ms_median", "images_per_s")})
+    vgg = phase_vgg(card)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
@@ -4441,7 +4944,8 @@ def main() -> int:
                "replica_serving": stream["replica_serving"]["launches"],
                "classifier": classifier["launches"],
                "distri": distri["launches"],
-               "recipe": recipe["launches"]}
+               "recipe": recipe["launches"],
+               "vgg": vgg["launches"]}
     kernels = [k1, *k23, k4, k5, k6]
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
@@ -4455,6 +4959,7 @@ def main() -> int:
     print(json.dumps({"classifier": classifier}), flush=True)
     print(json.dumps({"distri": distri}), flush=True)
     print(json.dumps({"recipe": recipe}), flush=True)
+    print(json.dumps({"vgg": vgg}), flush=True)
     print(json.dumps({"host_sync": host_sync}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

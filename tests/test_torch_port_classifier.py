@@ -232,8 +232,16 @@ def test_batch_norm_state_roundtrip_and_sync_axis_raises():
     assert torch.equal(tm.running_var, torch.full((3,), 4.0))
     with pytest.raises(ValueError, match="set_state"):
         tm.set_state({"other": st})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnn.SpatialBatchNormalization(3, sync_axis="dp")
+    # sync BN: built anywhere, runs inference anywhere, and its training
+    # forward resolves the axis on the current mesh (none here: raises)
+    sync = tnn.SpatialBatchNormalization(3, sync_axis="dp")
+    x = torch.ones(2, 3, 2, 2)
+    assert torch.equal(sync.run(sync.param_dict(), x,
+                                state=sync.initial_state())[0],
+                       x / np.sqrt(np.float32(1.0 + 1e-5)))
+    with pytest.raises(RuntimeError, match="no mesh is current"):
+        sync.run(sync.param_dict(), x, state=sync.initial_state(),
+                 training=True)
 
 
 def test_relu_gradient_at_exact_zero_is_half():
@@ -477,12 +485,16 @@ def test_from_jax_weights_checks_counts_and_shapes_first():
 
 
 def test_unported_model_options_raise():
-    for kw in (dict(shortcut_type="A"), dict(stem="s2d", format="NHWC"),
-               dict(remat=True), dict(sync_bn_axis="dp")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TR.build(depth=18, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.build_graph(10)
+    """The options the reference itself refuses, and shortcut type A in
+    NHWC, which the reference builds but cannot run (ROADMAP C6)."""
+    with pytest.raises(ValueError, match="C6"):
+        TR.build(depth=18, shortcut_type="A", format="NHWC", device="cpu")
+    for kw, what in ((dict(stem="s2d"), "requires format='NHWC'"),
+                     (dict(stem="s2d", format="NHWC", dataset="cifar10",
+                           depth=8), "requires format='NHWC'"),
+                     (dict(stem="patchify"), "unknown stem")):
+        with pytest.raises(ValueError, match=what):
+            TR.build(**{"depth": 18, **kw}, device="cpu")
     with pytest.raises(ValueError, match="6n\\+2"):
         TR.build(depth=9, dataset="cifar10", device="cpu")
 
