@@ -14,11 +14,16 @@ The port has the reference's control-flow sites on its serving path::
                         them over)
     serving.publish     the canary publisher's staging step
 
-The other names of :data:`SITES` (checkpoint, data, HTTP, step dispatch,
-fleet) parse, so that one ``BIGDL_FAULT`` value means the same to both
-packages, but no code of the port reaches them yet, and the write-site
-half of the reference (``filter_write``) is not ported: the port writes
-no checkpoint or shard.
+and the reference's two write sites, which every byte the checkpoint
+writer puts on disk passes through (:func:`filter_write`, called by
+``checkpoint.faults.guarded_write``)::
+
+    ckpt.shard_write    one shard file of a checkpoint
+    ckpt.manifest       one manifest (or part-manifest) write
+
+The other names of :data:`SITES` (data, HTTP, step dispatch, fleet)
+parse, so that one ``BIGDL_FAULT`` value means the same to both
+packages, but no code of the port reaches them yet.
 
 Grammar (``BIGDL_FAULT`` env var or :func:`arm`)::
 
@@ -27,9 +32,11 @@ Grammar (``BIGDL_FAULT`` env var or :func:`arm`)::
     modes:   err:<errno>      raise OSError(errno) — number or name
              delay:<ms>       block for <ms> milliseconds (in chunks of
                               at most 50 ms)
-             corrupt:<n>      write sites only; never fires at a control
-                              site
-             kill:<n>         immediate ``os._exit(KILL_EXIT_CODE)``
+             corrupt:<n>      write sites only: flip the last <n> bytes;
+                              never fires at a control site
+             kill:<n>         at a control site, immediate
+                              ``os._exit(KILL_EXIT_CODE)``; at a write
+                              site, after the first <n> bytes are durable
 
     @<nth>:  ``@2`` fires ONLY on the 3rd match of that site (0-based),
              ``@2+`` on every match from the 3rd onward; omitted = every
@@ -46,7 +53,7 @@ import errno as _errno
 import os
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 ENV_VAR = "BIGDL_FAULT"
 #: the reference's kill exit code — parents of kill tests match it
@@ -241,6 +248,11 @@ def _sleep_chunked(seconds: float) -> None:
         time.sleep(left if left < 0.05 else 0.05)
 
 
+def _raise_err(spec: FaultSpec, site: str):
+    raise OSError(spec.arg, f"injected fault at {site} "
+                            f"[{_errno.errorcode.get(spec.arg, spec.arg)}]")
+
+
 def inject(site: str, recorder=None) -> bool:
     """Control-flow sites: raise ``err``, block ``delay``, die ``kill`` per
     the armed plan.  ``corrupt`` has no payload here: the spec never fires
@@ -251,8 +263,7 @@ def inject(site: str, recorder=None) -> bool:
         return False
     _record(site, spec.mode, recorder)
     if spec.mode == "err":
-        raise OSError(spec.arg, f"injected fault at {site} "
-                                f"[{_errno.errorcode.get(spec.arg, spec.arg)}]")
+        _raise_err(spec, site)
     if spec.mode == "delay":
         _sleep_chunked(spec.arg / 1e3)
     elif spec.mode == "kill":
@@ -260,5 +271,30 @@ def inject(site: str, recorder=None) -> bool:
     return True
 
 
+def filter_write(site: str, data: bytes, recorder=None
+                 ) -> Tuple[bytes, Optional[int]]:
+    """Write sites: returns ``(payload, kill_offset)``.  ``err`` raises
+    before any byte lands, ``delay`` blocks, ``corrupt`` flips the last
+    ``n`` bytes (a torn tail that CRC verification must catch), and
+    ``kill`` hands the caller the offset for its flush-the-prefix-then-die
+    protocol (``checkpoint.faults.guarded_write``)."""
+    spec = _match(site)
+    if spec is None:
+        return data, None
+    _record(site, spec.mode, recorder)
+    if spec.mode == "err":
+        _raise_err(spec, site)
+    if spec.mode == "delay":
+        _sleep_chunked(spec.arg / 1e3)
+        return data, None
+    if spec.mode == "corrupt":
+        n = max(1, min(spec.arg, len(data))) if data else 0
+        if n:
+            data = data[:-n] + bytes(b ^ 0xFF for b in data[-n:])
+        return data, None
+    return data, min(max(spec.arg, 0), len(data))       # kill
+
+
 __all__ = ["ENV_VAR", "KILL_EXIT_CODE", "SITES", "FaultSpec", "parse",
-           "arm", "disarm", "reset", "injected_total", "inject"]
+           "arm", "disarm", "reset", "injected_total", "inject",
+           "filter_write"]

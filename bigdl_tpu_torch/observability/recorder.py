@@ -1,18 +1,25 @@
-"""Thread-safe telemetry recorder — the part the serving engine uses.
+"""Thread-safe telemetry recorder (≙ ``bigdl_tpu/observability/recorder.py``).
 
-Port of ``bigdl_tpu/observability/recorder.py``: counters (``inc``),
-gauges (``gauge``), histograms with p50/p95/p99 over a bounded recent
-window (``observe``, ``hist_summary``, ``hist_quantiles``), timed spans
-(``span``) and
-out-of-band records (``emit_record``) kept in a bounded ring.
+Counters (``inc``), gauges (``gauge``), histograms with p50/p95/p99 over
+a bounded recent window (``observe``, ``hist_summary``,
+``hist_quantiles``), timed spans (``span``, ``add_span``) and per-step
+scalars (``scalar``).
 
-A goodput ledger (:class:`~bigdl_tpu_torch.observability.goodput.GoodputLedger`)
-attaches with :meth:`set_ledger`; the engines fold into it.
+``start_step`` / ``end_step`` bracket one training iteration: ``end_step``
+folds everything recorded since ``start_step`` — spans, scalars,
+histograms, and snapshots of the counters and gauges — into one *step
+record* (a plain dict), folds the step into an attached goodput ledger
+(:class:`~bigdl_tpu_torch.observability.goodput.GoodputLedger`, as the
+reference's ``fold_step``), keeps it in a bounded ring
+(``recent_records``: what the flight recorder dumps and the stall
+watchdog reads) and hands it to every sink (``observability.sinks``).
+Out-of-band records (``emit_record``) go to the ring and the sinks too.
+``step_age`` is the liveness signal: seconds since the pending step
+opened, or since the last one closed.
 
-Not ported yet (ROADMAP queue A, operate plane): step records
-(``start_step``/``end_step``, which fold a step into the ledger), profiler
-traces, the cost model, time series, Prometheus buckets, sinks, disabled
-recorders and the process-active recorder.
+Not ported yet (ROADMAP queue A, operate plane): profiler traces
+(``trace_every``), the cost model, time series, Prometheus buckets,
+disabled recorders and the process-active recorder.
 """
 from __future__ import annotations
 
@@ -48,8 +55,9 @@ class Recorder:
     #: ``emit_record`` keeps the most recent this-many records
     KEEP_RECORDS = 256
 
-    def __init__(self):
+    def __init__(self, sinks=(), keep_records: Optional[int] = None):
         self._lock = threading.Lock()
+        self.sinks = list(sinks)
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, float] = {}
         self._spans: Dict[str, float] = {}
@@ -58,13 +66,26 @@ class Recorder:
         # most recent HIST_SAMPLE_CAP
         self._hists: Dict[str, List[float]] = {}
         self._hist_samples: Dict[str, deque] = {}
-        self._ring: deque = deque(maxlen=self.KEEP_RECORDS)
+        self._ring: deque = deque(maxlen=max(
+            self.KEEP_RECORDS if keep_records is None else keep_records, 1))
         self._ledger = None
+        # the pending step: its per-step scalars and clock; liveness
+        self._scalars: Dict[str, object] = {}
+        self._step: Optional[int] = None
+        self._step_t0: Optional[float] = None
+        self._step_started_wall: Optional[float] = None
+        self._last_step_end: Optional[float] = None
+        self._last_step_index: Optional[int] = None
 
     @property
     def enabled(self) -> bool:
         """Always True: the port has no disabled recorder."""
         return True
+
+    def add_sink(self, sink):
+        """Attach a sink (anything with ``emit(record)``)."""
+        self.sinks.append(sink)
+        return self
 
     def set_ledger(self, ledger):
         """Attach a :class:`~bigdl_tpu_torch.observability.goodput
@@ -162,12 +183,168 @@ class Recorder:
             self._spans[name] = self._spans.get(name, 0.0) + dt
             self._span_counts[name] = self._span_counts.get(name, 0) + 1
 
+    def add_span(self, name: str, seconds: float):
+        """Record an externally timed duration as a span."""
+        self._add_span(name, seconds)
+
+    def scalar(self, name: str, value):
+        """Record a per-step scalar (loss, grad norm, lr, ...); a device
+        tensor is accepted and converted at ``end_step``."""
+        with self._lock:
+            self._scalars[name] = value
+
     def emit_record(self, rec_type: str, **fields):
-        """Keep an out-of-band record in the bounded ring."""
+        """An out-of-band (non-step) record: kept in the bounded ring and
+        handed to every sink."""
         rec = {"type": rec_type, "time": time.time(), **fields}
         with self._lock:
             self._ring.append(rec)
+            sinks = list(self.sinks)
+        for s in sinks:
+            s.emit(rec)
         return rec
+
+    # -- step lifecycle -------------------------------------------------- #
+    def start_step(self, step: Optional[int] = None):
+        with self._lock:
+            self._step = step
+            self._step_t0 = _trace_clock.trace_now()
+            self._step_started_wall = time.time()
+        if self._ledger is not None:
+            try:
+                # the inter-step gap goes to the background phase, so
+                # fold_step attributes only this step's own interval
+                self._ledger.note_step_begin()
+            except Exception:
+                pass        # attribution must never kill the step loop
+
+    def _clear_step_locked(self):
+        self._spans.clear()
+        self._span_counts.clear()
+        self._scalars.clear()
+        self._hists.clear()
+        self._hist_samples.clear()
+        self._step = None
+        self._step_t0 = None
+        self._step_started_wall = None
+
+    def end_step(self, step: Optional[int] = None,
+                 **scalars) -> Dict[str, object]:
+        """Close the pending step: fold its spans, scalars and histograms
+        and snapshots of the counters and gauges into one record, fold it
+        into the ledger, keep it in the ring, emit it to every sink, and
+        reset the per-step state."""
+        with self._lock:
+            if step is None:
+                step = self._step
+            dur = (_trace_clock.trace_now() - self._step_t0
+                   if self._step_t0 is not None else None)
+            pend = dict(self._scalars)
+            pend.update(scalars)
+            rec: Dict[str, object] = {
+                "type": "step", "step": step, "time": time.time(),
+                "dur": dur, "spans": dict(self._spans),
+                "span_counts": dict(self._span_counts),
+                "scalars": {k: _to_float(v) for k, v in pend.items()},
+                "counters": dict(self._counters),
+                "gauges": dict(self._gauges),
+            }
+            recs = rec["scalars"].get("records")
+            if dur and isinstance(recs, (int, float)) and recs > 0:
+                rec["scalars"]["records_per_sec"] = recs / dur
+            if self._hists:
+                rec["hist"] = {}
+                for k, h in self._hists.items():
+                    entry = {"count": int(h[0]), "min": h[1], "max": h[2],
+                             "mean": h[3] / max(h[0], 1), "sumsq": h[4]}
+                    samples = sorted(self._hist_samples.get(k) or ())
+                    if samples:
+                        entry.update({f"p{q:g}": _quantile(samples, q)
+                                      for q in (50.0, 95.0, 99.0)})
+                    rec["hist"][k] = entry
+            self._clear_step_locked()
+            self._last_step_end = rec["time"]
+            self._last_step_index = step
+            self._ring.append(rec)
+            sinks = list(self.sinks)
+        if self._ledger is not None:
+            try:
+                # outside the recorder lock: the ledger's and ours never
+                # nest
+                self._ledger.fold_step(rec["dur"], rec["spans"])
+                rec["goodput"] = self._ledger.publish(self)
+            except Exception:
+                pass        # attribution must never kill a record
+        for s in sinks:
+            s.emit(rec)
+        return rec
+
+    def abort_step(self):
+        """Discard the pending step (e.g. the data ran dry after
+        ``start_step``)."""
+        with self._lock:
+            self._clear_step_locked()
+
+    # -- introspection ----------------------------------------------------- #
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            return {"counters": dict(self._counters),
+                    "gauges": dict(self._gauges)}
+
+    def recent_records(self, n: Optional[int] = None,
+                       rec_type: Optional[str] = None) -> List[dict]:
+        """The last ``n`` records of the ring (all when None), oldest
+        first; ``rec_type`` filters on the record's ``type``."""
+        with self._lock:
+            recs = list(self._ring)
+        if rec_type is not None:
+            recs = [r for r in recs if r.get("type") == rec_type]
+        if n is None:
+            return recs
+        n = max(int(n), 0)
+        return recs[max(len(recs) - n, 0):] if n else []
+
+    def step_age(self) -> Optional[float]:
+        """Seconds since the pending step opened, or since the last step
+        record was cut; None before any step."""
+        with self._lock:
+            started, ended = self._step_started_wall, self._last_step_end
+        now = time.time()
+        if started is not None:
+            return now - started
+        if ended is not None:
+            return now - ended
+        return None
+
+    def step_in_flight(self) -> bool:
+        """True between ``start_step`` and ``end_step``/``abort_step``."""
+        with self._lock:
+            return self._step_started_wall is not None
+
+    def last_step(self) -> Optional[int]:
+        """Index of the newest completed step (None before the first)."""
+        with self._lock:
+            return self._last_step_index
+
+    def flush(self):
+        for s in self.sinks:
+            fl = getattr(s, "flush", None)
+            if fl is not None:
+                fl()
+        return self
+
+    def close(self):
+        for s in self.sinks:
+            close = getattr(s, "close", None)
+            if close is not None:
+                close()
+
+
+def _to_float(v):
+    try:
+        return float(v)
+    except (TypeError, ValueError):
+        return v
 
 
 def _quantile(sorted_samples: List[float], q: float) -> float:

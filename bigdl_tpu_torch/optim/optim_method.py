@@ -63,6 +63,25 @@ class OptimMethod:
     def get_learning_rate(self, state):
         return 0.0
 
+    def save(self, path, overwrite=True):
+        """Persist this method (hyperparameters and schedule) in the
+        no-pickle state format (≙ OptimMethod.save)."""
+        import os
+        if os.path.exists(path) and not overwrite:
+            raise FileExistsError(path)
+        from ..utils.serializer import save_state_file
+        save_state_file({"optim_method": self}, path)
+        return self
+
+    @staticmethod
+    def load(path):
+        """Inverse of :meth:`save` (≙ OptimMethod.load)."""
+        from ..utils.serializer import load_state_file
+        obj = load_state_file(path).get("optim_method")
+        if not isinstance(obj, OptimMethod):
+            raise ValueError(f"{path}: not an OptimMethod file")
+        return obj
+
 
 def _current_lr(method, state):
     """``rate(step) / (1 + step * lr_decay)``: an fp32 device scalar."""

@@ -24,12 +24,24 @@ microbatches for one update; ``set_gradient_clipping_by_l2_norm`` and
 ``set_constant_gradient_clipping`` clip the gradients before the update;
 ``Module.freeze`` zeroes the frozen modules' gradients; a ``Plateau``
 schedule reads the epoch's score at each epoch's end.  A live train→serve
-weight stream attaches with ``set_weight_stream``.  Not ported yet
-(ROADMAP queue A): checkpoints, summaries, telemetry and health, retries
-and the trace context; each ``set_*`` of those raises.
+weight stream attaches with ``set_weight_stream``.
+
+The loop features (≙ the reference's ``optimizer.py:433–1035``):
+``set_checkpoint`` (``bigdl_tpu_torch.checkpoint``: an owning host
+snapshot on the loop, the write on a background thread; an exact resume
+in the middle of an epoch, the skip taken at the dataset before anything
+is staged; a final checkpoint on SIGTERM), ``set_telemetry`` (a step
+record a step, with :func:`health_scalars` computed in the step, read in
+one host sync), ``set_health`` (the sentinels, a ``rollback`` policy
+restoring the last committed checkpoint, the flight recorder, the stall
+watchdog), ``set_auto_retry`` and ``set_trace_context``.  Summaries,
+profiler traces and the metrics server are not ported yet (ROADMAP queue
+A, items 8 and 9); each ``set_*`` of those raises.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -43,7 +55,7 @@ from ..data.device_loader import DeviceLoader, HostToDevice
 from ..kernels.fused_optim import zip_leaves
 from ..nn.module import Ctx
 from ..observability.recorder import Recorder
-from ..parallel.allreduce import tree_leaves, tree_map
+from ..parallel.allreduce import tree_leaves, tree_map, tree_paths
 from .optim_method import SGD, OptimMethod
 from .trigger import Trigger, _EveryEpoch, _MaxEpoch
 
@@ -169,10 +181,100 @@ def _identity(tree):
     return tree
 
 
+def _flat_f32(leaves):
+    """The leaves as one flat fp32 tensor (an owning copy: ``cat`` always
+    copies, so a snapshot taken before an in-place update keeps the old
+    values)."""
+    if not leaves:
+        return None
+    return torch.cat([t.detach().reshape(-1).float() for t in leaves])
+
+
+def health_scalars(grads, old_params, new_params, group=None,
+                   sharded_mask=None):
+    """Training-health scalars, fp32 device tensors computed in the step
+    (≙ the reference's ``health_scalars``): the gradients' global L2 norm
+    ``grad_norm``, the updated parameters' ``param_norm``, the update's
+    ``update_norm``, ``update_ratio = update_norm / max(param_norm,
+    1e-12)`` and ``nonfinite_grads``, the count of NaN/Inf gradient
+    elements.
+
+    Each sum runs over one flat copy of its leaves (a few launches
+    whatever the leaf count).  With ``group``, the leaves ``sharded_mask``
+    marks (every leaf when it is None) are shards of global tensors:
+    their sums are all-reduced in one collective and the replicated
+    leaves counted once, so every rank sees the global values (fsdp,
+    zero1)."""
+    mask = _mask_of(grads, sharded_mask)
+    return _health(tree_leaves(grads), _split_flat(tree_leaves(old_params),
+                                                   mask),
+                   tree_leaves(new_params), mask, group)
+
+
+def _mask_of(tree, sharded_mask):
+    if sharded_mask is None:
+        return [True] * len(tree_leaves(tree))
+    return [bool(m) for m in tree_leaves(sharded_mask)]
+
+
+def _split_flat(leaves, mask):
+    """Flat fp32 copies of the sharded and of the replicated leaves."""
+    return [_flat_f32([t for t, m in zip(leaves, mask) if m == want])
+            for want in (True, False)]
+
+
+def _health(g_l, old, n_l, mask, group):
+    dev = g_l[0].device
+    sums = []
+    for k, want in enumerate((True, False)):
+        sel = [i for i, m in enumerate(mask) if m == want]
+        if not sel:
+            sums.append(torch.zeros(4, dtype=torch.float32, device=dev))
+            continue
+        g = _flat_f32([g_l[i] for i in sel])
+        p = _flat_f32([n_l[i] for i in sel])
+        sums.append(torch.stack([
+            torch.sum(g * g), torch.sum(p * p),
+            torch.sum(torch.square(p - old[k])),
+            torch.sum(~torch.isfinite(g)).to(torch.float32)]))
+    sharded, replicated = sums
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(sharded, group=group)
+    tot = sharded + replicated
+    gn, pn, un = torch.sqrt(tot[:3]).unbind()
+    return {"grad_norm": gn, "param_norm": pn, "update_norm": un,
+            "update_ratio": un / torch.clamp(pn, min=1e-12),
+            "nonfinite_grads": tot[3]}
+
+
+class _HealthProbe:
+    """What a telemetry step needs for the health scalars: the tensors
+    the update writes (``update_params(params)``: the parameters, or
+    zero1's shard masters), their mask of shards and the group.
+    :meth:`before` copies them flat ahead of the in-place update."""
+
+    def __init__(self, update_params=_identity, group=None,
+                 sharded_mask=None):
+        self.update_params = update_params
+        self.group = group
+        self.sharded_mask = sharded_mask
+
+    def before(self, params):
+        upd = self.update_params(params)
+        return _split_flat(tree_leaves(upd),
+                           _mask_of(upd, self.sharded_mask))
+
+    def after(self, grads, params, before):
+        return _health(tree_leaves(grads), before,
+                       tree_leaves(self.update_params(params)),
+                       _mask_of(grads, self.sharded_mask), self.group)
+
+
 def make_train_step(model, criterion, optim_method: OptimMethod,
                     mixed_precision: bool = False, *, n_accum: int = 1,
                     device_augment=None, generator=None, gather=_identity,
-                    exchange=_identity, pmean=_identity):
+                    exchange=_identity, pmean=_identity, health=None):
     """The train step ``step(params, opt_state, model_state, x, y) ->
     (params, opt_state, model_state, loss)``: the forward in training mode,
     ``criterion.loss`` on the fp32 output plus the side losses and
@@ -204,6 +306,10 @@ def make_train_step(model, criterion, optim_method: OptimMethod,
     or this rank's shards of it), and ``pmean`` averages the loss and the
     forward's new state over the ranks.  Accumulation runs before the
     exchange: one exchange a step, whatever ``n_accum`` is.
+
+    ``health`` (a :class:`_HealthProbe`, the telemetry step's) appends
+    :func:`health_scalars` of the exchanged gradients and the update to
+    the returned tuple.
     """
     grads_fn = make_accum_grads(
         make_loss_fn(model, criterion, regularize=n_accum < 2,
@@ -218,12 +324,15 @@ def make_train_step(model, criterion, optim_method: OptimMethod,
         (loss, updates), grads = grads_fn(full, model_state, x, y)
         if n_accum >= 2:
             loss, grads = _add_regularization(model, full, loss, grads)
-        grads = mask_frozen_grads(model, grads)
-        params, opt_state = optim_method.update(exchange(grads), params,
-                                                opt_state)
+        grads = exchange(mask_frozen_grads(model, grads))
+        before = None if health is None else health.before(params)
+        params, opt_state = optim_method.update(grads, params, opt_state)
         merged = dict(model_state)
         merged.update(pmean(updates))
-        return params, opt_state, merged, pmean(loss)
+        if health is None:
+            return params, opt_state, merged, pmean(loss)
+        return (params, opt_state, merged, pmean(loss),
+                health.after(grads, params, before))
 
     return step
 
@@ -357,17 +466,34 @@ def to_device(a, device):
         torch.as_tensor(np.asarray(a)).to(device)
 
 
-# set_* of the reference that are not ported: name -> what it sets
+# set_* of the reference that are not ported: name -> (what, queue item)
 _UNPORTED_SETTERS = {
-    "set_checkpoint": "checkpointing",
-    "set_train_summary": "training summaries",
-    "set_val_summary": "validation summaries",
-    "set_telemetry": "telemetry",
-    "set_trace_context": "the trace context",
-    "set_trace_every": "profiler traces",
-    "set_health": "training health",
-    "set_auto_retry": "retries",
+    "set_train_summary": ("training summaries", 9),
+    "set_val_summary": ("validation summaries", 9),
+    "set_trace_every": ("profiler traces", 8),
+    "serve_metrics": ("the live metrics server", 8),
 }
+
+
+def _host_tree(tree, device):
+    """Host arrays (numpy) of a restored tree as new tensors on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: _host_tree(v, device) for k, v in tree.items()}
+    return torch.as_tensor(np.array(tree)).to(device)
+
+
+def _like(cur, host):
+    """New tensors of ``cur``'s devices and dtypes from the host arrays
+    of ``host`` (the same structure)."""
+    return tree_map(lambda c, h: torch.as_tensor(np.array(h)).to(
+        c.device, c.dtype), cur, host)
+
+
+def _shapes(tree):
+    """``{path: shape}`` of a tree's leaves (tensors or arrays)."""
+    return {p: tuple(np.shape(v)) for p, v in
+            zip(tree_paths(tree), tree_leaves(tree))}
 
 
 class Optimizer:
@@ -385,8 +511,9 @@ class Optimizer:
     ``seed + 13`` (≙ the reference's ``PRNGKey(seed + 13)``), which the
     device augmentation and then the model's dropout draw from; the reference's seed also draws the
     initial parameters, where the port takes the model's own
-    (``build(seed=)``).  :attr:`recorder` takes the ``dataloader/*``
-    counters under prefetch."""
+    (``build(seed=)``).  :attr:`recorder` takes the ``dataloader/*`` and
+    ``checkpoint/*`` counters, and the step records under
+    :meth:`set_telemetry`."""
 
     def __init__(self, model, training_set, criterion,
                  batch_size: Optional[int] = None, seed: int = 0, *,
@@ -419,10 +546,29 @@ class Optimizer:
         self._eval_step = None
         self._weight_stream = None
         self._carry = None            # (params, model_state) of the loop
+        self._opt_carry = None        # and its optimizer state
         self._h2d = None              # prefetch's HostToDevice
         self.last_validation = None
         self.opt_state = None         # the method's state after optimize()
         self.recorder = Recorder()
+        # telemetry and health (observability.health)
+        self._telemetry = False
+        self._telemetry_health = True
+        self._trace_ctx = None
+        self._health_monitor = None
+        self._flight = None
+        self._watchdog = None
+        self._max_rollbacks = 2
+        # checkpoints, preemption and retries (checkpoint/*)
+        self.checkpoint_path: Optional[str] = None
+        self.checkpoint_trigger: Optional[Trigger] = None
+        self._ckpt_mgr = None
+        self._preemption = None
+        self.max_retries = 0
+        self._resume_skip = 0
+        self._loop_gen: Optional[torch.Generator] = None
+        self._with_health = False
+        self._restored_mesh = (None, None)   # (saved, target) of a restore
 
     # -- fluent config, reference API ----------------------------------- #
     def set_optim_method(self, method):
@@ -510,6 +656,109 @@ class Optimizer:
         self._weight_stream = publisher
         return self
 
+    def set_telemetry(self, recorder: Recorder, health: bool = True):
+        """Attach ``recorder``: every iteration emits one step record
+        (spans ``data_fetch``, ``h2d`` without prefetch, ``train_step``;
+        scalars ``loss``, ``learning_rate``, ``records``, and with
+        ``health`` the device-side :func:`health_scalars`), read with one
+        host sync a step.  The recorder also takes the ``dataloader/*``,
+        ``collective/*`` and ``checkpoint/*`` counters, and a goodput
+        ledger is attached when it has none."""
+        self.recorder = recorder
+        self._telemetry = True
+        self._telemetry_health = bool(health)
+        if recorder.get_ledger() is None:
+            from ..observability.goodput import GoodputLedger
+            recorder.set_ledger(GoodputLedger(name="train", devices=1))
+        return self
+
+    def set_trace_context(self, ctx, tracer=None):
+        """Adopt a causal :class:`~bigdl_tpu_torch.observability.context
+        .TraceContext`: checkpoint saves carry a child of it to the async
+        writer thread (its queue-wait and write spans land under the
+        run's trace id).  ``ctx=None`` detaches."""
+        self._trace_ctx = ctx
+        return self
+
+    def set_health(self, policy: str = "warn", flight_dir=None,
+                   max_rollbacks: int = 2, stall_factor=None,
+                   install_crash_hooks: bool = True, **monitor_kw):
+        """Numeric-health sentinels over every step record
+        (:class:`~bigdl_tpu_torch.observability.health.HealthMonitor`):
+        NaN/Inf in the loss or gradients, loss spikes and gradient
+        explosions, read from the step's :func:`health_scalars` (no host
+        sync beyond telemetry's one).  ``policy``: ``"warn"`` /
+        ``"record"`` / ``"raise"`` (``DivergenceError``) / ``"rollback"``
+        (restore the last committed checkpoint — needs
+        :meth:`set_checkpoint` — at most ``max_rollbacks`` times).
+        ``flight_dir`` arms the flight recorder (a dump on divergence,
+        unhandled exception or SIGTERM; ``install_crash_hooks`` chains
+        the excepthook and SIGTERM).  ``stall_factor`` starts a
+        :class:`~bigdl_tpu_torch.observability.health.StallWatchdog` with
+        that p99 multiplier."""
+        from ..observability.health import (FlightRecorder, HealthMonitor,
+                                            StallWatchdog)
+        if not self._telemetry:
+            self.set_telemetry(self.recorder)
+        rec = self.recorder
+        if flight_dir is not None:
+            if self._flight is not None:     # reconfigure: one hook chain
+                self._flight.uninstall()
+            self._flight = FlightRecorder(rec, flight_dir)
+            if install_crash_hooks:
+                self._flight.install()
+        self._health_monitor = HealthMonitor(
+            policy=policy, recorder=rec, flight=self._flight, **monitor_kw)
+        self._max_rollbacks = int(max_rollbacks)
+        if stall_factor:
+            if self._watchdog is not None:   # re-budget: one thread only
+                self._watchdog.stop()
+            self._watchdog = StallWatchdog(rec,
+                                           factor=float(stall_factor)).start()
+        return self
+
+    def set_checkpoint(self, path, trigger=None, layout="manifest",
+                       async_write=True, keep_last=None,
+                       keep_every_epochs=None, handle_preemption=False):
+        """Checkpoint into ``path`` whenever ``trigger`` fires (every
+        epoch by default) through :mod:`bigdl_tpu_torch.checkpoint`:
+        sharded, CRC32C-verified files committed by an atomic manifest,
+        written by a background thread (``async_write``), so that only
+        the device→host copy blocks the loop.  ``keep_last`` /
+        ``keep_every_epochs`` set the retention (default: keep all);
+        ``layout="file"`` is the single-file layout.  :meth:`optimize`
+        resumes from the newest intact checkpoint there, exactly, in the
+        middle of an epoch too.  ``handle_preemption`` installs a SIGTERM
+        handler: a preempted run finishes the in-flight write, commits a
+        final checkpoint ``preempt_iter_<n>``, and :meth:`optimize`
+        returns."""
+        self.checkpoint_path = path
+        self.checkpoint_trigger = trigger or Trigger.every_epoch()
+        os.makedirs(path, exist_ok=True)
+        self._ckpt_mgr = self._make_ckpt_manager(path, layout, async_write,
+                                                 keep_last, keep_every_epochs)
+        if handle_preemption:
+            from ..checkpoint import PreemptionHandler
+            self._preemption = PreemptionHandler().install()
+        return self
+
+    def set_auto_retry(self, max_retries):
+        """Retry a failed epoch (≙ DistriOptimizer's retryNum): from the
+        newest checkpoint when it is newer than the epoch's start, else
+        from a host snapshot taken at the epoch's start."""
+        self.max_retries = int(max_retries)
+        return self
+
+    def _rec(self) -> Recorder:
+        return self.recorder
+
+    def _wd_suspended(self):
+        """Suspend the stall watchdog around legitimate between-step work
+        (validation, a checkpoint's blocking copy or commit)."""
+        if self._watchdog is None:
+            return contextlib.nullcontext()
+        return self._watchdog.suspended()
+
     # -- hooks overridden by DistriOptimizer ----------------------------- #
     def _clip(self, optim, group=None, sharded_mask=None):
         """``optim`` behind the clipping wrapper, when clipping is set."""
@@ -532,11 +781,19 @@ class Optimizer:
                                **self._step_options())
 
     def _step_options(self) -> dict:
-        """The step's accumulation and augmentation, and a new loop
-        generator (the augmentation's and the model's draws)."""
+        """The step's accumulation and augmentation, a new loop generator
+        (the augmentation's and the model's draws) and, under telemetry,
+        the health probe."""
+        self._loop_gen = self._generator()
+        self._with_health = self._telemetry and self._telemetry_health
         return dict(n_accum=self._grad_accum,
                     device_augment=self._device_augment,
-                    generator=self._generator())
+                    generator=self._loop_gen,
+                    health=self._health_probe() if self._with_health
+                    else None)
+
+    def _health_probe(self):
+        return _HealthProbe()
 
     def _layout_params(self, params):
         return params
@@ -556,6 +813,192 @@ class Optimizer:
     def _banner_suffix(self):
         return ""
 
+    # -- checkpoint hooks (DistriOptimizer: layouts and ranks) ----------- #
+    def _make_ckpt_manager(self, path, layout, async_write, keep_last,
+                           keep_every_epochs):
+        from ..checkpoint import CheckpointManager
+        return CheckpointManager(path, layout=layout,
+                                 async_write=async_write,
+                                 keep_last=keep_last,
+                                 keep_every_epochs=keep_every_epochs,
+                                 recorder_fn=self._rec)
+
+    def _layout_meta(self):
+        """``(layout name, mesh info)`` written into each checkpoint."""
+        return "local", None
+
+    def _rank(self) -> int:
+        return 0
+
+    def _ckpt_payload(self, params, opt_state, model_state):
+        """``({shard name: host tree}, owned names or None)`` for this
+        process: the parameters a shard per module, the optimizer and
+        model state, and the loop generator's state (``loop_rng/<rank>``,
+        a uint8 array)."""
+        from ..checkpoint import host_snapshot
+        params, opt_state, model_state = host_snapshot(
+            (params, opt_state, model_state))
+        shards = {f"params/{mod}": sub for mod, sub in params.items()}
+        shards["opt_state"] = opt_state
+        shards["model_state"] = model_state
+        shards[f"loop_rng/{self._rank()}"] = self._gen_state()
+        return shards, None
+
+    def _gen_state(self) -> np.ndarray:
+        return self._loop_gen.get_state().numpy().copy()
+
+    def _load_params(self, params, params_g):
+        """Write global host parameters into the loop's parameters, in
+        place (the model's own tensors)."""
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(params), tree_leaves(params_g)):
+                dst.copy_(torch.as_tensor(np.asarray(src)))
+
+    def _after_params_restored(self, params):
+        """Hook: the parameters were overwritten in place."""
+
+    def _opt_from_global(self, opt_g, opt_state):
+        """The optimizer state from its global host tree (the structure
+        of ``opt_state``, which :meth:`load_checkpoint` checked)."""
+        return _like(opt_state, opt_g)
+
+    def _opt_global_shapes(self, opt_state):
+        """``{path: global shape}`` of the optimizer state: a dict entry
+        (velocity, moments) is parameter-shaped, a tensor (the step) as
+        it is."""
+        pshapes = _shapes(self.model.param_dict())
+        out = {}
+        for k, v in opt_state.items():
+            if isinstance(v, dict):
+                out.update({f"{k}/{p}": s for p, s in pshapes.items()})
+            else:
+                out[k] = tuple(v.shape)
+        return out
+
+    def _adopt(self, trees, params, opt_state, model_state):
+        """Global host trees ``(params, opt_state, model_state)`` into the
+        loop's carry."""
+        params_g, opt_g, state_g = trees
+        self._load_params(params, params_g)
+        self._after_params_restored(params)
+        return (params, self._restore_opt(opt_g, opt_state),
+                _host_tree(state_g, self.device))
+
+    def _restore_opt(self, opt_g, opt_state):
+        """The restored optimizer state, checked against the structure
+        and global shapes of ``opt_state``."""
+        self._check_tree("checkpoint optimizer state", opt_g,
+                         self._opt_global_shapes(opt_state),
+                         *self._restored_mesh)
+        return self._opt_from_global(opt_g, opt_state)
+
+    # -- checkpointing (≙ Optimizer.saveCheckpoint / resume) ------------- #
+    def save_checkpoint(self, params, opt_state, model_state, tag=None,
+                        sync=False, epoch_boundary=False):
+        """Queue one checkpoint of the loop's state.  The loop blocks only
+        for the owning device→host copy (``checkpoint.blocking``, and on
+        writer backpressure); serialize, CRC, write and commit run on the
+        writer thread unless ``sync``."""
+        if self._ckpt_mgr is None:
+            return
+        rec = self.recorder
+        tag = tag or f"iter_{self.state.iteration}"
+        layout, mesh = self._layout_meta()
+        with self._wd_suspended(), rec.span("checkpoint.blocking"):
+            t0 = time.perf_counter()
+            payload, owned = self._ckpt_payload(params, opt_state,
+                                                model_state)
+            rec.inc("checkpoint/d2h_seconds", time.perf_counter() - t0)
+        # the epoch-seeded shuffle reproduces the order, batch_in_epoch
+        # says where to skip to, the generator's state the draws
+        meta = {"epoch": self.state.epoch, "iteration": self.state.iteration,
+                "batch_in_epoch": self.state.batch_in_epoch,
+                "epoch_boundary": bool(epoch_boundary), "layout": layout}
+        blocked = rec.span_value("checkpoint.blocking")
+        with self._wd_suspended():
+            self._ckpt_mgr.save(
+                payload, meta, tag, sync=sync, mesh=mesh, owned=owned,
+                trace_ctx=None if self._trace_ctx is None
+                else self._trace_ctx.child())
+        rec.inc("checkpoint/backpressure_seconds",
+                rec.span_value("checkpoint.blocking") - blocked)
+
+    def load_checkpoint(self):
+        """The newest intact checkpoint as global host trees ``(params,
+        opt_state, model_state)``, with the training counters, the skip
+        into the epoch and the loop generator's state taken from it; None
+        when there is none.  A checkpoint whose trees do not match the
+        model raises :class:`~bigdl_tpu_torch.checkpoint.CheckpointError`
+        with the mesh delta; another layout or world size is reassembled
+        and said so."""
+        from ..checkpoint import reshard
+        rec = self.recorder
+        restored = self._ckpt_mgr.restore_latest(with_manifest=True)
+        if restored is None:
+            return None
+        _, trees, meta, mf = restored
+        layout, mesh = self._layout_meta()
+        saved_mesh = None if mf is None else mf.mesh
+        # the file layout holds the same {shard name: tree} dict whole
+        params_g = trees["params"] if "params" in trees else {
+            k[len("params/"):]: v for k, v in trees.items()
+            if k.startswith("params/")}
+        opt_g, state_g = trees.get("opt_state"), trees.get("model_state")
+        where = "?" if mf is None else mf.tag
+        self._restored_mesh = (saved_mesh, mesh)
+        self._check_tree(f"checkpoint {where} params", params_g,
+                         _shapes(self.model.param_dict()), saved_mesh, mesh)
+        self._check_tree(f"checkpoint {where} model_state", state_g,
+                         _shapes(self.model.initial_state()), saved_mesh,
+                         mesh)
+        same = (meta.get("layout") == layout
+                and reshard.same_mesh(saved_mesh, mesh))
+        if not same:
+            print(f"[checkpoint] resharding {meta.get('layout')} → "
+                  f"{layout}: {reshard.describe_delta(saved_mesh, mesh)}",
+                  flush=True)
+        st = self.state
+        st.epoch = int(meta["epoch"])
+        st.iteration = int(meta["iteration"])
+        st.batch_in_epoch = int(meta.get("batch_in_epoch", 0))
+        self._resume_skip = st.batch_in_epoch
+        gen = trees.get(f"loop_rng/{self._rank()}")
+        if same and gen is not None:
+            self._loop_gen.set_state(torch.as_tensor(np.asarray(
+                gen, np.uint8)))
+        else:
+            # another world or layout: each rank reseeds by its formula
+            self._loop_gen.manual_seed(self._loop_gen.initial_seed())
+        rec.inc("checkpoint/restored")
+        return params_g, opt_g, state_g
+
+    @staticmethod
+    def _check_tree(what, got, want_shapes, saved_mesh, target_mesh):
+        """Raise :class:`~bigdl_tpu_torch.checkpoint.CheckpointError` when
+        a restored tree's leaves or shapes differ from the model's."""
+        from ..checkpoint import CheckpointError, reshard
+        got_shapes = _shapes(got if got is not None else {})
+        missing = sorted(set(want_shapes) - set(got_shapes))
+        extra = sorted(set(got_shapes) - set(want_shapes))
+        bad = [(p, got_shapes[p], want_shapes[p]) for p in want_shapes
+               if p in got_shapes and got_shapes[p] != want_shapes[p]]
+        if not (missing or extra or bad):
+            return
+        lines = []
+        if missing:
+            lines.append(f"{len(missing)} leaves of the model missing "
+                         f"(e.g. {missing[:3]})")
+        if extra:
+            lines.append(f"{len(extra)} leaves the model does not have "
+                         f"(e.g. {extra[:3]})")
+        for p, g, w in bad[:3]:
+            why = reshard.explain_shape_delta(g, w, saved_mesh, target_mesh)
+            lines.append(f"{p}: saved {g}, model {w}"
+                         + (f" ({why})" if why else ""))
+        raise CheckpointError(f"{what} do not match the model: "
+                              + "; ".join(lines)
+                  + "; " + reshard.describe_delta(saved_mesh, target_mesh))
+
     # -- validation ------------------------------------------------------ #
     def _validate(self, params, model_state):
         """Run the validation methods over the validation set; returns
@@ -565,8 +1008,10 @@ class Optimizer:
         if self._eval_step is None:      # built once per optimizer
             self._eval_step = make_eval_step(self.model,
                                              self._device_augment)
-        named = evaluate(self._eval_step, params, model_state,
-                         self.val_dataset, self.val_methods, self.device)
+        with self._wd_suspended(), self.recorder.span("validation"):
+            named = evaluate(self._eval_step, params, model_state,
+                             self.val_dataset, self.val_methods,
+                             self.device)
         for method, res in named:
             print(f"  [validation] {method}: {res}")
         if named and named[0][1] is not None:
@@ -586,15 +1031,30 @@ class Optimizer:
         model_state = self.model.initial_state()
         optim = self._wrap_optim(params)
         step_fn = self._build_step(optim)
+        restored = None
+        if self._ckpt_mgr is not None:
+            restored = self.load_checkpoint()
+        t0 = time.perf_counter()
+        if restored is not None:
+            # into the model's own tensors, before any layout copies them
+            self._load_params(params, restored[0])
+            model_state = _host_tree(restored[2], self.device)
         params = self._layout_params(params)
         opt_state = optim.init_state(params)
-        stop = False
+        if restored is not None:
+            opt_state = self._restore_opt(restored[1], opt_state)
+            self.recorder.inc("checkpoint/restore_h2d_seconds",
+                              time.perf_counter() - t0)
+        if self._watchdog is not None:
+            self._watchdog.start()      # no-op when already polling
         try:
-            while not stop:
-                params, opt_state, model_state, stop = self._run_epoch(
-                    params, opt_state, model_state, step_fn)
+            params, opt_state, model_state = self._optimize_loop(
+                params, opt_state, model_state, step_fn)
         finally:
-            self._carry = None
+            self._carry = self._opt_carry = None
+            if self._watchdog is not None:
+                # a dead loop is not a stalled one
+                self._watchdog.stop()
         self.opt_state = opt_state
         with torch.no_grad():
             # the model's own parameters, unless the loop trained copies
@@ -604,20 +1064,133 @@ class Optimizer:
                 if dst is not src:
                     dst.copy_(src)
         self.model.set_state(model_state)
+        rec = self.recorder
+        if self._ckpt_mgr is not None:
+            # every triggered checkpoint is committed when optimize returns
+            self._ckpt_mgr.wait()
+            ck = {k: v for k, v in rec.snapshot()["counters"].items()
+                  if k.startswith("checkpoint/")}
+            if ck and self._telemetry:
+                rec.emit_record("checkpoint_summary", counters=ck)
+        rec.flush()
         return self.model
 
-    def _batches(self, epoch):
-        """``(global size, x, y)`` on the device, in the dataset's order:
-        placed inline, or under ``set_prefetch`` staged ahead by a
-        :class:`DeviceLoader` and taken on the step's stream."""
+    def _retry_snapshot(self, params, opt_state, model_state):
+        from ..checkpoint import host_snapshot
+        st = self.state
+        return (host_snapshot((params, opt_state, model_state)), st.epoch,
+                st.iteration, self._loop_gen.get_state())
+
+    def _retry_restore(self, cache, params, opt_state, model_state):
+        (p_h, o_h, s_h), epoch, iteration, gen = cache
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(params), tree_leaves(p_h)):
+                dst.copy_(torch.as_tensor(src))
+        self._after_params_restored(params)
+        st = self.state
+        st.epoch, st.iteration, st.batch_in_epoch = epoch, iteration, 0
+        self._resume_skip = 0
+        self._loop_gen.set_state(gen)
+        return (params, _like(opt_state, o_h), _host_tree(s_h, self.device))
+
+    def _restore_from_checkpoint(self, params, opt_state, model_state):
+        restored = self.load_checkpoint()
+        if restored is None:
+            return None
+        t0 = time.perf_counter()
+        out = self._adopt(restored, params, opt_state, model_state)
+        self._after_params_restored(out[0])
+        self.recorder.inc("checkpoint/restore_h2d_seconds",
+                          time.perf_counter() - t0)
+        return out
+
+    def _optimize_loop(self, params, opt_state, model_state, step_fn):
+        """Epochs until the end trigger, with the retry and rollback
+        loop (≙ the reference's ``_optimize_loop``)."""
+        from ..observability.health import DivergenceError
+        stop = False
+        retries = 0
+        cache = None
+        while not stop:
+            if self.max_retries:
+                cache = self._retry_snapshot(params, opt_state, model_state)
+            try:
+                params, opt_state, model_state, stop = self._run_epoch(
+                    params, opt_state, model_state, step_fn)
+            except DivergenceError as e:
+                # rollback restores the last COMMITTED checkpoint (the
+                # flight dump happened at raise time)
+                mon = self._health_monitor
+                if (mon is None or mon.policy != "rollback"
+                        or mon.rollbacks >= self._max_rollbacks
+                        or self._ckpt_mgr is None):
+                    raise
+                self._ckpt_mgr.wait()   # an in-flight write may be the
+                # newest intact checkpoint: let it commit
+                out = self._restore_from_checkpoint(params, opt_state,
+                                                    model_state)
+                if out is None:
+                    raise
+                params, opt_state, model_state = out
+                mon.rollbacks += 1
+                mon.reset_statistics()
+                mon.mark_recovered()
+                print(f"[health] rollback {mon.rollbacks}/"
+                      f"{self._max_rollbacks}: {e}; resumed from "
+                      f"iteration {self.state.iteration}", flush=True)
+            except Exception as e:
+                if retries >= self.max_retries or cache is None:
+                    if self._flight is not None:
+                        # a post-mortem before propagating (keyed: the
+                        # chained excepthook won't dump it twice)
+                        self._flight._dump_quietly(
+                            f"exception:{type(e).__name__}",
+                            {"error": repr(e)}, key=id(e))
+                    raise
+                retries += 1
+                out = None
+                if self._ckpt_mgr is not None:
+                    self._ckpt_mgr.wait()
+                    try:
+                        out = self._restore_from_checkpoint(
+                            params, opt_state, model_state)
+                    except Exception:
+                        out = None
+                if out is not None and self.state.iteration >= cache[2]:
+                    print(f"[retry {retries}/{self.max_retries}] iteration "
+                          f"{self.state.iteration} failed ({e!r}); "
+                          "resuming from the last checkpoint", flush=True)
+                    params, opt_state, model_state = out
+                else:
+                    print(f"[retry {retries}/{self.max_retries}] epoch "
+                          f"{cache[1]} failed ({e!r}); restoring the "
+                          "epoch's start", flush=True)
+                    params, opt_state, model_state = self._retry_restore(
+                        cache, params, opt_state, model_state)
+        return params, opt_state, model_state
+
+    def _batches(self, epoch, skip=0):
+        """``(global size, x, y)`` on the device, in the dataset's order
+        after the first ``skip`` batches (a resume's, skipped before
+        anything is staged): placed inline, or under ``set_prefetch``
+        staged ahead by a :class:`DeviceLoader` and taken on the step's
+        stream."""
+        rec = self.recorder
+
         def host():
-            for mb in self.dataset.data(train=True, epoch=epoch):
+            it = self.dataset.data(train=True, epoch=epoch)
+            for _ in range(skip):
+                if next(it, None) is None:
+                    return
+            for mb in it:
                 yield (mb.size(),) + tuple(
                     self._host_batch(mb.get_input(), mb.get_target()))
 
         if not self.prefetch_depth:
             for size, x, y in host():
-                yield (size,) + self._place_batch(x, y)
+                with rec.span("h2d"):
+                    placed = self._place_batch(x, y)
+                yield (size,) + placed
             return
         stage = self._stager()
         loader = DeviceLoader(((size, stage((x, y))) for size, x, y in
@@ -633,39 +1206,77 @@ class Optimizer:
             self._h2d = HostToDevice(self.device, self.prefetch_depth)
         return self._h2d
 
+    def _fetch(self, batches):
+        """The next batch, with the step record opened before the fetch
+        under telemetry (the fetch's wait is the ``data_fetch`` span);
+        None at the epoch's end."""
+        if not self._telemetry:
+            return next(batches, None)
+        rec = self.recorder
+        rec.start_step(self.state.iteration + 1)
+        h2d0 = rec.span_value("h2d")
+        t0 = time.perf_counter()
+        item = next(batches, None)
+        if item is None:
+            rec.abort_step()
+            return None
+        # inline placement ran inside the fetch: keep the spans disjoint
+        rec.add_span("data_fetch", max(0.0, time.perf_counter() - t0
+                                       - (rec.span_value("h2d") - h2d0)))
+        return item
+
     def _run_epoch(self, params, opt_state, model_state, step_fn):
         """One epoch; returns the updated carry and whether to stop."""
         stop = False
         st = self.state
         st.epoch_finished = False
-        st.batch_in_epoch = 0
+        skip, self._resume_skip = self._resume_skip, 0
+        st.batch_in_epoch = skip
         epoch_start = time.time()
         n_seen = 0
-        batches = self._batches(st.epoch)
+        rec = self.recorder
+        batches = self._batches(st.epoch, skip)
         try:
-            for size, x, y in batches:
-                params, opt_state, model_state, loss = step_fn(
-                    params, opt_state, model_state, x, y)
+            while True:
+                item = self._fetch(batches)
+                if item is None:
+                    st.epoch_finished = True
+                    break
+                size, x, y = item
+                with rec.span("train_step"):
+                    out = step_fn(params, opt_state, model_state, x, y)
+                params, opt_state, model_state, loss = out[:4]
                 st.iteration += 1
                 st.batch_in_epoch += 1
                 # kept on the device: a float() here would sync the host
-                # with the device every step
+                # with the device every step (telemetry pays one a step)
                 st.loss = loss
                 n_seen += size
                 self._carry = (params, model_state)
+                self._opt_carry = opt_state
+                if self._telemetry:
+                    # before the triggers: a diverged step raises before
+                    # the checkpoint trigger can commit its poisoned state
+                    self._emit_step_record(size, loss, opt_state,
+                                           out[4] if self._with_health
+                                           else None)
                 if self._fire_mid_epoch():
                     stop = True
                     break
-            else:
-                st.epoch_finished = True
         finally:
             batches.close()
         if not st.epoch_finished:
             return params, opt_state, model_state, stop
         if n_seen == 0:
-            raise ValueError(
-                "dataset produced no batches (batch_size larger "
-                "than the dataset with drop_last, or empty data)")
+            if skip == 0:
+                raise ValueError(
+                    "dataset produced no batches (batch_size larger "
+                    "than the dataset with drop_last, or empty data)")
+            # resumed exactly at the epoch's end: its validation and
+            # checkpoint happened before the stop; just advance
+            st.epoch += 1
+            st.batch_in_epoch = 0
+            return params, opt_state, model_state, self.end_when(st)
         st.loss = float(st.loss)
         dur = time.time() - epoch_start
         print(f"[epoch {st.epoch}] loss={st.loss:.4f} ({n_seen} samples "
@@ -673,6 +1284,12 @@ class Optimizer:
               f"{self._banner_suffix()})")
         if self.val_trigger is not None and self.val_trigger(st):
             self._validate(self._params_for_eval(params), model_state)
+        if (self.checkpoint_trigger is not None
+                and isinstance(self.checkpoint_trigger, _EveryEpoch)
+                and self.checkpoint_trigger(st)):
+            self.save_checkpoint(params, opt_state, model_state,
+                                 tag=f"epoch_{st.epoch}",
+                                 epoch_boundary=True)
         # a metric-driven schedule (Plateau) reads the epoch's score, or
         # its loss without one; the step reads its factor at every step
         sched = getattr(self.optim_method, "schedule", None)
@@ -686,17 +1303,61 @@ class Optimizer:
             stop = True
         return params, opt_state, model_state, stop
 
+    def _emit_step_record(self, size, loss, opt_state, health):
+        """Fold the iteration into one step record: the loss, the rate
+        and the health scalars come to the host in one copy (the step's
+        one sync), then the health monitor checks the record."""
+        rec = self.recorder
+        names, vals = ["loss"], [loss]
+        lr = self.optim_method.get_learning_rate(opt_state)
+        if isinstance(lr, torch.Tensor):
+            names.append("learning_rate")
+            vals.append(lr)
+        else:
+            rec.scalar("learning_rate", float(lr))
+        for k, v in (health or {}).items():
+            names.append(k)
+            vals.append(v)
+        host = torch.stack([v.detach().reshape(()).float()
+                            for v in vals]).tolist()
+        for k, v in zip(names, host):
+            rec.scalar(k, v)
+        rec.inc("records_total", size)
+        rec.scalar("records", size)
+        record = rec.end_step(self.state.iteration)
+        if self._health_monitor is not None:
+            self._health_monitor.check_record(record)
+
+    def _preempt_requested(self) -> bool:
+        return self._preemption is not None and self._preemption.requested
+
     def _fire_mid_epoch(self) -> bool:
-        """Iteration-level triggers, after each step: validation (a
-        trigger other than every-epoch), the weight stream, then the end
-        trigger (an epoch-count end trigger is read at the epoch's end);
-        True ends training."""
+        """Iteration-level triggers, after each step: preemption (a final
+        checkpoint, then stop), validation (a trigger other than
+        every-epoch), the checkpoint trigger (other than every-epoch), the
+        weight stream, then the end trigger (an epoch-count end trigger
+        is read at the epoch's end); True ends training."""
         st = self.state
         params, model_state = self._carry
+        opt_state = self._opt_carry
+        if self._ckpt_mgr is not None and self._preempt_requested():
+            self.save_checkpoint(params, opt_state, model_state,
+                                 tag=f"preempt_iter_{st.iteration}",
+                                 sync=True)
+            if self._flight is not None:
+                # beside the final checkpoint: its counters show the commit
+                self._flight._dump_quietly("preemption")
+            print(f"[preemption] final checkpoint at iteration "
+                  f"{st.iteration} committed; stopping cleanly", flush=True)
+            return True
         if (self.val_trigger is not None
                 and not isinstance(self.val_trigger, _EveryEpoch)
                 and self.val_trigger(st)):
             self._validate(self._params_for_eval(params), model_state)
+        if (self.checkpoint_trigger is not None
+                and not isinstance(self.checkpoint_trigger, _EveryEpoch)
+                and self.checkpoint_trigger(st)):
+            self.save_checkpoint(params, opt_state, model_state)
         if self._weight_stream is not None:
             # the snapshot is taken inside, synchronously (owning
             # copies); the publish rides the stream's worker thread
@@ -705,17 +1366,17 @@ class Optimizer:
                 and self.end_when(st))
 
 
-def _unported_setter(name, what):
+def _unported_setter(name, what, item):
     def setter(self, *args, **kwargs):
         raise NotImplementedError(
             f"{type(self).__name__}.{name}: {what} is not ported yet "
-            f"(ROADMAP queue A, item 10)")
+            f"(ROADMAP queue A, item {item})")
     setter.__name__ = name
     return setter
 
 
-for _name, _what in _UNPORTED_SETTERS.items():
-    setattr(Optimizer, _name, _unported_setter(_name, _what))
+for _name, (_what, _item) in _UNPORTED_SETTERS.items():
+    setattr(Optimizer, _name, _unported_setter(_name, _what, _item))
 
 
 class LocalOptimizer(Optimizer):

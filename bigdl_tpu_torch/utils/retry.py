@@ -50,6 +50,8 @@ class RetryPolicy:
                       (``retry/attempts.<name>``)
     ``recorder_fn``   zero-arg recorder supplier; ``None`` (or a supplier
                       returning ``None``) drops the counters
+    ``max_attempts``, ``base``, ``max_delay``
+                      the budget (the class constants by default)
     """
 
     MAX_ATTEMPTS = 3
@@ -57,9 +59,18 @@ class RetryPolicy:
     MAX_DELAY = 0.2
 
     def __init__(self, name: str = "",
-                 recorder_fn: Optional[Callable] = None):
+                 recorder_fn: Optional[Callable] = None,
+                 max_attempts: Optional[int] = None,
+                 base: Optional[float] = None,
+                 max_delay: Optional[float] = None):
         self.name = name
         self._rec_fn = recorder_fn
+        if max_attempts is not None:
+            self.MAX_ATTEMPTS = max(1, int(max_attempts))
+        if base is not None:
+            self.BASE = float(base)
+        if max_delay is not None:
+            self.MAX_DELAY = float(max_delay)
 
     def delay_for(self, attempt: int) -> float:
         """Backoff before retry ``attempt`` (1-based), drawn from the

@@ -237,12 +237,44 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 of A at every step); K5 once a step.  Readings: VGG's step
                 median, images/s, device time by class, busy share and
                 peak memory; step and peak of A, B, C and B at b512.
+ 11. durable  — BigDL's durable training on ``phase_distri``'s main path
+                (ResNet-50 ImageNet NHWC, seed 0, bf16 over fp32 masters,
+                batch 256, ``DistriOptimizer(mesh=create_mesh({"dp": 1}),
+                fused_optim=True)`` over NCCL, ``set_prefetch(2)``,
+                ``SGD(0.1, momentum=0.9, weight_decay=1e-4)`` on K5, 2
+                epochs of 8 steps over 2048 synthetic images) with
+                ``set_checkpoint(dir, Trigger.several_iteration(8),
+                keep_last=2, handle_preemption=True)``,
+                ``set_telemetry(Recorder(sinks=[JsonlSink]), health=True)``,
+                ``set_health(policy="rollback", flight_dir=...)``,
+                ``set_auto_retry(1)`` and ``set_trace_context``; each run in
+                a process of its own (``chip_smoke.py --durable-child``,
+                the model built first, so its module names agree).  (a)
+                the run with durability off, then on; (b) the same run
+                sent SIGTERM once it printed iteration 6: it commits
+                ``preempt_iter_<k>`` and exits 0, and a fresh process
+                resumes it, bitwise (a) in parameters, momentum, BN state
+                and the resumed steps' losses; (c) LeNet-5 with
+                ``SGD(0.05, fused=True)`` on K6 killed by the checkpoint
+                fault plane midway through a shard of its third
+                checkpoint (exit 42): the resume falls back to the second
+                and ends bitwise the uninterrupted run; (d) the same
+                LeNet-5 with one NaN batch under ``policy="rollback"``:
+                the sentinel trips there, one rollback, the iteration
+                seen twice, finite losses after, one flight dump, the
+                planned end.  K5 exactly once a step in every ResNet-50
+                run, counted from 0.  Readings: the step median with
+                durability off and on, ``checkpoint.blocking`` a save
+                (device→host copy, writer backpressure), the writer's ms
+                a checkpoint by part, MB a checkpoint, restore ms by
+                part, the health scalars' device ms a step, host syncs a
+                step, busy share and peak memory.
 
 Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"stream": {...}}`` line, a
 ``{"classifier": {...}}`` line, a ``{"distri": {...}}`` line, a
 ``{"recipe": {...}}`` line, a ``{"vgg": {...}}`` line, a
-``{"host_sync": {...}}`` line, a
+``{"durable": {...}}`` line, a ``{"host_sync": {...}}`` line, a
 ``{"kernels": [...]}`` line (all six
 kernels), the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``.
@@ -255,6 +287,7 @@ explicitly for cuBLAS and cuDNN (the models' dtype is float32).
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -4897,6 +4930,615 @@ def phase_stream(card: str, train_alone_ms: float):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 11: durable training                                            #
+# --------------------------------------------------------------------- #
+DURABLE_IMAGES, DURABLE_BATCH, DURABLE_EPOCHS = 2048, 256, 2  # 8 steps/epoch
+# checkpoint trigger and retention; every 8 iterations, not 4: the
+# writer needs ~10.7 s a ResNet-50 checkpoint on this host (deflate at
+# ~19 MB/s), and at 4 the runs (a) and (b) alone took ~165 s of the
+# phase's ~150 s budget
+DURABLE_EVERY, DURABLE_KEEP = 8, 2
+DURABLE_PREEMPT_AT = 6          # SIGTERM once the child prints this iteration
+DURABLE_LENET = dict(images=512, batch=64, epochs=2, every=4, poison_at=5,
+                     kill="2:bytes:2000")   # (c): mid-shard, third save
+DURABLE_CHILD_TIMEOUT = 420
+HEALTH_RANGES = ("health.before", "health.after")
+
+
+def _durable_setup(device):
+    """A process's numerics for the phase: fp32 without TF32,
+    deterministic cuDNN; on the CPU (a rehearsal) one thread, so that the
+    parent and the children reduce in the same order."""
+    if device == "cpu":
+        torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+
+
+def _durable_resnet_data(n):
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((n, 224, 224, 3), dtype=np.float32)
+    y = (rng.integers(0, 1000, n) + 1).astype(np.float32)
+    return x, y
+
+
+def _durable_lenet_data():
+    rng = np.random.default_rng(19)
+    n = DURABLE_LENET["images"]
+    x = rng.standard_normal((n, 784), dtype=np.float32)
+    y = (rng.integers(0, 10, n) + 1).astype(np.float32)
+    return x, y
+
+
+def _durable_opt(model, data, *, device, mesh=None, durable, ckpt=None,
+                 flight=None, preempt=False, epochs, batch, every,
+                 sgd, prefetch=0, mixed=False, health_policy="rollback",
+                 sink_path=None):
+    """The optimizer of one run: ``DistriOptimizer`` over ``mesh`` (the
+    main path) or ``LocalOptimizer``; with ``durable`` the loop features:
+    checkpoints every ``every`` iterations (``keep_last``, preemption),
+    telemetry to a JSONL sink with the health scalars, the health
+    sentinels under ``health_policy`` with a flight recorder, one retry
+    and a trace context."""
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.observability import (JsonlSink, Recorder,
+                                               TraceContext)
+    from bigdl_tpu_torch.optim import (SGD, DistriOptimizer, LocalOptimizer,
+                                       Trigger)
+    if mesh is not None:
+        opt = DistriOptimizer(model, data, ClassNLLCriterion(),
+                              batch_size=batch, mesh=mesh, fused_optim=True)
+        opt.set_optim_method(SGD(**sgd))
+    else:
+        opt = LocalOptimizer(model, data, ClassNLLCriterion(),
+                             batch_size=batch, device=device)
+        opt.set_optim_method(SGD(fused=device != "cpu", **sgd))
+    opt.set_end_when(Trigger.max_epoch(epochs))
+    if mixed:
+        opt.set_mixed_precision()
+    if prefetch:
+        opt.set_prefetch(prefetch)
+    if durable:
+        sinks = [JsonlSink(sink_path)] if sink_path else []
+        opt.set_telemetry(Recorder(sinks=sinks), health=True)
+        opt.set_checkpoint(ckpt, Trigger.several_iteration(every),
+                           keep_last=DURABLE_KEEP, handle_preemption=preempt)
+        opt.set_health(policy=health_policy, flight_dir=flight)
+        opt.set_auto_retry(1)
+        opt.set_trace_context(TraceContext.new_root())
+    return opt
+
+
+def _durable_drive(opt, announce=False):
+    """Run ``opt.optimize()`` with the launch counts set to 0 just before
+    and read just after; each iteration's loss (by iteration), the step
+    ms between consecutive steps' ends (CUDA events), and with
+    ``announce`` an ``iter <n>`` line each iteration (the parent times
+    its SIGTERM on them)."""
+    from bigdl_tpu_torch.ops import _build
+    cuda = opt.device.type == "cuda"
+    losses, events = {}, []
+    fire = opt._fire_mid_epoch
+
+    def hook():
+        losses[opt.state.iteration] = opt.state.loss
+        if cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        if announce:
+            print(f"iter {opt.state.iteration}", flush=True)
+        return fire()
+    opt._fire_mid_epoch = hook
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.monotonic()
+    opt.optimize()
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _build.launch_counts()
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(len(events) - 1)]
+    return {"losses": {int(k): float(v) for k, v in losses.items()},
+            "step_ms": step_ms, "launches": launches, "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+            if cuda else None}
+
+
+def _durable_arrays(model, opt):
+    from bigdl_tpu_torch.parallel.allreduce import tree_leaves
+    vel = opt.opt_state.get("velocity")
+    return ([w.detach().cpu().numpy() for w in model.get_weights()]
+            + [s.detach().cpu().numpy() for s in model.state_list()]
+            + ([] if vel is None else
+               [t.detach().cpu().numpy() for t in tree_leaves(vel)]))
+
+
+def _ckpt_counters(opt):
+    snap = opt.recorder.snapshot()["counters"]
+    return {k: v for k, v in snap.items()
+            if k.startswith(("checkpoint/", "retry/", "health/", "fault/"))}
+
+
+def _profile_health(model, data, device, mesh, batch):
+    """Two durable-config steps (telemetry and health on, no checkpoint)
+    under the profiler, the health probe's two halves under named host
+    ranges; and the host syncs of the same two steps counted by
+    ``torch.cuda.set_sync_debug_mode``."""
+    import warnings
+
+    from bigdl_tpu_torch.optim import Trigger, optimizer as optmod
+    x, y = data
+    small = (x[:2 * batch], y[:2 * batch])
+    probe = optmod._HealthProbe
+    before, after = probe.before, probe.after
+
+    def named(fn, label):
+        def wrapped(self, *a):
+            with torch.profiler.record_function(label):
+                return fn(self, *a)
+        return wrapped
+
+    def run():
+        opt = _durable_opt(model, small, device=device, mesh=mesh,
+                           durable=False, epochs=1, batch=batch,
+                           every=DURABLE_EVERY, sgd=RESNET_SGD, prefetch=2,
+                           mixed=True)
+        from bigdl_tpu_torch.observability import Recorder
+        opt.set_telemetry(Recorder(), health=True)
+        opt.set_end_when(Trigger.max_iteration(2))
+        opt.optimize()
+    probe.before = named(before, HEALTH_RANGES[0])
+    probe.after = named(after, HEALTH_RANGES[1])
+    try:
+        run()           # warm: the profiler's first use stalls launches
+        prof = profile_steps(run, steps=2, classes=DISTRI_CLASSES,
+                             ranges=HEALTH_RANGES)
+    finally:
+        probe.before, probe.after = before, after
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message)[:80] for w in caught
+             if "synchroniz" in str(w.message)]
+    return prof, {"steps": 2, "epoch_ends": 1, "host_syncs": len(syncs)}
+
+
+def durable_child(spec: dict) -> None:
+    """One run of ``phase_durable`` in a process of its own (the model
+    built first, so that its module names are the same in every child):
+    ``kind`` ``"a"`` (the main path with durability off, then on, then
+    the health probe profiled), ``"b"`` (on, preemptible, or resuming),
+    ``"c"`` (LeNet-5 on K6, killed by the armed checkpoint fault)."""
+    from bigdl_tpu_torch.parallel import mesh as mesh_lib
+    device = spec.get("device", "cuda")
+    _durable_setup(device)
+    work = spec["work"]
+    out = {"kind": spec["kind"], "pid": os.getpid()}
+    if spec["kind"] == "c":
+        from bigdl_tpu_torch.models import lenet
+        model = lenet.build(10, device=device, seed=0)
+        opt = _durable_opt(model, _durable_lenet_data(), device=device,
+                           durable=True, ckpt=spec["ckpt"],
+                           flight=os.path.join(work, "flight_c"),
+                           epochs=DURABLE_LENET["epochs"],
+                           batch=DURABLE_LENET["batch"],
+                           every=DURABLE_LENET["every"], sgd=LENET_SGD)
+        _durable_drive(opt, announce=True)
+        raise AssertionError("the armed checkpoint fault did not fire")
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.parallel.allreduce import tree_leaves
+    if spec.get("small"):       # a CPU rehearsal: CIFAR ResNet-8
+        build = lambda: resnet.build(class_num=10, depth=8,
+                                     dataset="cifar10", format="NHWC",
+                                     seed=0, device=device)
+        rng = np.random.default_rng(17)
+        data = (rng.standard_normal((spec["images"], 32, 32, 3),
+                                    dtype=np.float32),
+                (rng.integers(0, 10, spec["images"]) + 1)
+                .astype(np.float32))
+    else:
+        build = lambda: resnet.build(class_num=1000, depth=50,
+                                     dataset="imagenet", format="NHWC",
+                                     seed=0, device=device)
+        data = None
+    model = build()
+    out["n_leaves"] = len(tree_leaves(model.param_dict()))
+    if data is None:
+        data = _durable_resnet_data(spec["images"])
+    store = os.path.join(work, f"store_{spec['name']}")
+    mesh_lib.init_distributed(f"file://{store}", 0, 1, device=device)
+    mesh = mesh_lib.create_mesh({"dp": 1}, device=device)
+    common = dict(device=device, mesh=mesh, epochs=DURABLE_EPOCHS,
+                  batch=spec["batch"],
+                  every=DURABLE_EVERY, sgd=RESNET_SGD, prefetch=2,
+                  mixed=device != "cpu")
+    try:
+        if spec["kind"] == "a":
+            off_model = model
+            out["off"] = _durable_drive(_durable_opt(
+                off_model, data, durable=False, **common))
+            model = build()
+        opt = _durable_opt(model, data, durable=True, ckpt=spec["ckpt"],
+                           flight=os.path.join(work, f"flight_{spec['name']}"),
+                           preempt=spec.get("preempt", False),
+                           sink_path=os.path.join(work,
+                                                  f"{spec['name']}.jsonl"),
+                           **common)
+        pre = opt._ckpt_mgr.restore_latest()
+        if pre is not None:
+            print(f"RESUME iteration={pre[2]['iteration']}", flush=True)
+            out["resumed_from"] = pre[2]["iteration"]
+        out["on"] = _durable_drive(opt, announce=spec.get("preempt", False))
+        out["on"]["iteration"] = opt.state.iteration
+        out["counters"] = _ckpt_counters(opt)
+        kept = [os.path.join(spec["ckpt"], e)
+                for e in sorted(os.listdir(spec["ckpt"]))
+                if e.startswith("ckpt_")]
+        out["ckpt_mb"] = {os.path.basename(d): sum(
+            os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 1e6
+            for d in kept}
+        from bigdl_tpu_torch.observability.tracing import get_tracer
+        out["trace_spans"] = sorted(
+            s.name for s in get_tracer().store.spans()
+            if s.subsystem == "checkpoint"
+            and s.trace_id == opt._trace_ctx.trace_id)
+        np.savez(os.path.join(work, f"{spec['name']}.npz"),
+                 *_durable_arrays(model, opt))
+        if spec["kind"] == "a" and device != "cpu":
+            out["profile"], out["syncs"] = _profile_health(
+                build(), data, device, mesh, spec["batch"])
+    finally:
+        torch.distributed.destroy_process_group()
+        mesh_lib.set_mesh(None)
+    with open(os.path.join(work, f"{spec['name']}.json"), "w") as f:
+        json.dump(out, f)
+    print("CHILD DONE", flush=True)
+
+
+def _spawn_child(spec, fault=None, sigterm_at=None):
+    """Run ``durable_child(spec)`` in a new process of this script; with
+    ``sigterm_at``, send it SIGTERM once it prints ``iter <n>``.  Returns
+    ``(exit code, output)``."""
+    import signal
+    env = dict(os.environ)
+    env.pop("BIGDL_CKPT_FAULT", None)
+    if fault:
+        env["BIGDL_CKPT_FAULT"] = fault
+    p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                          "--durable-child", json.dumps(spec)], env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+    lines = []
+    try:
+        deadline = time.monotonic() + DURABLE_CHILD_TIMEOUT
+        for line in p.stdout:
+            lines.append(line)
+            if (sigterm_at is not None
+                    and line.strip() == f"iter {sigterm_at}"):
+                p.send_signal(signal.SIGTERM)
+                sigterm_at = None
+            if time.monotonic() > deadline:
+                break
+        p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    text = "".join(lines)
+    log(f"durable child {spec['name']}: exit {p.returncode}; "
+        + " | ".join(l.strip() for l in lines[-6:]))
+    return p.returncode, text
+
+
+def _npz(path):
+    with np.load(path) as z:
+        return [z[k] for k in z.files]
+
+
+def _lenet_leg(work, device, fails):
+    """(c) a torn newest checkpoint and (d) a rollback, on LeNet-5 with
+    SGD(0.05) on K6 through LocalOptimizer: the killed child, then here
+    the resume and the uninterrupted run (bitwise), and the poisoned run
+    under ``policy="rollback"``."""
+    import shutil
+
+    from bigdl_tpu_torch.checkpoint import scan
+    from bigdl_tpu_torch.checkpoint.faults import KILL_EXIT_CODE
+    from bigdl_tpu_torch.data.dataset import DataSet
+    from bigdl_tpu_torch.data.minibatch import MiniBatch
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.observability.health import read_flight
+    L = DURABLE_LENET
+    data = _durable_lenet_data()
+    out = {}
+    _durable_setup(device)
+    # (c) torn newest: killed mid-shard in its third save
+    ck = os.path.join(work, "lenet_ck")
+    rc, text = _spawn_child({"kind": "c", "name": "c", "work": work,
+                             "ckpt": ck, "device": device}, fault=L["kill"])
+    intact = [m.meta["iteration"] for _, m in scan(ck)]
+    torn = sorted(d for d in os.listdir(ck) if d.startswith("ckpt_")
+                  and not os.path.exists(os.path.join(ck, d,
+                                                      "MANIFEST.json")))
+    if rc != KILL_EXIT_CODE:
+        fails.append(f"(c) the child exited {rc}, not the kill's "
+                     f"{KILL_EXIT_CODE}: {text[-400:]}")
+    if intact != [L["every"], 2 * L["every"]] or not torn:
+        fails.append(f"(c) after the kill: intact {intact}, torn {torn}")
+
+    def lenet_run(ckpt, poison=False, policy="rollback", every=L["every"]):
+        model = lenet.build(10, device=device, seed=0)
+        ds = DataSet.minibatch_arrays(*data, L["batch"])
+        if poison:
+            ds = _PoisonOnceDS(ds, L["poison_at"], MiniBatch)
+        opt = _durable_opt(model, ds, device=device, durable=ckpt is not None,
+                           ckpt=ckpt, flight=os.path.join(work, "flight_d"),
+                           epochs=L["epochs"], batch=L["batch"], every=every,
+                           sgd=LENET_SGD, health_policy=policy)
+        if ckpt is not None:
+            from bigdl_tpu_torch.observability import InMemorySink
+            opt.recorder.add_sink(InMemorySink())
+        try:
+            run = _durable_drive(opt)
+        finally:
+            if opt._flight is not None:     # this process's hooks
+                opt._flight.uninstall()
+        return model, opt, run
+
+    m_res, o_res, r_res = lenet_run(ck)
+    m_ref, _, r_ref = lenet_run(None)
+    if o_res.recorder.counter_value("checkpoint/failed"):
+        fails.append("(c) a checkpoint write of the resumed run failed")
+    same = all(torch.equal(a, b) for a, b in zip(
+        m_res.get_weights(), m_ref.get_weights()))
+    resumed_at = min(r_res["losses"]) - 1
+    if not same or resumed_at != 2 * L["every"]:
+        fails.append(f"(c) resume from iteration {resumed_at} is not "
+                     f"bitwise the uninterrupted run ({same})")
+    out["torn"] = {"exit": rc, "intact_after_kill": intact, "torn": torn,
+                   "resumed_from": resumed_at, "bitwise": same,
+                   "launches": r_res["launches"]}
+    # (d) rollback: a NaN batch once, a checkpoint every 2 steps
+    shutil.rmtree(os.path.join(work, "flight_d"), ignore_errors=True)
+    m_d, o_d, r_d = lenet_run(os.path.join(work, "lenet_rollback"),
+                              poison=True, every=2)
+    if o_d.recorder.counter_value("checkpoint/failed"):
+        fails.append("(d) a checkpoint write failed")
+    steps = [r for r in o_d.recorder.sinks[-1].records
+             if r.get("type") == "step"]
+    seen = [r["step"] for r in steps]
+    k = L["poison_at"] + 1
+    mon = o_d._health_monitor
+    tripped = [e["step"] for e in mon.events]
+    flights = [read_flight(os.path.join(work, "flight_d", f))["reason"]
+               for f in sorted(os.listdir(os.path.join(work, "flight_d")))]
+    after = [r["scalars"]["loss"] for r in steps[seen.index(k) + 1:]]
+    planned = L["epochs"] * L["images"] // L["batch"]
+    ok = (mon.rollbacks == 1 and set(tripped) == {k} and seen.count(k) == 2
+          and all(np.isfinite(after)) and flights == ["divergence"]
+          and o_d.state.iteration == planned and seen[-1] == planned)
+    if not ok:
+        fails.append(f"(d) rollback: rollbacks {mon.rollbacks}, tripped "
+                     f"{tripped}, seen {seen}, flights {flights}, ended at "
+                     f"{o_d.state.iteration}")
+    out["rollback"] = {"rollbacks": mon.rollbacks, "tripped_at": tripped,
+                       "steps_seen": seen, "flight_dumps": flights,
+                       "ended_at": o_d.state.iteration,
+                       "launches": r_d["launches"]}
+    return out
+
+
+class _PoisonOnceDS:
+    """A NaN into batch ``at`` (0-based) of the first epoch, once."""
+
+    def __init__(self, inner, at, mb_cls):
+        self.inner, self.at, self.mb_cls, self.armed = inner, at, mb_cls, True
+
+    def data(self, train=True, epoch=None):
+        for i, mb in enumerate(self.inner.data(train=train, epoch=epoch)):
+            if self.armed and i == self.at:
+                self.armed = False
+                xx = np.array(mb.get_input())
+                xx[0, 0] = np.nan
+                mb = self.mb_cls(xx, mb.get_target())
+            yield mb
+
+
+def _per_save(counters, saves):
+    """ms a checkpoint of each writer part, from the child's counters."""
+    return {part: counters.get(f"checkpoint/{key}_seconds", 0.0) * 1e3
+            / max(saves, 1)
+            for part, key in (("encode_deflate", "encode"),
+                              ("crc32c", "crc"), ("write_fsync", "io"),
+                              ("commit_gc", "commit"),
+                              ("writer_total", "write"),
+                              ("blocking_d2h", "d2h"),
+                              ("blocking_backpressure", "backpressure"))}
+
+
+def phase_durable(card: str, device: str = "cuda", small: bool = False):
+    """BigDL's durable training on the main path (ResNet-50 ImageNet NHWC
+    bf16 b256 through DistriOptimizer at dp=1 over NCCL, K5): (a) one run
+    with durability off and one on, (b) preempted by SIGTERM and resumed
+    (bitwise (a)), each in a process of its own; (c) a torn newest
+    checkpoint and (d) a rollback on LeNet-5 (K6).  ``device="cpu",
+    small=True`` rehearses it on the CPU (CIFAR ResNet-8, 128 images at
+    batch 16, the same 2 × 8 steps)."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.checkpoint import scan
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.ops import _build
+    t0 = time.monotonic()
+    fails = []
+    if device != "cpu":
+        torch.cuda.empty_cache()    # the children need the card's memory
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="durable_", dir=str(_build.BUILD_DIR))
+    batch = 16 if small else DURABLE_BATCH
+    images = 8 * batch if small else DURABLE_IMAGES
+    extra = {"device": device, "work": work, "small": small,
+             "batch": batch, "images": images}
+    try:
+        runs = {}
+        for name, kind, kw in (("a", "a", {}),
+                               ("b1", "b", dict(preempt=True)),
+                               ("b2", "b", {})):
+            rc, _ = _spawn_child(
+                {"name": name, "kind": kind,
+                 "ckpt": os.path.join(work, f"ck_{kind}"), **extra, **kw},
+                sigterm_at=DURABLE_PREEMPT_AT if kw else None)
+            with open(os.path.join(work, f"{name}.json")) as f:
+                runs[name] = json.load(f)
+            if name == "b1":        # before b2's retention removes it
+                preempt_tags = [m.tag for _, m in
+                                scan(os.path.join(work, "ck_b"))]
+            if rc != 0:
+                fails.append(f"child {name} exited {rc}")
+            if runs[name]["counters"].get("checkpoint/failed"):
+                fails.append(f"child {name}: a checkpoint write failed")
+        a, b1, b2 = runs["a"], runs["b1"], runs["b2"]
+        steps = DURABLE_EPOCHS * images // batch
+        k = b1["on"]["iteration"]
+        if not (DURABLE_PREEMPT_AT <= k < steps
+                and b2.get("resumed_from") == k
+                and preempt_tags[-1:] == [f"preempt_iter_{k}"]):
+            fails.append(f"(b) preempted at {k}, resumed from "
+                         f"{b2.get('resumed_from')}, committed "
+                         f"{preempt_tags}")
+        bits = all(np.array_equal(u, v) for u, v in zip(
+            _npz(os.path.join(work, "a.npz")),
+            _npz(os.path.join(work, "b2.npz"))))
+        la = {int(i): v for i, v in a["on"]["losses"].items()}
+        lb = {**{int(i): v for i, v in b1["on"]["losses"].items()},
+              **{int(i): v for i, v in b2["on"]["losses"].items()}}
+        loss_bits = all(lb[i] == la[i] for i in range(k + 1, steps + 1))
+        if not (bits and loss_bits and b2["on"]["iteration"] == steps):
+            fails.append(f"(b) resumed run against (a): state bitwise "
+                         f"{bits}, losses equal {loss_bits}")
+        per = -(-a["n_leaves"] // fo.SGD_CAPACITY)
+        for name, run, want in (("a off", a["off"], steps),
+                                ("a on", a["on"], steps),
+                                ("b1", b1["on"], k),
+                                ("b2", b2["on"], steps - k)):
+            got = run["launches"].get(fo.SGD_MOM, 0)
+            if device != "cpu" and got != want * per:
+                fails.append(f"{name}: K5 launched {got}, expected "
+                             f"{want * per}")
+        if a["trace_spans"].count("ckpt.write") != steps // DURABLE_EVERY:
+            fails.append(f"trace spans {a['trace_spans']}")
+        lenet = _lenet_leg(work, device, fails)
+        saves = a["counters"].get("checkpoint/committed", 0)
+        readings = {
+            "card": card,
+            "step_ms_median_off": float(np.median(a["off"]["step_ms"][1:]))
+            if a["off"]["step_ms"] else None,
+            "step_ms_median_on": float(np.median(a["on"]["step_ms"][1:]))
+            if a["on"]["step_ms"] else None,
+            "wall_s_off": a["off"]["wall_s"], "wall_s_on": a["on"]["wall_s"],
+            "checkpoints": saves,
+            "ms_per_checkpoint": _per_save(a["counters"], saves),
+            "mb_per_checkpoint": a["ckpt_mb"],
+            "restore_ms": {p: b2["counters"].get(
+                f"checkpoint/restore_{p}_seconds", 0.0) * 1e3
+                for p in ("scan", "verify", "decode", "h2d")},
+            "peak_mem_gb_off": a["off"]["peak_mem_gb"],
+            "peak_mem_gb_on": a["on"]["peak_mem_gb"],
+            "profile": a.get("profile"), "host_syncs": a.get("syncs"),
+            "retry_attempts": a["counters"].get("retry/attempts", 0.0)}
+        prof = a.get("profile") or {}
+        if prof.get("device_ms_by_range"):
+            readings["health_device_ms_per_step"] = sum(
+                prof["device_ms_by_range"].get(r, 0.0)
+                for r in HEALTH_RANGES)
+        launches = {}
+        for run in (a["on"], b1["on"], b2["on"],
+                    lenet["torn"], lenet["rollback"]):
+            for kk, v in run["launches"].items():
+                launches[kk] = launches.get(kk, 0) + v
+        out = {"config": "resnet.build(class_num=1000, depth=50, "
+                         "format='NHWC', seed=0), DistriOptimizer(batch_size"
+                         "=256, mesh=create_mesh({'dp': 1}), fused_optim="
+                         "True), set_mixed_precision(), set_prefetch(2), "
+                         "SGD(0.1, momentum=0.9, weight_decay=1e-4), 2 "
+                         "epochs of 8 steps over 2048 synthetic images; "
+                         f"set_checkpoint(several_iteration({DURABLE_EVERY}),"
+                         " keep_last=2, handle_preemption=True), "
+                         "set_telemetry(health="
+                         "True), set_health('rollback', flight_dir), "
+                         "set_auto_retry(1), set_trace_context; NCCL at "
+                         "world size 1; (c), (d) LeNet-5, SGD(0.05), K6",
+               "preempted_at": k, "resumed_bitwise": bits,
+               "resumed_losses_equal": loss_bits,
+               "losses_a": la, "lenet": lenet, "readings": readings,
+               "launches": launches,
+               "launches_by_run": {"a_off": a["off"]["launches"],
+                                   "a_on": a["on"]["launches"],
+                                   "b1": b1["on"]["launches"],
+                                   "b2": b2["on"]["launches"]},
+               "seconds": time.monotonic() - t0}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"durable: {json.dumps(out)}")
+    if fails:
+        raise AssertionError("durable phase: " + "; ".join(fails))
+    return out
+
+
+
+def host_bound_legs() -> dict:
+    """The host-bound ResNet-50 runs of ``phase_distri`` alone (bf16,
+    ``LocalOptimizer`` at batch 64, and ``DistriOptimizer`` at dp=1 over
+    NCCL at batch 256 without prefetch): their step medians, for an A/B
+    of two trees of the package on one card.  ``python3 chip_smoke.py
+    --host-legs`` run from the root of a tree measures that tree's
+    package; run the two trees in turns in one call."""
+    import tempfile
+
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.parallel import mesh as mesh_lib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_build()
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    model = resnet.build(class_num=1000, depth=50, dataset="imagenet",
+                         format="NHWC", seed=0)
+    w0 = [w.clone() for w in model.get_weights()]
+    s0 = [t.clone() for t in model.state_list()]
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((DISTRI_IMAGES, 224, 224, 3), dtype=np.float32)
+    y = (rng.integers(0, 1000, DISTRI_IMAGES) + 1).astype(np.float32)
+    store = tempfile.mkdtemp(dir=str(_build.BUILD_DIR))
+    mesh_lib.init_distributed(f"file://{store}/store", 0, 1)
+    out = {"tree": os.getcwd(), "card": card_line()}
+    try:
+        mesh = mesh_lib.create_mesh({"dp": 1})
+        for name, data, batch, kw in (
+                ("local_b64", (x[:256], y[:256]), 64, {}),
+                ("dp1_b256", (x, y), 256, dict(mesh=mesh))):
+            run = _train_run(model, w0, s0, data, batch, **kw)
+            out[name] = float(np.median(run["step_ms"][1:]))
+    finally:
+        torch.distributed.destroy_process_group()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -4937,6 +5579,7 @@ def main() -> int:
     recipe = phase_recipe(card, {k: prefetch_run[k] for k in (
         "step_ms_median", "images_per_s")})
     vgg = phase_vgg(card)
+    durable = phase_durable(card)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
@@ -4945,7 +5588,8 @@ def main() -> int:
                "classifier": classifier["launches"],
                "distri": distri["launches"],
                "recipe": recipe["launches"],
-               "vgg": vgg["launches"]}
+               "vgg": vgg["launches"],
+               "durable": durable["launches"]}
     kernels = [k1, *k23, k4, k5, k6]
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
@@ -4960,6 +5604,7 @@ def main() -> int:
     print(json.dumps({"distri": distri}), flush=True)
     print(json.dumps({"recipe": recipe}), flush=True)
     print(json.dumps({"vgg": vgg}), flush=True)
+    print(json.dumps({"durable": durable}), flush=True)
     print(json.dumps({"host_sync": host_sync}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -4970,4 +5615,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--durable-child":
+        durable_child(json.loads(sys.argv[2]))
+        sys.exit(0)
+    if sys.argv[1:] == ["--host-legs"]:
+        sys.path.insert(0, os.getcwd())     # the working tree's package
+        print("HOST_LEGS " + json.dumps(host_bound_legs()), flush=True)
+        sys.exit(0)
     sys.exit(main())

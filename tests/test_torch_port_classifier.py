@@ -597,7 +597,8 @@ def test_local_optimizer_unported_setters_raise():
                               np.ones(2, np.float32)),
                          tnn.ClassNLLCriterion(), batch_size=1,
                          device="cpu")
-    for name in ("set_checkpoint", "set_telemetry"):
+    for name in ("set_train_summary", "set_val_summary", "set_trace_every",
+                 "serve_metrics"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
             getattr(opt, name)(None)
     # ported since: each returns the optimizer
