@@ -1031,20 +1031,15 @@ class Optimizer:
         model_state = self.model.initial_state()
         optim = self._wrap_optim(params)
         step_fn = self._build_step(optim)
-        restored = None
-        if self._ckpt_mgr is not None:
-            restored = self.load_checkpoint()
-        t0 = time.perf_counter()
-        if restored is not None:
-            # into the model's own tensors, before any layout copies them
-            self._load_params(params, restored[0])
-            model_state = _host_tree(restored[2], self.device)
         params = self._layout_params(params)
         opt_state = optim.init_state(params)
-        if restored is not None:
-            opt_state = self._restore_opt(restored[1], opt_state)
-            self.recorder.inc("checkpoint/restore_h2d_seconds",
-                              time.perf_counter() - t0)
+        if self._ckpt_mgr is not None:
+            # the one restore path (a rollback's too): _load_params cuts
+            # fsdp's row blocks from the global leaves
+            restored = self._restore_from_checkpoint(params, opt_state,
+                                                     model_state)
+            if restored is not None:
+                params, opt_state, model_state = restored
         if self._watchdog is not None:
             self._watchdog.start()      # no-op when already polling
         try:
@@ -1099,7 +1094,6 @@ class Optimizer:
             return None
         t0 = time.perf_counter()
         out = self._adopt(restored, params, opt_state, model_state)
-        self._after_params_restored(out[0])
         self.recorder.inc("checkpoint/restore_h2d_seconds",
                           time.perf_counter() - t0)
         return out

@@ -5177,13 +5177,12 @@ def durable_child(spec: dict) -> None:
                            sink_path=os.path.join(work,
                                                   f"{spec['name']}.jsonl"),
                            **common)
-        pre = opt._ckpt_mgr.restore_latest()
-        if pre is not None:
-            print(f"RESUME iteration={pre[2]['iteration']}", flush=True)
-            out["resumed_from"] = pre[2]["iteration"]
         out["on"] = _durable_drive(opt, announce=spec.get("preempt", False))
         out["on"]["iteration"] = opt.state.iteration
         out["counters"] = _ckpt_counters(opt)
+        if out["counters"].get("checkpoint/restored"):
+            # optimize() restored once; its first step follows that one
+            out["resumed_from"] = min(out["on"]["losses"]) - 1
         kept = [os.path.join(spec["ckpt"], e)
                 for e in sorted(os.listdir(spec["ckpt"]))
                 if e.startswith("ckpt_")]
@@ -5500,45 +5499,6 @@ def phase_durable(card: str, device: str = "cuda", small: bool = False):
 
 
 
-def host_bound_legs() -> dict:
-    """The host-bound ResNet-50 runs of ``phase_distri`` alone (bf16,
-    ``LocalOptimizer`` at batch 64, and ``DistriOptimizer`` at dp=1 over
-    NCCL at batch 256 without prefetch): their step medians, for an A/B
-    of two trees of the package on one card.  ``python3 chip_smoke.py
-    --host-legs`` run from the root of a tree measures that tree's
-    package; run the two trees in turns in one call."""
-    import tempfile
-
-    from bigdl_tpu_torch.models import resnet
-    from bigdl_tpu_torch.ops import _build
-    from bigdl_tpu_torch.parallel import mesh as mesh_lib
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    phase_build()
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = True
-    model = resnet.build(class_num=1000, depth=50, dataset="imagenet",
-                         format="NHWC", seed=0)
-    w0 = [w.clone() for w in model.get_weights()]
-    s0 = [t.clone() for t in model.state_list()]
-    rng = np.random.default_rng(11)
-    x = rng.standard_normal((DISTRI_IMAGES, 224, 224, 3), dtype=np.float32)
-    y = (rng.integers(0, 1000, DISTRI_IMAGES) + 1).astype(np.float32)
-    store = tempfile.mkdtemp(dir=str(_build.BUILD_DIR))
-    mesh_lib.init_distributed(f"file://{store}/store", 0, 1)
-    out = {"tree": os.getcwd(), "card": card_line()}
-    try:
-        mesh = mesh_lib.create_mesh({"dp": 1})
-        for name, data, batch, kw in (
-                ("local_b64", (x[:256], y[:256]), 64, {}),
-                ("dp1_b256", (x, y), 256, dict(mesh=mesh))):
-            run = _train_run(model, w0, s0, data, batch, **kw)
-            out[name] = float(np.median(run["step_ms"][1:]))
-    finally:
-        torch.distributed.destroy_process_group()
-    return out
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -5617,9 +5577,5 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--durable-child":
         durable_child(json.loads(sys.argv[2]))
-        sys.exit(0)
-    if sys.argv[1:] == ["--host-legs"]:
-        sys.path.insert(0, os.getcwd())     # the working tree's package
-        print("HOST_LEGS " + json.dumps(host_bound_legs()), flush=True)
         sys.exit(0)
     sys.exit(main())
