@@ -30,10 +30,19 @@ returns the same dict it was given.  Sampling draws Gumbel noise from a
 tokens are held to the reference by their properties, greedy ones by
 value.
 
-Not ported yet (ROADMAP queue A): MoE (``moe_experts``), remat, ring
-attention, dropout in training, and the chunked loss
-(``chunked_token_nll``).  A config or an argument that asks for one of
-them raises.
+Training takes the reference's memory levers: ``remat`` wraps each block
+in :class:`~bigdl_tpu_torch.nn.containers.Remat` (lazily, at the first
+``apply_trunk``, so that no auto name shifts); ``loss_chunk`` computes the
+head and the loss a sequence chunk at a time, each chunk under
+``torch.utils.checkpoint`` (:func:`chunked_token_nll`), so that no more
+than (B, chunk, V) logits exist at once; ``dropout`` draws one keep mask
+a block through :meth:`Ctx.draw` (the training loop's generator, or the
+mask ``Ctx.draws`` gives under the block's name) and applies it to the
+attention and the MLP outputs, as the reference's ``_drop`` draws both
+from one key.  ``use_ring_attention`` is taken as the reference takes it
+on one device: it asks for nothing without an ``sp`` axis larger than 1,
+which is ROADMAP queue A, item 5, as MoE (``moe_experts``, which raises)
+is.
 
 Weights are drawn from a ``torch.Generator`` seeded by ``build(seed=)``
 on the CPU and then moved, so one seed gives the same weights on every
@@ -51,6 +60,9 @@ import torch
 import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
+from torch.utils.checkpoint import checkpoint
+
+from ..nn.containers import Remat
 from ..nn.module import Ctx, Module
 from ..nn.normalization import RMSNorm
 from ..ops.flash_attention import (DEFAULT_MASK_VALUE, _mask as _attn_mask,
@@ -296,14 +308,31 @@ class TransformerBlock(Module):
         self.mlp = SwiGLU(cfg, gen, name=f"{self.name}.mlp")
 
     def apply(self, params, x, ctx):
-        if ctx.training and self.cfg.dropout > 0.0:
-            raise NotImplementedError(
-                "dropout in training is not ported yet (ROADMAP queue A, "
-                "item 2)")
-        h = x + self.attn.apply(params, self.norm1.apply(params, x, ctx),
-                                ctx)
-        return h + self.mlp.apply(params, self.norm2.apply(params, h, ctx),
-                                  ctx)
+        mask = self._keep_mask(x, ctx)
+        h = x + self._drop(self.attn.apply(
+            params, self.norm1.apply(params, x, ctx), ctx), mask)
+        return h + self._drop(self.mlp.apply(
+            params, self.norm2.apply(params, h, ctx), ctx), mask)
+
+    def _keep_mask(self, x, ctx):
+        """The block's keep mask in training with ``dropout > 0``, else
+        None: one draw of ``x``'s shape (``uniform < keep``), shared by
+        both sublayers as the reference's two ``_drop`` calls share one
+        key (``ctx.rng(self)``)."""
+        rate = self.cfg.dropout
+        if not ctx.training or rate <= 0.0:
+            return None
+        keep = 1.0 - rate
+        return ctx.draw(self, x.device, lambda g: torch.rand(
+            x.shape, generator=g, device=x.device) < keep)
+
+    def _drop(self, y, mask):
+        """``where(mask, y / keep, 0)`` in ``y``'s dtype (``keep`` rounded
+        to it, as JAX rounds a weakly typed scalar)."""
+        if mask is None:
+            return y
+        keep = torch.tensor(1.0 - self.cfg.dropout, dtype=y.dtype)
+        return torch.where(mask, y / keep, y.new_zeros(()))
 
     def apply_cached(self, params, x, ctx, cache, start: int):
         a, cache = self.attn.apply_cached(
@@ -341,20 +370,20 @@ class LMHead(Module):
         return torch.matmul(x, self.own(params)["weight"].to(x.dtype))
 
 
-_NOT_PORTED = ("remat", "use_ring_attention", "moe_experts")
-
-
 class TransformerLM(Module):
     """Decoder-only causal LM. tokens (B, S) int -> logits (B, S, V) fp32."""
 
     def __init__(self, cfg: TransformerConfig,
                  gen: Optional[torch.Generator] = None, name=None):
         super().__init__(name=name)
-        asked = [f for f in _NOT_PORTED if getattr(cfg, f)]
-        if asked:
+        if cfg.moe_experts:
             raise NotImplementedError(
-                f"TransformerLM: {asked} not ported yet (ROADMAP queue A)")
+                "TransformerLM: moe_experts (SwitchFFN over an 'ep' axis) is "
+                "not ported yet (ROADMAP queue A, item 5)")
         self.cfg = cfg
+        # nn.Remat wrappers of the blocks, made at the first apply_trunk
+        # (a plain list: not registered, so no parameter is listed twice)
+        self._remat_blocks = None
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
         self.embed = TokenEmbedding(cfg.vocab_size, cfg.d_model, gen,
                                     name=f"{self.name}.embed")
@@ -371,7 +400,11 @@ class TransformerLM(Module):
         hidden states (B, S, d_model) in cfg.dtype."""
         h = self.embed.apply(params, x, ctx)
         h = h.to(getattr(torch, self.cfg.dtype))
-        for blk in self.blocks:
+        if self.cfg.remat and self._remat_blocks is None:
+            # after the model is built, so that the wrappers' uids never
+            # shift the model's own auto names
+            self._remat_blocks = [Remat(b) for b in self.blocks]
+        for blk in (self._remat_blocks if self.cfg.remat else self.blocks):
             h = blk.apply(params, h, ctx)
         return self.final_norm.apply(params, h, ctx)
 
@@ -387,27 +420,30 @@ class TransformerLM(Module):
         return self.head_logits(params, h, ctx).float()
 
     def token_nll(self, params, tokens, targets, *, ignore_index=-1,
-                  loss_chunk=None, training=False, ctx=None):
-        """(sum of masked token NLLs, valid-token count) over the full
-        sequence.  A ``loss_chunk`` smaller than the sequence (the
-        reference's chunked head + loss) raises: not ported yet."""
-        if loss_chunk and loss_chunk < tokens.shape[1]:
-            raise NotImplementedError(
-                "TransformerLM: loss_chunk (chunked_token_nll) is not "
-                "ported yet (ROADMAP queue A, item 2)")
+                  loss_chunk=None, training=False, generator=None, ctx=None):
+        """(sum of masked token NLLs, valid-token count), the head and the
+        loss over the whole sequence, or with ``loss_chunk`` a chunk at a
+        time (:func:`chunked_token_nll`: the same per-token log-sum-exp,
+        summed over chunks in order).  ``generator`` feeds dropout's
+        draws in training (the reference's ``rng``)."""
         if ctx is None:
-            ctx = Ctx(state={}, training=training)
+            ctx = Ctx(state={}, training=training, generator=generator)
         h = self.apply_trunk(params, tokens, ctx)
-        logits = self.head_logits(params, h, ctx).float()
-        return lm_token_nll(logits, targets, ignore_index)
+        if not loss_chunk or loss_chunk >= h.shape[1]:
+            logits = self.head_logits(params, h, ctx).float()
+            return lm_token_nll(logits, targets, ignore_index)
+        head_ctx = Ctx(state={}, training=ctx.training)
+        return chunked_token_nll(
+            lambda h_c: self.head_logits(params, h_c, head_ctx),
+            h, targets, loss_chunk, ignore_index)
 
     def loss(self, params, tokens, targets, *, ignore_index=-1,
-             loss_chunk=None, training=False, ctx=None):
+             loss_chunk=None, training=False, generator=None, ctx=None):
         """Mean masked token cross-entropy (see :meth:`token_nll`)."""
         tot, cnt = self.token_nll(params, tokens, targets,
                                   ignore_index=ignore_index,
                                   loss_chunk=loss_chunk, training=training,
-                                  ctx=ctx)
+                                  generator=generator, ctx=ctx)
         return tot / torch.clamp(cnt, min=1.0)
 
     # -- generation (kv cache) ----------------------------------------- #
@@ -633,6 +669,41 @@ def gumbel_sample(logits, gen: torch.Generator):
     uniforms from ``gen`` (no host sync)."""
     u = torch.rand(logits.shape, generator=gen, device=logits.device)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1).int()
+
+
+def chunked_token_nll(head_fn, h, targets, loss_chunk: int,
+                      ignore_index: int = -1):
+    """(total masked NLL, valid count) with the vocab projection done a
+    sequence chunk at a time, each chunk's head and log-sum-exp under
+    ``torch.utils.checkpoint`` (non-reentrant), so that the backward
+    recomputes a chunk's logits instead of keeping all (B, S, V) of them:
+    at most (B, loss_chunk, V) fp32 logits live at once.
+
+    ``head_fn(h_chunk) -> logits_chunk`` closes over the head's
+    parameters.  The chunk is clamped to S (never padded up past the
+    sequence); a ragged tail is padded with zero hiddens and
+    ``ignore_index`` targets, so it adds nothing.  Chunks are summed in
+    order from 0, as the reference's ``lax.scan`` sums them."""
+    b, s, d = h.shape
+    loss_chunk = min(int(loss_chunk), s)
+    if s % loss_chunk:
+        pad = loss_chunk - s % loss_chunk
+        h = torch.cat([h, h.new_zeros((b, pad, d))], dim=1)
+        targets = torch.cat([targets, targets.new_full((b, pad),
+                                                       ignore_index)], dim=1)
+        s += pad
+
+    def chunk_nll(h_c, t_c):
+        return lm_token_nll(head_fn(h_c).float(), t_c, ignore_index)
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, loss_chunk):
+        t_i, c_i = checkpoint(chunk_nll, h[:, i:i + loss_chunk],
+                              targets[:, i:i + loss_chunk],
+                              use_reentrant=False)
+        tot, cnt = tot + t_i, cnt + c_i
+    return tot, cnt
 
 
 def lm_token_nll(logits, targets, ignore_index: int = -1):

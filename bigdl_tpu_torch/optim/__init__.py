@@ -7,7 +7,8 @@ from .distri_optimizer import DistriOptimizer
 from .lr_schedule import (Default, EpochDecay, EpochStep, Exponential,
                           LearningRateSchedule, MultiStep, NaturalExp,
                           Plateau, Poly, SequentialSchedule, Step, Warmup)
-from .optim_method import SGD, Adam, AdamW, OptimMethod
+from .optim_method import (LAMB, LARS, LBFGS, SGD, Adadelta, Adagrad, Adam,
+                           Adamax, AdamW, Ftrl, OptimMethod, RMSprop)
 from .optimizer import (LocalOptimizer, Optimizer, TrainingState,
                         make_accum_grads, make_accum_train_step,
                         make_eval_step, make_train_step, mask_frozen_grads)
@@ -18,13 +19,14 @@ from .validation import (MAE, NDCG, AccuracyResult, ContiguousResult,
                          HitRatio, Loss, LossResult, Top1Accuracy,
                          Top5Accuracy, ValidationMethod, ValidationResult)
 
-__all__ = ["AccuracyResult", "Adam", "AdamW", "ContiguousResult", "Default",
+__all__ = ["AccuracyResult", "Adadelta", "Adagrad", "Adam", "Adamax",
+           "AdamW", "ContiguousResult", "Default",
            "DistriOptimizer", "EpochDecay", "EpochStep", "Evaluator",
-           "Exponential", "HitRatio", "L1L2Regularizer", "L1Regularizer",
-           "L2Regularizer", "LearningRateSchedule", "LocalOptimizer",
+           "Exponential", "Ftrl", "HitRatio", "L1L2Regularizer", "L1Regularizer",
+           "L2Regularizer", "LAMB", "LARS", "LBFGS", "LearningRateSchedule", "LocalOptimizer",
            "LocalPredictor", "Loss", "LossResult", "MAE", "MultiStep",
            "NDCG", "NaturalExp", "OptimMethod", "Optimizer", "Plateau",
-           "Poly", "Predictor", "SGD", "SequentialSchedule", "Step",
+           "Poly", "Predictor", "RMSprop", "SGD", "SequentialSchedule", "Step",
            "Top1Accuracy", "Top5Accuracy", "TrainingState", "Trigger",
            "ValidationMethod", "ValidationResult", "Warmup",
            "make_accum_grads", "make_accum_train_step", "make_eval_step",

@@ -34,9 +34,13 @@ is staged; a final checkpoint on SIGTERM), ``set_telemetry`` (a step
 record a step, with :func:`health_scalars` computed in the step, read in
 one host sync), ``set_health`` (the sentinels, a ``rollback`` policy
 restoring the last committed checkpoint, the flight recorder, the stall
-watchdog), ``set_auto_retry`` and ``set_trace_context``.  Summaries,
-profiler traces and the metrics server are not ported yet (ROADMAP queue
-A, items 8 and 9); each ``set_*`` of those raises.
+watchdog), ``set_auto_retry`` and ``set_trace_context``.
+``set_train_summary`` writes Loss and LearningRate an iteration (under
+each tag's trigger), Throughput an epoch and, behind their trigger,
+Parameters histograms; ``set_val_summary`` each validation method's
+result (``bigdl_tpu_torch.visualization``, real tfevents files).
+Profiler traces and the metrics server are not ported yet (ROADMAP queue
+A, item 8); their ``set_*`` raise.
 """
 from __future__ import annotations
 
@@ -468,8 +472,6 @@ def to_device(a, device):
 
 # set_* of the reference that are not ported: name -> (what, queue item)
 _UNPORTED_SETTERS = {
-    "set_train_summary": ("training summaries", 9),
-    "set_val_summary": ("validation summaries", 9),
     "set_trace_every": ("profiler traces", 8),
     "serve_metrics": ("the live metrics server", 8),
 }
@@ -549,6 +551,8 @@ class Optimizer:
         self._opt_carry = None        # and its optimizer state
         self._h2d = None              # prefetch's HostToDevice
         self.last_validation = None
+        self.train_summary = None
+        self.val_summary = None
         self.opt_state = None         # the method's state after optimize()
         self.recorder = Recorder()
         # telemetry and health (observability.health)
@@ -654,6 +658,21 @@ class Optimizer:
         place) and published through the canary gate off the step loop.
         ``None`` detaches."""
         self._weight_stream = publisher
+        return self
+
+    def set_train_summary(self, summary):
+        """A :class:`~bigdl_tpu_torch.visualization.TrainSummary`: Loss and
+        LearningRate each iteration (under the summary's trigger of each
+        tag; one host sync an iteration), Throughput at each epoch's end,
+        and Parameters histograms when their trigger fires (a host copy
+        of every parameter)."""
+        self.train_summary = summary
+        return self
+
+    def set_val_summary(self, summary):
+        """A :class:`~bigdl_tpu_torch.visualization.ValidationSummary`:
+        each validation method's result at the iteration."""
+        self.val_summary = summary
         return self
 
     def set_telemetry(self, recorder: Recorder, health: bool = True):
@@ -1014,10 +1033,47 @@ class Optimizer:
                              self.device)
         for method, res in named:
             print(f"  [validation] {method}: {res}")
+            if self.val_summary is not None and res is not None:
+                self.val_summary.add_scalar(method.name, res.result()[0],
+                                            self.state.iteration)
         if named and named[0][1] is not None:
             self.state.score = named[0][1].result()[0]
         self.last_validation = named
         return named
+
+    def _write_train_summary(self, params, opt_state):
+        """The iteration's scalars and, behind their trigger, the
+        Parameters histograms (≙ the reference's ``_write_train_summary``;
+        a histogram copies its parameter to the host)."""
+        ts = self.train_summary
+        it = self.state.iteration
+
+        def trigger(tag):
+            return getattr(ts, "get_summary_trigger", lambda _t: None)(tag)
+
+        def fires(tag):
+            trig = trigger(tag)
+            return trig is None or trig(self.state)
+
+        tags, vals = [], []
+        if fires("Loss"):
+            tags.append("Loss")
+            vals.append(self.state.loss)
+        if fires("LearningRate"):
+            tags.append("LearningRate")
+            vals.append(self.optim_method.get_learning_rate(opt_state))
+        if tags:
+            host = torch.stack([torch.as_tensor(v, device=self.device)
+                                .detach().reshape(()).float()
+                                for v in vals]).tolist()
+            for tag, v in zip(tags, host):
+                ts.add_scalar(tag, v, it)
+        ptrig = trigger("Parameters")
+        if ptrig is not None and ptrig(self.state):
+            params = self._params_for_eval(params)    # fsdp: gathered
+            for path, leaf in zip(tree_paths(params), tree_leaves(params)):
+                ts.add_histogram(path, leaf.detach().float().cpu().numpy(),
+                                 it)
 
     # -- main loop ------------------------------------------------------- #
     def optimize(self):
@@ -1248,6 +1304,8 @@ class Optimizer:
                 n_seen += size
                 self._carry = (params, model_state)
                 self._opt_carry = opt_state
+                if self.train_summary is not None:
+                    self._write_train_summary(params, opt_state)
                 if self._telemetry:
                     # before the triggers: a diverged step raises before
                     # the checkpoint trigger can commit its poisoned state
@@ -1273,9 +1331,11 @@ class Optimizer:
             return params, opt_state, model_state, self.end_when(st)
         st.loss = float(st.loss)
         dur = time.time() - epoch_start
+        thru = n_seen / max(dur, 1e-9)
+        if self.train_summary is not None:
+            self.train_summary.add_scalar("Throughput", thru, st.iteration)
         print(f"[epoch {st.epoch}] loss={st.loss:.4f} ({n_seen} samples "
-              f"in {dur:.1f}s, {n_seen / max(dur, 1e-9):.1f}/s"
-              f"{self._banner_suffix()})")
+              f"in {dur:.1f}s, {thru:.1f}/s{self._banner_suffix()})")
         if self.val_trigger is not None and self.val_trigger(st):
             self._validate(self._params_for_eval(params), model_state)
         if (self.checkpoint_trigger is not None

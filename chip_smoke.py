@@ -91,7 +91,14 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 (one multi-tensor launch per table of
                 fused_optim.ADAM_CAPACITY leaves).  The same steps with the matmuls on TF32 must fall
                 outside the limits, so that the limits can see a drop
-                below fp32.
+                below fp32.  Then the same ``base`` at
+                ``dtype="bfloat16"`` (bf16 compute over fp32 parameters
+                and Adam state) for the same steps on the kernels,
+                counted from 0, against the plain attention with
+                ``fused=False`` within the bf16 band (every loss within
+                5e-3 relative, step-1 gradients within 5e-2 of each
+                leaf's largest); its step, tokens/s and device time by
+                class.
   6. stream   — train→serve on one card.  ``SpmdTrainer`` trains a fresh
                 ``base`` (seed 0) with ``AdamW(learning_rate=3e-4,
                 fused=True)`` on 8 x 512 random tokens while a
@@ -269,14 +276,49 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 a checkpoint by part, MB a checkpoint, restore ms by
                 part, the health scalars' device ms a step, host syncs a
                 step, busy share and peak memory.
+ 12. lm_long  — the rest of TransformerLM training at ``long8k``'s width
+                (d_model 1024, 8 heads of 128, vocab 32000, S 8192, bf16
+                over fp32 parameters, weights from a seed).  With 2
+                layers: (a) step-1 loss and gradients with the kernels
+                against the plain attention, fp32 with TF32 off (phase 5's
+                limits: 2e-5, 1e-4 of each leaf's largest) and bf16
+                (5e-3 relative, 5e-2); (b) ``remat`` against no remat in
+                bf16, bitwise (a leaf that does not repeat itself without
+                remat, under deterministic algorithms, would be named and
+                held to 1e-6 of its largest); (c) ``loss_chunk=1024``
+                against the full loss in fp32 (1e-5 relative, 1e-4).
+                (d) The main path: ``long8k`` at full depth (16 layers,
+                remat, 334,005,248 parameters in 147 leaves) through
+                ``SpmdTrainer(AdamW(3e-4, fused=True), loss_chunk=1024)
+                .fit`` for 2 + 8 steps on one batch of 4 x 8192 tokens
+                with a ``TrainSummary``, then ``evaluate`` on 2 batches
+                with a ``ValidationSummary``, both read back with
+                ``read_scalar``, counted from 0: K1 32, K2 16, K3 16 and
+                K4 1 launches a step, K1 16 an evaluated batch; the loss
+                falls.  Readings: step median, tokens/s, the share of the
+                dense bf16 peak from the operations a token needs, peak
+                memory, the device's time by class and busy share over 2
+                profiled steps, and K1-K4 at these shapes against their
+                plain versions, beside SDPA forward and backward and
+                ``torch.optim.AdamW(fused=True)``, with their bounds.
+                (e) Durability on the reference recipe's own preset
+                (``examples/transformer_spmd.py``: ``tiny``, remat,
+                ``loss_chunk=32``, batch 2 x 64) with dropout 0.1 and
+                seed 3, each run in a process of its own
+                (``chip_smoke.py --lm-durable-child``): 12 steps
+                uninterrupted (host syncs counted); checkpoints every 4
+                steps, SIGTERM once the child prints step 6, and a
+                resume, bitwise the uninterrupted run in parameters, Adam
+                moments and the resumed losses; a NaN batch at step 6
+                under ``policy="rollback"``: one rollback to step 4.
 
 Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"stream": {...}}`` line, a
 ``{"classifier": {...}}`` line, a ``{"distri": {...}}`` line, a
 ``{"recipe": {...}}`` line, a ``{"vgg": {...}}`` line, a
-``{"durable": {...}}`` line, a ``{"host_sync": {...}}`` line, a
-``{"kernels": [...]}`` line (all six
-kernels), the card's name and power limit as nvidia-smi gives them, and
+``{"durable": {...}}`` line, a ``{"lm_long": {...}}`` line, a
+``{"host_sync": {...}}`` line, a ``{"kernels": [...]}`` line (all six
+kernels; K1-K4 also with their ``long8k`` readings), the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits with
 another code and prints no result.
@@ -1659,6 +1701,96 @@ def phase_training(card: str, k4: dict):
     del trainer, model, params, leaves, state
     torch.cuda.empty_cache()
     return out
+
+TRAIN_BF16_LOSS_REL = 5e-3      # bf16 kernels vs plain attention, a step
+TRAIN_BF16_GRAD_REL = 5e-2      # step-1 gradients, per leaf
+
+
+def phase_training_bf16(card: str):
+    """ROADMAP A2's measure-first reading: the same ``base`` at
+    ``dtype="bfloat16"`` (bf16 compute over fp32 parameters and Adam
+    state), SpmdTrainer with ``AdamW(fused=True)`` for TRAIN_STEPS steps
+    on phase 5's batch, counted from 0, against the same steps with the
+    plain attention and ``fused=False`` within the bf16 band; step-1
+    gradients too; the step's device time by class."""
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.ops import flash_attention_mod as fa
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel import SpmdTrainer
+    model = T.build("base", device="cuda", seed=0, dtype="bfloat16")
+    cfg = model.cfg
+    params = model.param_dict()
+    leaves = [p for sub in params.values() for p in sub.values()]
+    w0 = [p.detach().clone() for p in leaves]
+    rs = np.random.RandomState(1)
+    ids = rs.randint(0, cfg.vocab_size, (TRAIN_BATCH, SEQ + 1)).astype(
+        np.int32)
+    tokens, targets = ids[:, :-1], ids[:, 1:]
+    tok_d, tgt_d = (torch.from_numpy(a).cuda() for a in (tokens, targets))
+    loss_k, g_k = _lm_grads(model, tok_d, tgt_d)
+    loss_p, g_p = _lm_grads(model, tok_d, tgt_d, plain=True)
+    grad_rel, grad_leaf = _worst_leaf(g_k, g_p)
+    del g_k, g_p
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    trainer = SpmdTrainer(model, AdamW(learning_rate=TRAIN_LR, fused=True))
+    losses_k, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t_s = time.monotonic()
+        losses_k.append(trainer.step(tokens, targets))
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t_s)
+    launches = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses_k = [float(x) for x in losses_k]
+    want = {"flash_fwd": cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd_dkv": cfg.n_layers * TRAIN_STEPS,
+            "flash_bwd_dq": cfg.n_layers * TRAIN_STEPS,
+            "fused_adam": -(-len(leaves) // fo.ADAM_CAPACITY) * TRAIN_STEPS}
+    got = {name: launches.get(name, 0) for name in want}
+    profile = profile_steps(lambda: [trainer.step(tokens, targets)
+                                     for _ in range(2)],
+                            classes=LONG_CLASSES)
+    with torch.no_grad():
+        for p_, w in zip(leaves, w0):
+            p_.copy_(w)
+    del w0
+    for blk in model.blocks:
+        blk.attn.attention_fn = lambda q, k, v: fa.flash_attention_plain(
+            q, k, v, causal=True)
+    plain = SpmdTrainer(model, AdamW(learning_rate=TRAIN_LR, fused=False))
+    losses_p = [float(plain.step(tokens, targets))
+                for _ in range(TRAIN_STEPS)]
+    for blk in model.blocks:
+        blk.attn.attention_fn = None
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
+    step_ms = float(np.median(step_s)) * 1e3
+    out = {"dtype": "bfloat16", "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+           "seq": SEQ, "step_ms_median": step_ms,
+           "step_ms": [x * 1e3 for x in step_s],
+           "tokens_per_s": TRAIN_BATCH * SEQ / (step_ms / 1e3),
+           "losses": losses_k, "losses_plain": losses_p,
+           "loss_rel_diff_max": max(rel), "loss_rel_tol": TRAIN_BF16_LOSS_REL,
+           "step1_loss": loss_k.item(), "step1_loss_plain": loss_p.item(),
+           "grad_max_rel_diff": grad_rel, "grad_worst_leaf": grad_leaf,
+           "grad_rel_tol": TRAIN_BF16_GRAD_REL, "launches": got,
+           "peak_mem_gb": peak_gb, "profile": profile, "card": card}
+    log(f"training bf16: {json.dumps(out)}")
+    if got != want:
+        raise AssertionError(f"bf16 training launches {got}, expected "
+                             f"{want}")
+    if not (all(np.isfinite(losses_k + losses_p))
+            and max(rel) <= TRAIN_BF16_LOSS_REL
+            and grad_rel <= TRAIN_BF16_GRAD_REL
+            and losses_k[-1] < losses_k[0]):
+        raise AssertionError(f"bf16 training outside its band: {out}")
+    del trainer, plain, model, params, leaves
+    torch.cuda.empty_cache()
+    return out
+
 
 # --------------------------------------------------------------------- #
 SGD_CONFIGS = (
@@ -5207,8 +5339,9 @@ def durable_child(spec: dict) -> None:
     print("CHILD DONE", flush=True)
 
 
-def _spawn_child(spec, fault=None, sigterm_at=None):
-    """Run ``durable_child(spec)`` in a new process of this script; with
+def _spawn_child(spec, fault=None, sigterm_at=None, flag="--durable-child"):
+    """Run ``durable_child(spec)`` (``flag="--lm-durable-child"``:
+    ``lm_durable_child``) in a new process of this script; with
     ``sigterm_at``, send it SIGTERM once it prints ``iter <n>``.  Returns
     ``(exit code, output)``."""
     import signal
@@ -5216,8 +5349,12 @@ def _spawn_child(spec, fault=None, sigterm_at=None):
     env.pop("BIGDL_CKPT_FAULT", None)
     if fault:
         env["BIGDL_CKPT_FAULT"] = fault
+    if flag == "--lm-durable-child":
+        # cuBLAS's deterministic workspace: the LM child asks for
+        # deterministic algorithms (set before its first CUDA call)
+        env.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                          "--durable-child", json.dumps(spec)], env=env,
+                          flag, json.dumps(spec)], env=env,
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True)
     lines = []
@@ -5237,7 +5374,7 @@ def _spawn_child(spec, fault=None, sigterm_at=None):
             p.kill()
             p.wait()
     text = "".join(lines)
-    log(f"durable child {spec['name']}: exit {p.returncode}; "
+    log(f"{flag[2:]} {spec['name']}: exit {p.returncode}; "
         + " | ".join(l.strip() for l in lines[-6:]))
     return p.returncode, text
 
@@ -5499,6 +5636,564 @@ def phase_durable(card: str, device: str = "cuda", small: bool = False):
 
 
 
+# --------------------------------------------------------------------- #
+# 12. lm_long: the rest of TransformerLM training at long8k's full width
+LONG = dict(preset="long8k", batch=4, seq=8192, check_layers=2, chunk=1024,
+            warm=2, timed=8, lr=3e-4, eval_batches=2)
+# a CPU rehearsal (device="cpu", small=True): tiny widths and depth
+LONG_SMALL = dict(preset="tiny", batch=2, seq=128, check_layers=2, chunk=32,
+                  warm=1, timed=2, lr=3e-4, eval_batches=2)
+# (a) in bf16: kernels against the plain attention, both bf16 over fp32
+# parameters (PERF.md, written before the first run)
+LONG_BF16_LOSS_REL = 5e-3        # |loss_k - loss_p| / loss_p, step 1
+LONG_BF16_GRAD_REL = 5e-2        # per leaf max |dg| <= this * max |g|
+# (b) remat against no remat where no remat does not repeat itself
+LONG_NONDET_REL = 1e-6           # per leaf max |dg| <= this * max |g|
+# (c) loss_chunk against the full loss, fp32
+CHUNK_LOSS_REL = 1e-5
+# (e) the reference recipe's own preset (examples/transformer_spmd.py)
+# with dropout and a seed
+LM_RECIPE = dict(preset="tiny", remat=True, dropout=0.1, loss_chunk=32,
+                 seed=3, batch=2, seq=64, steps=12, every=4, preempt_at=6,
+                 poison_at=6, lr=3e-4)
+LONG_CLASSES = KERNEL_CLASSES[:4] + (("nvjet", "matmul (cuBLAS)"),) \
+    + KERNEL_CLASSES[4:]
+
+
+def _lm_batch(rs, vocab, b, s):
+    ids = rs.randint(0, vocab, (b, s + 1)).astype(np.int32)
+    return ids[:, :-1], ids[:, 1:]
+
+
+def _lm_grads(model, tok, tgt, *, loss_chunk=None, plain=False):
+    """Step-1 loss and gradients (by leaf name) of ``model`` on one batch,
+    with the kernels or, with ``plain``, the plain attention."""
+    from bigdl_tpu_torch.ops import flash_attention_mod as fa
+    fn = (lambda q, k, v: fa.flash_attention_plain(q, k, v, causal=True)) \
+        if plain else None
+    for blk in model.blocks:
+        blk.attn.attention_fn = fn
+    try:
+        params = model.param_dict()
+        names = [f"{n}.{k}" for n, sub in params.items() for k in sub]
+        leaves = [p for sub in params.values() for p in sub.values()]
+        loss = model.loss(params, tok, tgt, loss_chunk=loss_chunk,
+                          training=True)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for blk in model.blocks:
+            blk.attn.attention_fn = None
+    return loss.detach(), dict(zip(names, grads))
+
+
+def _worst_leaf(got, want):
+    """(max over leaves of max |got - want| / max |want|, that leaf)."""
+    worst, leaf = 0.0, None
+    for name, w in want.items():
+        g = got[name]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"non-finite gradient {name}")
+        rel = ((g.float() - w.float()).abs().max()
+               / w.float().abs().max().clamp(min=1e-30)).item()
+        if rel > worst:
+            worst, leaf = rel, name
+    return worst, leaf
+
+
+def _long_checks(cfg, device, fails):
+    """(a) kernels against the plain attention (fp32 with TF32 off, and
+    bf16), (b) remat against no remat (bf16, kernels in both), (c) the
+    chunked loss against the full one (fp32), at the preset's widths
+    with ``check_layers`` layers."""
+    from bigdl_tpu_torch.models import transformer as T
+    out = {}
+    rs = np.random.RandomState(21)
+    vocab = T.PRESETS[cfg["preset"]]["vocab_size"]
+    tok, tgt = (torch.from_numpy(a).to(device) for a in _lm_batch(
+        rs, vocab, cfg["batch"], cfg["seq"]))
+    common = dict(device=device, seed=0, n_layers=cfg["check_layers"],
+                  remat=False)
+    # (a) fp32, and (c) on the same model
+    model = T.build(cfg["preset"], dtype="float32", **common)
+    loss_k, g_k = _lm_grads(model, tok, tgt, loss_chunk=cfg["chunk"])
+    loss_p, g_p = _lm_grads(model, tok, tgt, loss_chunk=cfg["chunk"],
+                            plain=True)
+    rel, leaf = _worst_leaf(g_k, g_p)
+    dl = abs(loss_k.item() - loss_p.item())
+    out["a_fp32"] = {"loss_kernels": loss_k.item(),
+                     "loss_plain": loss_p.item(), "loss_diff": dl,
+                     "loss_tol": LOSS_TOL, "grad_max_rel_diff": rel,
+                     "grad_worst_leaf": leaf, "grad_rel_tol": GRAD_REL_TOL}
+    log(f"lm_long (a) fp32 kernels vs plain: {json.dumps(out['a_fp32'])}")
+    if not (dl <= LOSS_TOL and rel <= GRAD_REL_TOL):
+        fails.append(f"(a) fp32: loss diff {dl:.3e}, grads {rel:.3e}")
+    del g_p
+    loss_f, g_f = _lm_grads(model, tok, tgt, loss_chunk=None)
+    rel, leaf = _worst_leaf(g_k, g_f)
+    dl = abs(loss_k.item() - loss_f.item()) / abs(loss_f.item())
+    out["c_chunk"] = {"chunk": cfg["chunk"], "loss_chunked": loss_k.item(),
+                      "loss_full": loss_f.item(), "loss_rel_diff": dl,
+                      "loss_rel_tol": CHUNK_LOSS_REL,
+                      "grad_max_rel_diff": rel, "grad_worst_leaf": leaf,
+                      "grad_rel_tol": GRAD_REL_TOL}
+    log(f"lm_long (c) chunked vs full: {json.dumps(out['c_chunk'])}")
+    if not (dl <= CHUNK_LOSS_REL and rel <= GRAD_REL_TOL):
+        fails.append(f"(c) chunked: loss {dl:.3e}, grads {rel:.3e}")
+    del model, g_k, g_f
+    # (a) bf16 and (b) on one bf16 model
+    model = T.build(cfg["preset"], dtype="bfloat16", **common)
+    loss_k, g_k = _lm_grads(model, tok, tgt, loss_chunk=cfg["chunk"])
+    loss_p, g_p = _lm_grads(model, tok, tgt, loss_chunk=cfg["chunk"],
+                            plain=True)
+    rel, leaf = _worst_leaf(g_k, g_p)
+    dl = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    out["a_bf16"] = {"loss_kernels": loss_k.item(),
+                     "loss_plain": loss_p.item(), "loss_rel_diff": dl,
+                     "loss_rel_tol": LONG_BF16_LOSS_REL,
+                     "grad_max_rel_diff": rel, "grad_worst_leaf": leaf,
+                     "grad_rel_tol": LONG_BF16_GRAD_REL}
+    log(f"lm_long (a) bf16 kernels vs plain: {json.dumps(out['a_bf16'])}")
+    if not (dl <= LONG_BF16_LOSS_REL and rel <= LONG_BF16_GRAD_REL):
+        fails.append(f"(a) bf16: loss {dl:.3e}, grads {rel:.3e}")
+    del g_p
+    # (b): no remat twice (what does not repeat itself), then remat
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        loss_k2, g_k2 = _lm_grads(model, tok, tgt, loss_chunk=cfg["chunk"])
+        model.cfg.remat = True
+        loss_r, g_r = _lm_grads(model, tok, tgt, loss_chunk=cfg["chunk"])
+    finally:
+        model.cfg.remat = False
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted(n for n in g_k if not torch.equal(g_k[n], g_k2[n]))
+    differ = sorted(n for n in g_k if not torch.equal(g_k[n], g_r[n]))
+    held = {n: _worst_leaf({n: g_r[n]}, {n: g_k[n]})[0] for n in nondet}
+    out["b_remat"] = {
+        "loss_no_remat": loss_k.item(), "loss_remat": loss_r.item(),
+        "loss_bitwise": bool(torch.equal(loss_k, loss_r)),
+        "repeat_loss_bitwise": bool(torch.equal(loss_k, loss_k2)),
+        "leaves": len(g_k), "leaves_differing": differ,
+        "leaves_not_repeating": nondet, "not_repeating_max_rel": held,
+        "not_repeating_rel_tol": LONG_NONDET_REL}
+    log(f"lm_long (b) remat vs no remat: {json.dumps(out['b_remat'])}")
+    if (not out["b_remat"]["loss_bitwise"]
+            or set(differ) - set(nondet)
+            or any(v > LONG_NONDET_REL for v in held.values())):
+        fails.append(f"(b) remat: loss bitwise "
+                     f"{out['b_remat']['loss_bitwise']}, differing "
+                     f"{differ}, not repeating {nondet}")
+    del model, g_k, g_k2, g_r
+    return out
+
+
+def _long_flops_per_token(model, seq):
+    """The matmuls' operations a token of one training step (forward and
+    backward: 6 a parameter, the embedding a gather), the blocks' forward
+    again (remat), each loss chunk's head again (its checkpoint), and
+    causal attention: 2·S·d a layer forward, 2.5× that backward, and the
+    forward again under remat."""
+    cfg = model.cfg
+    n = sum(p.numel() for p in model.parameters())
+    n_embed = model.embed.weight.numel()
+    n_head = n_embed if model.head is None else model.head.weight.numel()
+    n_blocks = sum(p.numel() for b in model.blocks for p in b.parameters())
+    attn = 2 * seq * cfg.d_model * cfg.n_layers
+    parts = {"matmuls": 6 * (n - n_embed), "remat_forward": 2 * n_blocks,
+             "chunk_head_again": 2 * n_head,
+             "attention": attn * (1 + 2.5 + (1 if cfg.remat else 0))}
+    return sum(parts.values()), parts
+
+
+def _long_kernel_times(cfg, trainer, card, fails):
+    """K1–K4 at the main path's shapes: times by CUDA events with the
+    host queued ahead, beside the plain versions, SDPA forward and
+    backward and ``torch.optim.AdamW(fused=True)``, with the bounds."""
+    from bigdl_tpu_torch.ops import flash_attention_mod as fa
+    from bigdl_tpu_torch.optim import AdamW
+    mcfg = trainer.model.cfg
+    b, h, s, d = cfg["batch"], mcfg.n_heads, cfg["seq"], mcfg.head_dim
+    dt = torch.bfloat16
+    q, k, v = _qkv(b, h, s, s, d, dt, seed=31, layout="main")
+    do = _grad_out(q, "main", 32)
+    err, lse_err, tol, ok, _ = _compare(fa, q, k, v, True)
+    k1_bound, k1_by = attention_bound(b, h, s, s, d, True, dt)
+    k1 = {"shape": [b, h, s, s, d], "dtype": "bfloat16", "causal": True,
+          "max_abs_err": err, "lse_max_abs_err": lse_err, "tolerance": tol,
+          "ok": ok,
+          "ms": queued_ms(lambda: fa.flash_forward(q, k, v, causal=True),
+                          iters=10),
+          "plain_ms": queued_ms(lambda: fa.flash_forward_plain(
+              q, k, v, causal=True), iters=2, warm=1),
+          "library_ms": queued_ms(
+              lambda: torch.nn.functional.scaled_dot_product_attention(
+                  q, k, v, is_causal=True), iters=10),
+          "bound_ms": k1_bound, "bound_by": k1_by, "card": card}
+    err, errs, tol, ok2, _ = compare_bwd(fa, q, k, v, do, causal=True)
+    ms, library_ms, (out, lse) = bwd_times(fa, q, k, v, do)
+    plain_ms = queued_ms(lambda: fa.flash_backward_plain(
+        q, k, v, out, lse, do, causal=True), iters=2, warm=1)
+    bounds = bwd_bounds(b, h, s, s, d, True, dt)
+    k23 = {name: {"shape": [b, h, s, s, d], "dtype": "bfloat16",
+                  "causal": True, "max_abs_err": err,
+                  "errors_and_max_ref": errs, "tolerance": tol, "ok": ok2,
+                  "ms": ms[name], "plain_ms_dq_dk_dv": plain_ms,
+                  "library_ms_dq_dk_dv": library_ms,
+                  "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                  "card": card} for name in BWD_KERNELS}
+    if not (ok and ok2):
+        fails.append(f"K1 {ok}, K2+K3 {ok2} against the plain versions at "
+                     f"the main path's shapes")
+    del q, k, v, do, out, lse
+    # K4 on the trained parameters, the moments and random gradients
+    params, state = trainer.params, trainer.opt_state
+    leaves = [p for sub in params.values() for p in sub.values()]
+    g = torch.Generator(device="cuda").manual_seed(33)
+    grads = {n: {kk: torch.randn(p.shape, generator=g, device="cuda")
+                 * 1e-3 for kk, p in sub.items()}
+             for n, sub in params.items()}
+    n_par = sum(p.numel() for p in leaves)
+    nbytes = 28 * n_par        # p, g, m, v read; p, m, v written (f32)
+    k4 = {"leaves": len(leaves), "params": n_par,
+          "ms": queued_ms(lambda: trainer.optim.update(grads, params,
+                                                       state), iters=5),
+          "plain_ms": queued_ms(lambda: AdamW(
+              learning_rate=cfg["lr"], fused=False).update(
+                  grads, params, state), iters=2, warm=1),
+          "bound_ms": nbytes / H100_HBM_BYTES_S * 1e3, "bound_by": "bytes",
+          "card": card}
+    for p, (n, kk) in zip(leaves, ((n, kk) for n, sub in grads.items()
+                                   for kk in sub)):
+        p.grad = grads[n][kk]
+    lib = torch.optim.AdamW(leaves, lr=cfg["lr"], fused=True)
+    k4["library_ms"] = queued_ms(lib.step, iters=5)
+    for p in leaves:
+        p.grad = None
+    del lib, grads
+    torch.cuda.empty_cache()
+    out = {"flash_fwd": k1, **k23, "fused_adam": k4}
+    log(f"lm_long kernels at the main path's shapes: {json.dumps(out)}")
+    return out
+
+
+def _long_main_path(cfg, device, fails, card):
+    """(d): the preset at full depth through SpmdTrainer.fit with a
+    TrainSummary, then evaluate with a ValidationSummary, both read back;
+    the readings; launches counted from 0 around fit and evaluate."""
+    import shutil
+
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel import SpmdTrainer
+    from bigdl_tpu_torch.visualization import (TrainSummary,
+                                               ValidationSummary)
+    cuda = device != "cpu"
+    t0 = time.monotonic()
+    model = T.build(cfg["preset"], device=device, seed=0)
+    mcfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    n_leaves = sum(1 for _ in model.parameters())
+    log(f"lm_long model: {cfg['preset']} {n_params} params in {n_leaves} "
+        f"leaves, {mcfg.dtype}, remat {mcfg.remat}, "
+        f"{time.monotonic() - t0:.1f} s")
+    trainer = SpmdTrainer(model, AdamW(learning_rate=cfg["lr"],
+                                       fused=cuda),
+                          device=device, loss_chunk=cfg["chunk"])
+    logs = os.path.join(str(_build.BUILD_DIR), "lm_long_summaries")
+    shutil.rmtree(logs, ignore_errors=True)
+    train_sum = TrainSummary(logs, cfg["preset"])
+    val_sum = ValidationSummary(logs, cfg["preset"])
+    trainer.set_train_summary(train_sum).set_val_summary(val_sum)
+    rs = np.random.RandomState(23)
+    batch = _lm_batch(rs, mcfg.vocab_size, cfg["batch"], cfg["seq"])
+    evals = [_lm_batch(rs, mcfg.vocab_size, cfg["batch"], cfg["seq"])
+             for _ in range(cfg["eval_batches"])]
+    steps = cfg["warm"] + cfg["timed"]
+    marks = []
+
+    def feed():
+        for _ in range(steps):
+            if cuda:
+                torch.cuda.synchronize()
+            marks.append(time.monotonic())
+            yield batch
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses = trainer.fit(feed())
+    if cuda:
+        torch.cuda.synchronize()
+    marks.append(time.monotonic())
+    launches = _build.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    step_s = [b - a for a, b in zip(marks, marks[1:])][cfg["warm"]:]
+    _build.reset_launch_counts()
+    res = trainer.evaluate(iter(evals))
+    eval_launches = _build.launch_counts()
+    tables = -(-n_leaves // fo.ADAM_CAPACITY)
+    want = {"flash_fwd": 2 * mcfg.n_layers * steps,
+            "flash_bwd_dkv": mcfg.n_layers * steps,
+            "flash_bwd_dq": mcfg.n_layers * steps,
+            "fused_adam": tables * steps} if cuda else {}
+    got = {name: launches.get(name, 0) for name in want}
+    want_eval = {"flash_fwd": mcfg.n_layers * cfg["eval_batches"]} \
+        if cuda else {}
+    got_eval = {name: eval_launches.get(name, 0) for name in want_eval}
+    log(f"lm_long launches: fit {got} (expected {want}); evaluate "
+        f"{got_eval} (expected {want_eval})")
+    if got != want or got_eval != want_eval:
+        fails.append(f"launches fit {got} / {want}, evaluate {got_eval} / "
+                     f"{want_eval}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fails.append(f"losses not finite or not falling: {losses}")
+    tokens = cfg["batch"] * cfg["seq"]
+    if not (np.isfinite(res["loss"]) and res["tokens"] == tokens
+            * cfg["eval_batches"]):
+        fails.append(f"evaluate: {res}")
+    # the summaries, read back
+    got_loss = train_sum.read_scalar("Loss")
+    thru = train_sum.read_scalar("Throughput")
+    got_val = val_sum.read_scalar("Loss")
+    summaries = {
+        "loss_steps": [s for s, _, _ in got_loss],
+        "loss_equal": [v for _, v, _ in got_loss]
+        == [float(np.float32(x)) for x in losses],
+        "throughput": [[s, v] for s, v, _ in thru],
+        "val_loss": [[s, v] for s, v, _ in got_val],
+        "val_perplexity": [[s, v] for s, v, _ in
+                           val_sum.read_scalar("Perplexity")]}
+    log(f"lm_long summaries: {json.dumps(summaries)}")
+    if (summaries["loss_steps"] != list(range(1, steps + 1))
+            or not summaries["loss_equal"] or not thru
+            or [s for s, _, _ in got_val] != [steps]
+            or got_val[0][1] != float(np.float32(res["loss"]))):
+        fails.append(f"summaries: {summaries}")
+    train_sum.close()
+    val_sum.close()
+    shutil.rmtree(logs, ignore_errors=True)
+    step_ms = float(np.median(step_s)) * 1e3
+    flops, flop_parts = _long_flops_per_token(model, cfg["seq"])
+    out = {"preset": cfg["preset"], "params": n_params, "leaves": n_leaves,
+           "dtype": mcfg.dtype, "remat": mcfg.remat,
+           "batch": cfg["batch"], "seq": cfg["seq"],
+           "loss_chunk": cfg["chunk"], "steps": steps,
+           "timed_steps": cfg["timed"], "losses": losses,
+           "step_ms": [x * 1e3 for x in step_s], "step_ms_median": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "flops_per_token": flops, "flops_per_token_parts": flop_parts,
+           "bf16_peak_share": tokens / (step_ms / 1e3) * flops
+           / H100_BF16_FLOPS,
+           "peak_mem_gb": peak_gb, "launches": got,
+           "eval": res, "eval_launches": got_eval,
+           "summaries": summaries, "card": card}
+    if cuda:
+        out["profile"] = profile_steps(
+            lambda: [trainer.step(*batch) for _ in range(2)],
+            classes=LONG_CLASSES, top=8)
+        out["kernels"] = _long_kernel_times(cfg, trainer, card, fails)
+    log(f"lm_long main path: {json.dumps(out)}")
+    return out
+
+
+def _lm_recipe_batches():
+    rs = np.random.RandomState(29)
+    r = LM_RECIPE
+    return [_lm_batch(rs, 256, r["batch"], r["seq"])
+            for _ in range(r["steps"])]
+
+
+def lm_durable_child(spec: dict) -> None:
+    """One run of ``phase_lm_long`` (e) in a process of its own: the
+    recipe's trainer (``tiny``, remat, ``loss_chunk=32``, dropout 0.1,
+    seed 3, batch 2 x 64, ``AdamW(fused=True)`` on the card) with
+    telemetry and health to a JSONL sink; ``kind`` ``"a"`` (12 steps
+    uninterrupted, host syncs counted), ``"b1"`` (checkpoints every 4
+    steps, preemptible: the parent sends SIGTERM), ``"b2"`` (resumed
+    from b1's checkpoint), ``"c"`` (a NaN batch at step 6 under
+    ``policy="rollback"``)."""
+    import warnings
+
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.observability import JsonlSink, Recorder
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel import SpmdTrainer
+    device = spec.get("device", "cuda")
+    cuda = device != "cpu"
+    if not cuda:
+        torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the embedding's backward accumulates rows: its deterministic kernel
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    r, kind, work = LM_RECIPE, spec["kind"], spec["work"]
+    model = T.build(r["preset"], device=device, seed=0, remat=r["remat"],
+                    dropout=r["dropout"])
+    tr = SpmdTrainer(model, AdamW(learning_rate=r["lr"], fused=cuda),
+                     device=device, mesh={"dp": 1, "fsdp": 1}, fsdp=True,
+                     min_fsdp_size=1, loss_chunk=r["loss_chunk"],
+                     seed=r["seed"])
+    tr.set_telemetry(Recorder(sinks=[JsonlSink(
+        os.path.join(work, f"{kind}.jsonl"))]), health=True)
+    batches = _lm_recipe_batches()
+    if kind in ("b1", "b2", "c"):
+        tr.set_checkpoint(spec["ckpt"], every_steps=r["every"],
+                          handle_preemption=kind == "b1")
+    if kind == "c":
+        tr.set_health(policy="rollback", install_crash_hooks=False)
+        tok = batches[r["poison_at"] - 1][0].copy()
+        tok[0, 0] = 10 ** 6        # out of range: a NaN embedding row
+        batches[r["poison_at"] - 1] = (tok, batches[r["poison_at"] - 1][1])
+    if kind == "b2":
+        tr.load_checkpoint(spec["ckpt"])
+    start = tr._step_count
+
+    def feed():
+        for i in range(start, r["steps"]):
+            if i > start:
+                print(f"iter {tr._step_count}", flush=True)
+            yield batches[i]
+    _build.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if cuda and kind == "a":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = tr.fit(feed())
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+    if cuda:
+        torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    tr.recorder.flush()
+    with open(os.path.join(work, f"{kind}.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps_seen = [rec["step"] for rec in recs if rec.get("type") == "step"]
+    mon = tr._health_monitor
+    out = {"kind": kind, "start": start, "step_count": tr._step_count,
+           "losses": got, "records": steps_seen,
+           "launches": _build.launch_counts(),
+           "host_syncs": syncs if cuda and kind == "a" else None,
+           "rollbacks": None if mon is None else mon.rollbacks}
+    arrays = {}
+    for n, sub in tr.params.items():
+        for k, v in sub.items():
+            arrays[f"p{n[n.index('.'):]}.{k}"] = v.detach().cpu().numpy()
+    for which in ("m", "v"):
+        for n, sub in tr.opt_state[which].items():
+            for k, v in sub.items():
+                arrays[f"{which}{n[n.index('.'):]}.{k}"] = \
+                    v.detach().cpu().numpy()
+    np.savez(os.path.join(work, f"{kind}.npz"), **arrays)
+    with open(os.path.join(work, f"{kind}.json"), "w") as f:
+        json.dump(out, f)
+    print("CHILD DONE", flush=True)
+
+
+def _lm_durable_leg(device, fails):
+    """(e): the recipe's trainer in processes of its own: uninterrupted
+    (a), preempted by SIGTERM (b1) and resumed (b2, bitwise a in
+    parameters, Adam moments and the resumed losses), and a NaN batch
+    rolled back once (c)."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.checkpoint import scan
+    from bigdl_tpu_torch.ops import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="lm_durable_", dir=str(_build.BUILD_DIR))
+    r = LM_RECIPE
+    try:
+        runs = {}
+        for kind in ("a", "b1", "b2", "c"):
+            ckpt = os.path.join(work, "ck_c" if kind == "c" else "ck_b")
+            rc, _ = _spawn_child(
+                {"name": kind, "kind": kind, "work": work, "ckpt": ckpt,
+                 "device": device},
+                sigterm_at=r["preempt_at"] if kind == "b1" else None,
+                flag="--lm-durable-child")
+            if rc != 0:
+                fails.append(f"lm child {kind} exited {rc}")
+                return {"children": runs}
+            with open(os.path.join(work, f"{kind}.json")) as f:
+                runs[kind] = json.load(f)
+            if kind == "b1":
+                runs[kind]["tags"] = [m.tag for _, m in scan(ckpt)]
+        a, b1, b2, c = (runs[k] for k in ("a", "b1", "b2", "c"))
+        arr = {k: np.load(os.path.join(work, f"{k}.npz"))
+               for k in ("a", "b2")}
+        cut = b1["step_count"]
+        same = {
+            "b1_losses_are_a": b1["losses"] == a["losses"][:cut],
+            "b2_resumed_at": b2["start"],
+            "b2_losses_are_a": b2["losses"] == a["losses"][cut:],
+            "b2_arrays_are_a": sorted(arr["a"].files)
+            == sorted(arr["b2"].files) and all(
+                np.array_equal(arr["a"][n], arr["b2"][n])
+                for n in arr["a"].files),
+            "arrays": len(arr["a"].files)}
+        for z in arr.values():
+            z.close()
+        checks = {
+            "a_finite": bool(np.all(np.isfinite(a["losses"]))),
+            "a_records": a["records"] == list(range(r["steps"])),
+            "a_host_syncs": a["host_syncs"],
+            "preempted_at": cut, "b1_tags": b1["tags"], **same,
+            "c_rollbacks": c["rollbacks"], "c_losses": c["losses"],
+            "c_records": c["records"], "c_step_count": c["step_count"]}
+        log(f"lm_long (e) durability: {json.dumps(checks)}")
+        if not (checks["a_finite"] and checks["a_records"]
+                and r["preempt_at"] <= cut < r["steps"]
+                and f"preempt_step_{cut}" in b1["tags"]
+                and b2["start"] == cut and same["b1_losses_are_a"]
+                and same["b2_losses_are_a"] and same["b2_arrays_are_a"]):
+            fails.append(f"(e) preempt/resume: {checks}")
+        c_want = (list(range(r["poison_at"]))
+                  + list(range(r["every"], r["steps"] - 2)))
+        if not (c["rollbacks"] == 1 and len(c["losses"]) == r["steps"] - 1
+                and np.all(np.isfinite(c["losses"]))
+                and c["records"] == c_want
+                and c["step_count"] == r["steps"] - 2):
+            fails.append(f"(e) rollback: {checks}")
+        launches = {}
+        for run in runs.values():
+            for name, n in run["launches"].items():
+                launches[name] = launches.get(name, 0) + n
+        return {"checks": checks, "launches": launches,
+                "children": {k: {kk: v.get(kk) for kk in (
+                    "start", "step_count", "launches", "host_syncs",
+                    "rollbacks")} for k, v in runs.items()}}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_lm_long(card: str, device: str = "cuda", small: bool = False):
+    """The rest of TransformerLM training: (a)–(c) at long8k's widths with
+    2 layers, (d) long8k at full depth (remat, bf16 over fp32 params,
+    batch 4 × 8192, loss_chunk 1024) through SpmdTrainer.fit and
+    evaluate with summaries, (e) durability on the recipe's tiny preset.
+    ``device="cpu", small=True`` rehearses it on the CPU at tiny widths
+    (no launch counts, times or profile there)."""
+    t0 = time.monotonic()
+    cfg = LONG_SMALL if small else LONG
+    fails = []
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    checks = _long_checks(cfg, device, fails)
+    main = _long_main_path(cfg, device, fails, card)
+    if device != "cpu":
+        torch.cuda.empty_cache()    # the children need the card's memory
+    durable = _lm_durable_leg(device, fails)
+    out = {**main, "checks": checks, "durable": durable,
+           "phase_s": time.monotonic() - t0}
+    if fails:
+        raise AssertionError(f"lm_long: {fails}")
+    log(f"lm_long phase: {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -5522,6 +6217,7 @@ def main() -> int:
     k1["cases"].append(slice_["layer_case"])
     decode = phase_decode(card)
     train = phase_training(card, k4)
+    train["bf16"] = phase_training_bf16(card)
     stream = phase_stream(card, train["step_ms_median"])
     if train["profile"]:
         # K4's own device time a step (one launch), without host gaps
@@ -5540,21 +6236,29 @@ def main() -> int:
         "step_ms_median", "images_per_s")})
     vgg = phase_vgg(card)
     durable = phase_durable(card)
+    lm_long = phase_lm_long(card)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
+               "training_bf16": train["bf16"]["launches"],
                "stream": stream["launches"],
                "replica_serving": stream["replica_serving"]["launches"],
                "classifier": classifier["launches"],
                "distri": distri["launches"],
                "recipe": recipe["launches"],
                "vgg": vgg["launches"],
-               "durable": durable["launches"]}
+               "durable": durable["launches"],
+               "lm_long": lm_long["launches"],
+               "lm_long_eval": lm_long["eval_launches"],
+               "lm_durable": lm_long["durable"]["launches"]}
     kernels = [k1, *k23, k4, k5, k6]
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
                                  for path, counts in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+        if k["name"] in lm_long["kernels"]:
+            # the same kernel at long8k's shapes (bf16, S 8192)
+            k["long8k"] = lm_long["kernels"][k["name"]]
     log(f"total {time.monotonic() - t0:.1f} s")
     print(json.dumps({"slice": slice_}), flush=True)
     print(json.dumps({"decode": decode}), flush=True)
@@ -5565,6 +6269,8 @@ def main() -> int:
     print(json.dumps({"recipe": recipe}), flush=True)
     print(json.dumps({"vgg": vgg}), flush=True)
     print(json.dumps({"durable": durable}), flush=True)
+    print(json.dumps({"lm_long": {k: v for k, v in lm_long.items()
+                                  if k != "kernels"}}), flush=True)
     print(json.dumps({"host_sync": host_sync}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
@@ -5577,5 +6283,8 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--durable-child":
         durable_child(json.loads(sys.argv[2]))
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--lm-durable-child":
+        lm_durable_child(json.loads(sys.argv[2]))
         sys.exit(0)
     sys.exit(main())

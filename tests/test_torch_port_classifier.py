@@ -597,11 +597,12 @@ def test_local_optimizer_unported_setters_raise():
                               np.ones(2, np.float32)),
                          tnn.ClassNLLCriterion(), batch_size=1,
                          device="cpu")
-    for name in ("set_train_summary", "set_val_summary", "set_trace_every",
-                 "serve_metrics"):
+    for name in ("set_trace_every", "serve_metrics"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
             getattr(opt, name)(None)
     # ported since: each returns the optimizer
+    assert opt.set_train_summary(None) is opt
+    assert opt.set_val_summary(None) is opt
     assert opt.set_gradient_accumulation(2) is opt and opt._grad_accum == 2
     assert opt.set_gradient_clipping_by_l2_norm(1.0) is opt
     assert opt.set_constant_gradient_clipping(-1.0, 1.0) is opt

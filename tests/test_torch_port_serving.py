@@ -119,8 +119,13 @@ def test_from_jax_params_refuses_missing_extra_and_misshaped(narrow):
 
 
 def test_unported_options_raise():
+    # long8k's remat and ring-attention flag build on one device (its full
+    # depth and vocab are the card's: a short, narrow-vocab one here);
+    # MoE still raises
+    m = TT.build("long8k", device="cpu", n_layers=1, vocab_size=64)
+    assert m.cfg.remat and m.cfg.use_ring_attention
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.build("long8k", device="cpu")
+        TT.build("tiny", device="cpu", moe_experts=2)
 
 
 def test_default_device_needs_cuda():

@@ -212,37 +212,54 @@ def test_fit_returns_floats_and_logs(narrow, capsys):
     assert "step 2: loss=" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(fsdp=True),
-                                dict(zero1=True),
-                                dict(ring_attention=True)])
+@pytest.mark.parametrize("kw", [dict(mesh={"dp": 2}),
+                                dict(mesh={"dp": 1, "tp": 4}),
+                                dict(mesh={"fsdp": 2, "sp": 1})])
 def test_mesh_arguments_raise_and_name_the_roadmap_item(kw):
+    """An axis larger than 1 needs the mesh (item 5); a mesh whose every
+    axis is 1 is one device, where fsdp and the ring ask for nothing, as
+    in the reference without those axes; zero1 needs dp > 1 there too."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 5"):
         SpmdTrainer(None, AdamW(), device="cpu", **kw)
     with pytest.raises(TypeError, match="unexpected"):
         SpmdTrainer(None, AdamW(), device="cpu", tp=2)
+    with pytest.raises(ValueError, match="dp > 1"):
+        SpmdTrainer(None, AdamW(), device="cpu", zero1=True)
+    one = {a: 1 for a in kw["mesh"]}
+    tr = SpmdTrainer(None, AdamW(), device="cpu", mesh=one, fsdp=True,
+                     ring_attention=True, min_fsdp_size=1)
+    assert not tr.fsdp and not tr.ring
     SpmdTrainer(None, AdamW(), device="cpu", mesh=None, fsdp=False)
 
 
 def test_a_seed_that_would_seed_nothing_raises():
-    with pytest.raises(NotImplementedError, match="seeds nothing yet"):
-        SpmdTrainer(None, AdamW(), device="cpu", seed=1)
+    """A seed seeds each step's draws now (dropout, the input
+    transform): it is taken, and kept for the checkpoint's meta."""
+    assert SpmdTrainer(None, AdamW(), device="cpu", seed=1).seed == 1
     assert SpmdTrainer(None, AdamW(), device="cpu", seed=0).params is None
 
 
 def test_unported_loss_options_raise(narrow):
+    """The chunked loss and dropout in training, once raising, run: a
+    chunk equals the full loss, and dropout needs a generator."""
     _, np_params = narrow
     tm = _port(np_params)
     tokens, targets = (torch.from_numpy(a) for a in _batch(6))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.loss(tm.param_dict(), tokens, targets, loss_chunk=32)
-    # a chunk that covers the sequence is the unchunked loss
     full = tm.loss(tm.param_dict(), tokens, targets)
+    torch.testing.assert_close(
+        tm.loss(tm.param_dict(), tokens, targets, loss_chunk=32), full,
+        rtol=1e-6, atol=1e-6)
+    # a chunk that covers the sequence is the unchunked loss
     torch.testing.assert_close(
         tm.loss(tm.param_dict(), tokens, targets, loss_chunk=S), full)
     drop = TT.build("tiny", device="cpu", dropout=0.1)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="generator"):
         drop.loss(drop.param_dict(), tokens[:, :8] % 256, targets[:, :8],
                   training=True)
+    gen = torch.Generator().manual_seed(0)
+    assert torch.isfinite(drop.loss(drop.param_dict(), tokens[:, :8] % 256,
+                                    targets[:, :8], training=True,
+                                    generator=gen))
 
 
 def test_trainer_refuses_a_model_on_another_device(narrow):
