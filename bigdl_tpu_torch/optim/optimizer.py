@@ -498,7 +498,118 @@ def _shapes(tree):
             zip(tree_paths(tree), tree_leaves(tree))}
 
 
-class Optimizer:
+class TelemetryHealth:
+    """The telemetry, tracing and health wiring that :class:`Optimizer`
+    and :class:`~bigdl_tpu_torch.parallel.SpmdTrainer` share: the
+    recorder and its goodput ledger, the trace context, the health
+    monitor with its flight recorder and stall watchdog, and the rollback
+    policy.  Each trainer emits its own step records and restores its own
+    checkpoints."""
+
+    def _init_telemetry(self):
+        # spans and counters; step records under set_telemetry
+        self.recorder = Recorder()
+        self._telemetry = False
+        self._telemetry_health = True
+        self._trace_ctx = None
+        self._tracer = None
+        self._health_monitor = None
+        self._flight = None
+        self._watchdog = None
+        self._max_rollbacks = 2
+
+    def set_telemetry(self, recorder: Recorder, health: bool = True):
+        """Attach ``recorder``: every step emits one step record (spans
+        such as ``h2d`` and ``train_step``; scalars ``loss``,
+        ``records``, and with ``health`` the device-side
+        :func:`health_scalars`), read with one host sync a step.  The
+        recorder also takes the trainer's counters (``checkpoint/*``,
+        and the optimizer's ``dataloader/*`` and ``collective/*``), and
+        a goodput ledger is attached when it has none."""
+        self.recorder = recorder
+        self._telemetry = True
+        self._telemetry_health = bool(health)
+        if recorder.get_ledger() is None:
+            from ..observability.goodput import GoodputLedger
+            recorder.set_ledger(GoodputLedger(name="train", devices=1))
+        return self
+
+    def set_trace_context(self, ctx, tracer=None):
+        """Adopt a causal :class:`~bigdl_tpu_torch.observability.context
+        .TraceContext`: checkpoint saves carry a child of it to the async
+        writer thread (its queue-wait and write spans land under the
+        run's trace id), and ``SpmdTrainer.step`` records a
+        ``train.step`` span under it.  ``ctx=None`` detaches; ``tracer``
+        overrides the process default span store."""
+        self._trace_ctx = ctx
+        if tracer is not None:
+            self._tracer = tracer
+        return self
+
+    def set_health(self, policy: str = "warn", flight_dir=None,
+                   max_rollbacks: int = 2, stall_factor=None,
+                   install_crash_hooks: bool = True, **monitor_kw):
+        """Numeric-health sentinels over every step record
+        (:class:`~bigdl_tpu_torch.observability.health.HealthMonitor`):
+        NaN/Inf in the loss or gradients, loss spikes and gradient
+        explosions, read from the step's :func:`health_scalars` (no host
+        sync beyond telemetry's one).  ``policy``: ``"warn"`` /
+        ``"record"`` / ``"raise"`` (``DivergenceError``) / ``"rollback"``
+        (restore the last committed checkpoint — needs
+        ``set_checkpoint`` — at most ``max_rollbacks`` times).
+        ``flight_dir`` arms the flight recorder (a dump on divergence,
+        unhandled exception or SIGTERM; ``install_crash_hooks`` chains
+        the excepthook and SIGTERM).  ``stall_factor`` starts a
+        :class:`~bigdl_tpu_torch.observability.health.StallWatchdog` with
+        that p99 multiplier."""
+        from ..observability.health import (FlightRecorder, HealthMonitor,
+                                            StallWatchdog)
+        if not self._telemetry:
+            self.set_telemetry(self.recorder)
+        rec = self.recorder
+        if flight_dir is not None:
+            if self._flight is not None:     # reconfigure: one hook chain
+                self._flight.uninstall()
+            self._flight = FlightRecorder(rec, flight_dir)
+            if install_crash_hooks:
+                self._flight.install()
+        self._health_monitor = HealthMonitor(
+            policy=policy, recorder=rec, flight=self._flight, **monitor_kw)
+        self._max_rollbacks = int(max_rollbacks)
+        if stall_factor:
+            if self._watchdog is not None:   # re-budget: one thread only
+                self._watchdog.stop()
+            self._watchdog = StallWatchdog(rec,
+                                           factor=float(stall_factor)).start()
+        return self
+
+    def _rec(self) -> Recorder:
+        return self.recorder
+
+    def _may_roll_back(self) -> bool:
+        """Whether a divergence may roll back (the policy is rollback, a
+        checkpoint manager is set and rollbacks are left); when it may,
+        the writer is drained first: an in-flight write may be the
+        newest intact checkpoint."""
+        mon = self._health_monitor
+        if (mon is None or mon.policy != "rollback" or self._ckpt_mgr is None
+                or mon.rollbacks >= self._max_rollbacks):
+            return False
+        self._ckpt_mgr.wait()
+        return True
+
+    def _rolled_back(self, err, where: str):
+        """Count a restored rollback and restart the monitor's
+        statistics."""
+        mon = self._health_monitor
+        mon.rollbacks += 1
+        mon.reset_statistics()
+        mon.mark_recovered()
+        print(f"[health] rollback {mon.rollbacks}/{self._max_rollbacks}: "
+              f"{err}; resumed from {where}", flush=True)
+
+
+class Optimizer(TelemetryHealth):
     """The host training loop on one device (≙ the reference's
     ``Optimizer``): ``training_set`` is a :class:`DataSet` whose ``data``
     yields ``MiniBatch`` es, or an ``(x, y)`` pair of arrays (then
@@ -554,15 +665,7 @@ class Optimizer:
         self.train_summary = None
         self.val_summary = None
         self.opt_state = None         # the method's state after optimize()
-        self.recorder = Recorder()
-        # telemetry and health (observability.health)
-        self._telemetry = False
-        self._telemetry_health = True
-        self._trace_ctx = None
-        self._health_monitor = None
-        self._flight = None
-        self._watchdog = None
-        self._max_rollbacks = 2
+        self._init_telemetry()
         # checkpoints, preemption and retries (checkpoint/*)
         self.checkpoint_path: Optional[str] = None
         self.checkpoint_trigger: Optional[Trigger] = None
@@ -675,67 +778,6 @@ class Optimizer:
         self.val_summary = summary
         return self
 
-    def set_telemetry(self, recorder: Recorder, health: bool = True):
-        """Attach ``recorder``: every iteration emits one step record
-        (spans ``data_fetch``, ``h2d`` without prefetch, ``train_step``;
-        scalars ``loss``, ``learning_rate``, ``records``, and with
-        ``health`` the device-side :func:`health_scalars`), read with one
-        host sync a step.  The recorder also takes the ``dataloader/*``,
-        ``collective/*`` and ``checkpoint/*`` counters, and a goodput
-        ledger is attached when it has none."""
-        self.recorder = recorder
-        self._telemetry = True
-        self._telemetry_health = bool(health)
-        if recorder.get_ledger() is None:
-            from ..observability.goodput import GoodputLedger
-            recorder.set_ledger(GoodputLedger(name="train", devices=1))
-        return self
-
-    def set_trace_context(self, ctx, tracer=None):
-        """Adopt a causal :class:`~bigdl_tpu_torch.observability.context
-        .TraceContext`: checkpoint saves carry a child of it to the async
-        writer thread (its queue-wait and write spans land under the
-        run's trace id).  ``ctx=None`` detaches."""
-        self._trace_ctx = ctx
-        return self
-
-    def set_health(self, policy: str = "warn", flight_dir=None,
-                   max_rollbacks: int = 2, stall_factor=None,
-                   install_crash_hooks: bool = True, **monitor_kw):
-        """Numeric-health sentinels over every step record
-        (:class:`~bigdl_tpu_torch.observability.health.HealthMonitor`):
-        NaN/Inf in the loss or gradients, loss spikes and gradient
-        explosions, read from the step's :func:`health_scalars` (no host
-        sync beyond telemetry's one).  ``policy``: ``"warn"`` /
-        ``"record"`` / ``"raise"`` (``DivergenceError``) / ``"rollback"``
-        (restore the last committed checkpoint — needs
-        :meth:`set_checkpoint` — at most ``max_rollbacks`` times).
-        ``flight_dir`` arms the flight recorder (a dump on divergence,
-        unhandled exception or SIGTERM; ``install_crash_hooks`` chains
-        the excepthook and SIGTERM).  ``stall_factor`` starts a
-        :class:`~bigdl_tpu_torch.observability.health.StallWatchdog` with
-        that p99 multiplier."""
-        from ..observability.health import (FlightRecorder, HealthMonitor,
-                                            StallWatchdog)
-        if not self._telemetry:
-            self.set_telemetry(self.recorder)
-        rec = self.recorder
-        if flight_dir is not None:
-            if self._flight is not None:     # reconfigure: one hook chain
-                self._flight.uninstall()
-            self._flight = FlightRecorder(rec, flight_dir)
-            if install_crash_hooks:
-                self._flight.install()
-        self._health_monitor = HealthMonitor(
-            policy=policy, recorder=rec, flight=self._flight, **monitor_kw)
-        self._max_rollbacks = int(max_rollbacks)
-        if stall_factor:
-            if self._watchdog is not None:   # re-budget: one thread only
-                self._watchdog.stop()
-            self._watchdog = StallWatchdog(rec,
-                                           factor=float(stall_factor)).start()
-        return self
-
     def set_checkpoint(self, path, trigger=None, layout="manifest",
                        async_write=True, keep_last=None,
                        keep_every_epochs=None, handle_preemption=False):
@@ -767,9 +809,6 @@ class Optimizer:
         from a host snapshot taken at the epoch's start."""
         self.max_retries = int(max_retries)
         return self
-
-    def _rec(self) -> Recorder:
-        return self.recorder
 
     def _wd_suspended(self):
         """Suspend the stall watchdog around legitimate between-step work
@@ -1170,24 +1209,14 @@ class Optimizer:
             except DivergenceError as e:
                 # rollback restores the last COMMITTED checkpoint (the
                 # flight dump happened at raise time)
-                mon = self._health_monitor
-                if (mon is None or mon.policy != "rollback"
-                        or mon.rollbacks >= self._max_rollbacks
-                        or self._ckpt_mgr is None):
+                if not self._may_roll_back():
                     raise
-                self._ckpt_mgr.wait()   # an in-flight write may be the
-                # newest intact checkpoint: let it commit
                 out = self._restore_from_checkpoint(params, opt_state,
                                                     model_state)
                 if out is None:
                     raise
                 params, opt_state, model_state = out
-                mon.rollbacks += 1
-                mon.reset_statistics()
-                mon.mark_recovered()
-                print(f"[health] rollback {mon.rollbacks}/"
-                      f"{self._max_rollbacks}: {e}; resumed from "
-                      f"iteration {self.state.iteration}", flush=True)
+                self._rolled_back(e, f"iteration {self.state.iteration}")
             except Exception as e:
                 if retries >= self.max_retries or cache is None:
                     if self._flight is not None:

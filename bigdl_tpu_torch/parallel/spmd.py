@@ -57,9 +57,8 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..nn.module import Ctx
-from ..observability.recorder import Recorder
-from ..optim.optimizer import (_HealthProbe, make_accum_grads,
-                               mask_frozen_grads)
+from ..optim.optimizer import (TelemetryHealth, _HealthProbe,
+                               make_accum_grads, mask_frozen_grads)
 from .allreduce import tree_leaves, tree_paths
 
 # the mesh of one device, as the reference's create_mesh({"dp": 1}) records
@@ -89,7 +88,7 @@ def _unported(what: str, item: str):
                               f"(ROADMAP queue A, {item})")
 
 
-class SpmdTrainer:
+class SpmdTrainer(TelemetryHealth):
     """One-device trainer of a TransformerLM with the reference's step and
     loop."""
 
@@ -97,8 +96,7 @@ class SpmdTrainer:
                  seed: int = 0, ring_attention: Optional[bool] = None,
                  min_fsdp_size: int = 2 ** 16, grad_accum: int = 1,
                  loss_chunk: Optional[int] = None, zero1: bool = False,
-                 zero1_min_size: Optional[int] = None, *,
-                 device: DeviceLike = None):
+                 *, device: DeviceLike = None):
         axes = {} if mesh is None else _mesh_axes(mesh)
         big = {a: n for a, n in axes.items() if n > 1}
         if big:
@@ -126,8 +124,6 @@ class SpmdTrainer:
         # without an fsdp axis (or an sp axis for the ring) fsdp,
         # min_fsdp_size and ring_attention ask for nothing, as in the
         # reference
-        self.fsdp = False
-        self.ring = False
         self.grad_accum = int(grad_accum)
         # chunked head + loss: at most (B, chunk, V) logits at once (see
         # TransformerLM.token_nll); None is one full-sequence projection
@@ -139,16 +135,7 @@ class SpmdTrainer:
         self._step_count = 0
         self._weight_stream = None
         self._input_transform = None
-        # spans and checkpoint counters; step records under set_telemetry
-        self.recorder = Recorder()
-        self._telemetry = False
-        self._telemetry_health = True
-        self._trace_ctx = None
-        self._tracer = None
-        self._health_monitor = None
-        self._flight = None
-        self._watchdog = None
-        self._max_rollbacks = 2
+        self._init_telemetry()
         self._ckpt = None               # (path, every_steps, keep)
         self._ckpt_mgr = None
         self._shard_arrays = False
@@ -221,67 +208,10 @@ class SpmdTrainer:
                   "items 5 and 8")
 
     # -- telemetry and health -------------------------------------------- #
-    def set_telemetry(self, recorder: Recorder, health: bool = True):
-        """Attach ``recorder``: each :meth:`step` emits one step record
-        (spans ``h2d`` and ``train_step``; scalars ``loss``, ``records``
-        (tokens) and, with ``health``, the device-side
-        :func:`~bigdl_tpu_torch.optim.optimizer.health_scalars`), read in
-        one host sync a step.  A goodput ledger is attached when the
-        recorder has none."""
-        self.recorder = recorder
-        self._telemetry = True
-        self._telemetry_health = bool(health)
-        if recorder.get_ledger() is None:
-            from ..observability.goodput import GoodputLedger
-            recorder.set_ledger(GoodputLedger(name="train", devices=1))
-        return self
-
-    def set_trace_context(self, ctx, tracer=None):
-        """Adopt a causal :class:`~bigdl_tpu_torch.observability.context
-        .TraceContext`: each :meth:`step` records a ``train.step`` span
-        under it and every checkpoint save carries a child context to the
-        async writer thread.  ``ctx=None`` detaches; ``tracer`` overrides
-        the process default span store."""
-        self._trace_ctx = ctx
-        if tracer is not None:
-            self._tracer = tracer
-        return self
-
     def _trace_spine(self):
         from ..observability import tracing
         return self._tracer if self._tracer is not None \
             else tracing.get_tracer()
-
-    def set_health(self, policy: str = "warn", flight_dir=None,
-                   max_rollbacks: int = 2, stall_factor=None,
-                   install_crash_hooks: bool = True, **monitor_kw):
-        """Numeric-health sentinels over each step record (the layer of
-        ``Optimizer.set_health``): NaN/Inf, loss spikes and gradient
-        explosions, read from the step's record; ``policy="rollback"``
-        needs :meth:`set_checkpoint` and restores the newest intact
-        checkpoint at most ``max_rollbacks`` times during :meth:`fit`.
-        ``flight_dir`` arms the crash flight recorder; ``stall_factor``
-        starts a stall watchdog."""
-        from ..observability.health import (FlightRecorder, HealthMonitor,
-                                            StallWatchdog)
-        if not self._telemetry:
-            self.set_telemetry(self.recorder)
-        rec = self.recorder
-        if flight_dir is not None:
-            if self._flight is not None:     # reconfigure: one hook chain
-                self._flight.uninstall()
-            self._flight = FlightRecorder(rec, flight_dir)
-            if install_crash_hooks:
-                self._flight.install()
-        self._health_monitor = HealthMonitor(
-            policy=policy, recorder=rec, flight=self._flight, **monitor_kw)
-        self._max_rollbacks = int(max_rollbacks)
-        if stall_factor:
-            if self._watchdog is not None:
-                self._watchdog.stop()
-            self._watchdog = StallWatchdog(rec,
-                                           factor=float(stall_factor)).start()
-        return self
 
     def straggler_report(self):
         """Per-host step-time attribution over the recorder's records: on
@@ -289,9 +219,6 @@ class SpmdTrainer:
         ``host`` scalar."""
         from ..observability.health import attribute_stragglers
         return attribute_stragglers(self.recorder.recent_records())
-
-    def _rec(self) -> Recorder:
-        return self.recorder
 
     # -- the step -------------------------------------------------------- #
     def step(self, tokens, targets):
@@ -575,20 +502,13 @@ class SpmdTrainer:
     def _rollback(self, err, ckpt) -> bool:
         """Restore the newest committed checkpoint after a divergence,
         when the policy allows another rollback; False to re-raise."""
-        mon = self._health_monitor
-        if (mon is None or mon.policy != "rollback" or ckpt is None
-                or mon.rollbacks >= self._max_rollbacks):
+        if ckpt is None or not self._may_roll_back():
             return False
-        self._ckpt_mgr.wait()   # an in-flight write may be the newest
         try:
             self.load_checkpoint(ckpt[0])
         except (FileNotFoundError, ValueError):
             return False        # no restorable checkpoint: diverge
-        mon.rollbacks += 1
-        mon.reset_statistics()
-        mon.mark_recovered()
-        print(f"[health] rollback {mon.rollbacks}/{self._max_rollbacks}: "
-              f"{err}; resumed from step {self._step_count}", flush=True)
+        self._rolled_back(err, f"step {self._step_count}")
         return True
 
     def fit(self, batches, steps: Optional[int] = None, log_every: int = 0,

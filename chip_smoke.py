@@ -910,12 +910,12 @@ def _ulps(a, b):
     return int((ai - bi).abs().max().item()) if a.numel() else 0
 
 
-def _base_shapes():
-    """The shapes of TransformerLM ``base``'s leaves, in the order of its
+def _preset_shapes(preset):
+    """The shapes of a TransformerLM preset's leaves, in the order of its
     parameter dict (built on the meta device: no weights)."""
     from bigdl_tpu_torch.models import transformer as T
     with torch.device("meta"):
-        model = T.TransformerLM(T.TransformerConfig(**T.PRESETS["base"]),
+        model = T.TransformerLM(T.TransformerConfig(**T.PRESETS[preset]),
                                 torch.Generator().manual_seed(0))
     return [tuple(p.shape) for sub in model.param_dict().values()
             for p in sub.values()]
@@ -949,13 +949,14 @@ def _adam_tree_cases(fo):
     leaf's p, g, m and v lie at its offset."""
     cap = fo.ADAM_CAPACITY
     cl = [(512, 512, 3, 3), (64, 3, 7, 7)]
+    lm = {name: _preset_shapes(name) for name in ("tiny", "base", "long8k")}
     return [
         ("n=1", [(1,)], [0], False, 1),
         ("n=127", [(127,)], [0], False, 1),
         ("n=768", [(768,)], [0], False, 1),
         ("n=3072*768", [(3072 * 768,)], [0], False, 1),
-        ("TransformerLM base's 111 leaves", _base_shapes(), None, False,
-         1),
+        (f"TransformerLM base's {len(lm['base'])} leaves", lm["base"], None,
+         False, 1),
         (f"{cap + 1} leaves (capacity {cap})",
          [(int(n),) for n in np.random.RandomState(8).randint(
              1, 301, size=cap + 1)], None, False, 2),
@@ -965,13 +966,16 @@ def _adam_tree_cases(fo):
          False, 1),
         ("an empty leaf", [(0,), (768,)], None, False, 1),
         ("channels-last 3x3 and 7x7 conv gradients", cl, None, True, 1),
+        *((f"TransformerLM {name}'s {len(lm[name])} leaves", lm[name],
+           None, False, 1) for name in ("tiny", "long8k")),
     ]
 
 
 def phase_adam(card: str):
     """K4 against the plain update, bitwise, on Adam and AdamW at steps 1
-    and 1000: single leaves of 1, 127, 768 and 3072*768 values, all 111
-    of TransformerLM base's leaf shapes in one call, more leaves than one
+    and 1000: single leaves of 1, 127, 768 and 3072*768 values, all the
+    leaf shapes of TransformerLM tiny, base and long8k (147 leaves, 334 M
+    values) in one call each, more leaves than one
     table holds (two launches), a leaf at a 4-byte offset (the scalar
     path), ragged tails, an empty leaf (skipped) and channels-last conv
     gradients (read in place), each with its launch count."""
@@ -5639,10 +5643,10 @@ def phase_durable(card: str, device: str = "cuda", small: bool = False):
 # --------------------------------------------------------------------- #
 # 12. lm_long: the rest of TransformerLM training at long8k's full width
 LONG = dict(preset="long8k", batch=4, seq=8192, check_layers=2, chunk=1024,
-            warm=2, timed=8, lr=3e-4, eval_batches=2)
+            warm=2, timed=8, lr=3e-4, eval_batches=2, check_batch=1)
 # a CPU rehearsal (device="cpu", small=True): tiny widths and depth
 LONG_SMALL = dict(preset="tiny", batch=2, seq=128, check_layers=2, chunk=32,
-                  warm=1, timed=2, lr=3e-4, eval_batches=2)
+                  warm=1, timed=2, lr=3e-4, eval_batches=2, check_batch=1)
 # (a) in bf16: kernels against the plain attention, both bf16 over fp32
 # parameters (PERF.md, written before the first run)
 LONG_BF16_LOSS_REL = 5e-3        # |loss_k - loss_p| / loss_p, step 1
@@ -5703,14 +5707,15 @@ def _worst_leaf(got, want):
 def _long_checks(cfg, device, fails):
     """(a) kernels against the plain attention (fp32 with TF32 off, and
     bf16), (b) remat against no remat (bf16, kernels in both), (c) the
-    chunked loss against the full one (fp32), at the preset's widths
-    with ``check_layers`` layers."""
+    chunked loss against the full one (fp32), at the preset's widths and
+    sequence length with ``check_layers`` layers and ``check_batch``
+    sequences (the plain attention's blockwise loop is slow at S 8192)."""
     from bigdl_tpu_torch.models import transformer as T
     out = {}
     rs = np.random.RandomState(21)
     vocab = T.PRESETS[cfg["preset"]]["vocab_size"]
     tok, tgt = (torch.from_numpy(a).to(device) for a in _lm_batch(
-        rs, vocab, cfg["batch"], cfg["seq"]))
+        rs, vocab, cfg["check_batch"], cfg["seq"]))
     common = dict(device=device, seed=0, n_layers=cfg["check_layers"],
                   remat=False)
     # (a) fp32, and (c) on the same model
@@ -5805,11 +5810,16 @@ def _long_flops_per_token(model, seq):
 
 
 def _long_kernel_times(cfg, trainer, card, fails):
-    """K1–K4 at the main path's shapes: times by CUDA events with the
-    host queued ahead, beside the plain versions, SDPA forward and
-    backward and ``torch.optim.AdamW(fused=True)``, with the bounds."""
+    """K1–K4 at the main path's shapes, each held against its plain
+    version there (K4 bitwise on copies of the trained parameters and
+    moments), then timed by CUDA events with the host queued ahead,
+    beside the plain versions, SDPA forward and backward and
+    ``torch.optim.AdamW(fused=True)``, with the bounds."""
+    import copy
+
+    from bigdl_tpu_torch.ops import _build
     from bigdl_tpu_torch.ops import flash_attention_mod as fa
-    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel.allreduce import tree_leaves, tree_map
     mcfg = trainer.model.cfg
     b, h, s, d = cfg["batch"], mcfg.n_heads, cfg["seq"], mcfg.head_dim
     dt = torch.bfloat16
@@ -5853,12 +5863,34 @@ def _long_kernel_times(cfg, trainer, card, fails):
              for n, sub in params.items()}
     n_par = sum(p.numel() for p in leaves)
     nbytes = 28 * n_par        # p, g, m, v read; p, m, v written (f32)
-    k4 = {"leaves": len(leaves), "params": n_par,
+    plain = copy.copy(trainer.optim)
+    plain.fused = False
+    runs = []
+    for method in (trainer.optim, plain):
+        p_c, s_c = tree_map(torch.clone, params), tree_map(torch.clone,
+                                                            state)
+        before = _build.launch_counts().get("fused_adam", 0)
+        p_c, s_c = method.update(grads, p_c, s_c)
+        torch.cuda.synchronize()
+        runs.append((tree_leaves(p_c) + tree_leaves(s_c),
+                     _build.launch_counts().get("fused_adam", 0) - before))
+    (got, k4_launches), (want, _) = runs
+    k4_err = max((a.float() - b.float()).abs().max().item()
+                 for a, b in zip(got, want) if a.numel())
+    k4_bitwise = len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    del runs, got, want, p_c, s_c
+    if not (k4_bitwise and k4_launches == 1):
+        fails.append(f"K4 on the main path's {len(leaves)} leaves: bitwise "
+                     f"{k4_bitwise}, max_abs_err {k4_err}, "
+                     f"{k4_launches} launch(es)")
+    k4 = {"leaves": len(leaves), "params": n_par, "max_abs_err": k4_err,
+          "tolerance": "bitwise", "bitwise": k4_bitwise,
+          "check_launches": k4_launches,
           "ms": queued_ms(lambda: trainer.optim.update(grads, params,
                                                        state), iters=5),
-          "plain_ms": queued_ms(lambda: AdamW(
-              learning_rate=cfg["lr"], fused=False).update(
-                  grads, params, state), iters=2, warm=1),
+          "plain_ms": queued_ms(lambda: plain.update(grads, params, state),
+                                iters=2, warm=1),
           "bound_ms": nbytes / H100_HBM_BYTES_S * 1e3, "bound_by": "bytes",
           "card": card}
     for p, (n, kk) in zip(leaves, ((n, kk) for n, sub in grads.items()
@@ -5992,7 +6024,9 @@ def _long_main_path(cfg, device, fails, card):
         out["profile"] = profile_steps(
             lambda: [trainer.step(*batch) for _ in range(2)],
             classes=LONG_CLASSES, top=8)
+        t_k = time.monotonic()
         out["kernels"] = _long_kernel_times(cfg, trainer, card, fails)
+        out["kernels_s"] = time.monotonic() - t_k
     log(f"lm_long main path: {json.dumps(out)}")
     return out
 
@@ -6092,35 +6126,68 @@ def lm_durable_child(spec: dict) -> None:
     print("CHILD DONE", flush=True)
 
 
+def _recipe_kernel_checks(fails):
+    """K1 and K2 + K3 against their plain versions at the shapes the
+    children of (e) give them (the recipe's batch, heads, sequence and
+    head_dim; fp32, causal); K4 at tiny's leaves is phase_adam's."""
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.ops import flash_attention_mod as fa
+    r, pre = LM_RECIPE, T.PRESETS[LM_RECIPE["preset"]]
+    b, h, s = r["batch"], pre["n_heads"], r["seq"]
+    d = pre["d_model"] // pre["n_heads"]
+    q, k, v = _qkv(b, h, s, s, d, torch.float32, seed=41, layout="main")
+    do = _grad_out(q, "main", 42)
+    err, lse_err, tol, ok, _ = _compare(fa, q, k, v, True)
+    b_err, _, b_tol, b_ok, _ = compare_bwd(fa, q, k, v, do, causal=True)
+    out = {"shape": [b, h, s, s, d], "dtype": "float32", "causal": True,
+           "fwd_max_abs_err": err, "lse_max_abs_err": lse_err,
+           "fwd_tolerance": tol, "bwd_max_abs_err": b_err,
+           "bwd_tolerance": b_tol, "ok": ok and b_ok}
+    log(f"lm_long (e) kernels at the recipe's shapes: {json.dumps(out)}")
+    if not out["ok"]:
+        fails.append(f"(e) K1 {ok}, K2+K3 {b_ok} against the plain "
+                     f"versions at the recipe's shapes")
+    return out
+
+
 def _lm_durable_leg(device, fails):
     """(e): the recipe's trainer in processes of its own: uninterrupted
     (a), preempted by SIGTERM (b1) and resumed (b2, bitwise a in
     parameters, Adam moments and the resumed losses), and a NaN batch
-    rolled back once (c)."""
+    rolled back once (c).  a, b1 and c share nothing and run at once;
+    b2 follows b1."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from bigdl_tpu_torch.checkpoint import scan
     from bigdl_tpu_torch.ops import _build
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="lm_durable_", dir=str(_build.BUILD_DIR))
     r = LM_RECIPE
+    kernels = _recipe_kernel_checks(fails) if device != "cpu" else None
+
+    def child(kind):
+        ckpt = os.path.join(work, "ck_c" if kind == "c" else "ck_b")
+        rc, _ = _spawn_child(
+            {"name": kind, "kind": kind, "work": work, "ckpt": ckpt,
+             "device": device},
+            sigterm_at=r["preempt_at"] if kind == "b1" else None,
+            flag="--lm-durable-child")
+        return kind, rc, ckpt
     try:
         runs = {}
-        for kind in ("a", "b1", "b2", "c"):
-            ckpt = os.path.join(work, "ck_c" if kind == "c" else "ck_b")
-            rc, _ = _spawn_child(
-                {"name": kind, "kind": kind, "work": work, "ckpt": ckpt,
-                 "device": device},
-                sigterm_at=r["preempt_at"] if kind == "b1" else None,
-                flag="--lm-durable-child")
-            if rc != 0:
-                fails.append(f"lm child {kind} exited {rc}")
-                return {"children": runs}
-            with open(os.path.join(work, f"{kind}.json")) as f:
-                runs[kind] = json.load(f)
-            if kind == "b1":
-                runs[kind]["tags"] = [m.tag for _, m in scan(ckpt)]
+        for wave in (("a", "b1", "c"), ("b2",)):
+            with ThreadPoolExecutor(len(wave)) as pool:
+                done = list(pool.map(child, wave))
+            for kind, rc, ckpt in done:
+                if rc != 0:
+                    fails.append(f"lm child {kind} exited {rc}")
+                    return {"children": runs, "kernels": kernels}
+                with open(os.path.join(work, f"{kind}.json")) as f:
+                    runs[kind] = json.load(f)
+                if kind == "b1":
+                    runs[kind]["tags"] = [m.tag for _, m in scan(ckpt)]
         a, b1, b2, c = (runs[k] for k in ("a", "b1", "b2", "c"))
         arr = {k: np.load(os.path.join(work, f"{k}.npz"))
                for k in ("a", "b2")}
@@ -6161,7 +6228,7 @@ def _lm_durable_leg(device, fails):
         for run in runs.values():
             for name, n in run["launches"].items():
                 launches[name] = launches.get(name, 0) + n
-        return {"checks": checks, "launches": launches,
+        return {"checks": checks, "launches": launches, "kernels": kernels,
                 "children": {k: {kk: v.get(kk) for kk in (
                     "start", "step_count", "launches", "host_syncs",
                     "rollbacks")} for k, v in runs.items()}}
@@ -6181,12 +6248,17 @@ def phase_lm_long(card: str, device: str = "cuda", small: bool = False):
     fails = []
     if device != "cpu":
         torch.cuda.empty_cache()
+    legs_s = {}
     checks = _long_checks(cfg, device, fails)
+    legs_s["a_b_c"] = time.monotonic() - t0
     main = _long_main_path(cfg, device, fails, card)
+    legs_s["d"] = time.monotonic() - t0 - legs_s["a_b_c"]
     if device != "cpu":
         torch.cuda.empty_cache()    # the children need the card's memory
     durable = _lm_durable_leg(device, fails)
-    out = {**main, "checks": checks, "durable": durable,
+    legs_s["e"] = time.monotonic() - t0 - legs_s["a_b_c"] - legs_s["d"]
+    log(f"lm_long legs: {json.dumps(legs_s)}")
+    out = {**main, "checks": checks, "durable": durable, "legs_s": legs_s,
            "phase_s": time.monotonic() - t0}
     if fails:
         raise AssertionError(f"lm_long: {fails}")
@@ -6206,19 +6278,28 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
     t0 = time.monotonic()
-    build_s = phase_build()
-    k1 = phase_kernels(card)
+    phase_s = {}
+
+    def timed(fn, *args):
+        """``fn(*args)``, its wall time kept under the phase's name."""
+        t = time.monotonic()
+        out = fn(*args)
+        phase_s[fn.__name__] = time.monotonic() - t
+        log(f"{fn.__name__}: {phase_s[fn.__name__]:.1f} s")
+        return out
+    build_s = timed(phase_build)
+    k1 = timed(phase_kernels, card)
     k1["build_s"] = build_s
-    k23 = phase_flash_bwd(card)
-    k4 = phase_adam(card)
-    k5, k6 = phase_sgd(card)
-    host_sync = phase_host_sync()
-    slice_ = phase_slice(card)
+    k23 = timed(phase_flash_bwd, card)
+    k4 = timed(phase_adam, card)
+    k5, k6 = timed(phase_sgd, card)
+    host_sync = timed(phase_host_sync)
+    slice_ = timed(phase_slice, card)
     k1["cases"].append(slice_["layer_case"])
-    decode = phase_decode(card)
-    train = phase_training(card, k4)
-    train["bf16"] = phase_training_bf16(card)
-    stream = phase_stream(card, train["step_ms_median"])
+    decode = timed(phase_decode, card)
+    train = timed(phase_training, card, k4)
+    train["bf16"] = timed(phase_training_bf16, card)
+    stream = timed(phase_stream, card, train["step_ms_median"])
     if train["profile"]:
         # K4's own device time a step (one launch), without host gaps
         k4["device_ms_per_step"] = train["profile"]["device_ms_by_class"] \
@@ -6229,14 +6310,14 @@ def main() -> int:
     # benchmarking, so that two runs can be compared step by step
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
-    classifier = phase_classifier(card, k5, k6)
-    distri = phase_distri(card)
+    classifier = timed(phase_classifier, card, k5, k6)
+    distri = timed(phase_distri, card)
     prefetch_run = distri["readings"]["dp1_b256_prefetch"]
-    recipe = phase_recipe(card, {k: prefetch_run[k] for k in (
+    recipe = timed(phase_recipe, card, {k: prefetch_run[k] for k in (
         "step_ms_median", "images_per_s")})
-    vgg = phase_vgg(card)
-    durable = phase_durable(card)
-    lm_long = phase_lm_long(card)
+    vgg = timed(phase_vgg, card)
+    durable = timed(phase_durable, card)
+    lm_long = timed(phase_lm_long, card)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
@@ -6272,6 +6353,8 @@ def main() -> int:
     print(json.dumps({"lm_long": {k: v for k, v in lm_long.items()
                                   if k != "kernels"}}), flush=True)
     print(json.dumps({"host_sync": host_sync}), flush=True)
+    print(json.dumps({"phase_s": phase_s,
+                      "total_s": time.monotonic() - t0}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

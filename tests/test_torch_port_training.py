@@ -228,7 +228,7 @@ def test_mesh_arguments_raise_and_name_the_roadmap_item(kw):
     one = {a: 1 for a in kw["mesh"]}
     tr = SpmdTrainer(None, AdamW(), device="cpu", mesh=one, fsdp=True,
                      ring_attention=True, min_fsdp_size=1)
-    assert not tr.fsdp and not tr.ring
+    assert tr.mesh == one and tr.params is None
     SpmdTrainer(None, AdamW(), device="cpu", mesh=None, fsdp=False)
 
 
