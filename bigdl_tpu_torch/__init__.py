@@ -14,16 +14,8 @@ kernel runs only for tensors that lie on the CPU.
 Entry points put their work on ``cuda`` unless the caller passes
 ``device="cpu"`` (see :func:`resolve_device`).
 
-What is ported so far:
-
-  * the serving slice — ``models.transformer`` (TransformerLM forward),
-    ``ops.flash_attention`` (forward kernel) and ``serving``
-    (``ModelRegistry`` + dynamic-batching ``ServingEngine``);
-  * the training slice — ``parallel.SpmdTrainer`` on one device,
-    ``models.transformer`` (token loss), ``ops.flash_attention``
-    (backward kernels), ``optim`` (``Adam``/``AdamW``, ``Default``
-    schedule, ``make_accum_grads``) and ``kernels.fused_optim`` (fused
-    Adam kernel).
+What is ported so far, slice by slice, is listed in ``README.md`` (the
+"PyTorch/CUDA port" section); what is not is ROADMAP.md's queue A.
 """
 from ._device import resolve_device
 

@@ -25,3 +25,17 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "bigdl_tpu_torch: no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch path on the CPU")
     return dev
+
+
+def model_device(model) -> torch.device:
+    """The device of a model's first tensor, in module order: whatever a
+    module's ``_device_tensors()`` gives (parameters, buffers, or the
+    constants an int8 module keeps), else its parameters and buffers.
+    Raises ``ValueError`` for a model with none."""
+    for m in model.modules():
+        own = getattr(m, "_device_tensors", None)
+        tensors = own() if own is not None else \
+            list(m.parameters(recurse=False)) + list(m.buffers(recurse=False))
+        for t in tensors:
+            return t.device
+    raise ValueError(f"{type(model).__name__} holds no tensors")

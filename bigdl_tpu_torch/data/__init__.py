@@ -1,6 +1,7 @@
 """Data of the port (≙ ``bigdl_tpu/data``): samples, datasets and
 transformers, the image pipeline, the file-record dataset over the native
-ring, prefetch, the device loader and device augmentation."""
+ring, prefetch, the device loader and device augmentation, the text
+pipeline (``data.text``) and the 20-Newsgroups loader (``data.news20``)."""
 from .dataset import (ArrayMiniBatchDataSet, ChainedTransformer, DataSet,
                       DistributedDataSet, FunctionTransformer,
                       LocalArrayDataSet, SampleToMiniBatch,

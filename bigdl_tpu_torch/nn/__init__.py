@@ -4,7 +4,8 @@ from .activation import LogSoftMax, ReLU, Tanh
 from .containers import (Bottle, Concat, ConcatTable, Container, Echo,
                          Identity, MapTable, ParallelTable, Remat,
                          Sequential)
-from .conv import SpaceToDepthConvolution, SpatialConvolution
+from .conv import (SpaceToDepthConvolution, SpatialConvolution,
+                   SpatialDilatedConvolution, TemporalConvolution)
 from .criterion import (ClassNLLCriterion, CrossEntropyCriterion,
                         MSECriterion)
 from .dropout import (Dropout, GaussianDropout, GaussianNoise,
@@ -17,12 +18,14 @@ from .fusion import fold_batchnorm
 from .graph import DynamicGraph, Graph, Input, Node
 from .init import (InitializationMethod, MsraFiller, Ones, RandomNormal,
                    RandomUniform, Xavier, Zeros)
-from .linear import CAdd, CMul, Linear
+from .linear import CAdd, CMul, Linear, LookupTable
 from .module import Criterion, Ctx, Module
 from .normalization import (BatchNormalization, RMSNorm,
                             SpatialBatchNormalization)
-from .pooling import SpatialAveragePooling, SpatialMaxPooling
-from .shape_ops import Padding, Reshape, SpatialZeroPadding, Transpose, View
+from .pooling import (SpatialAveragePooling, SpatialMaxPooling,
+                      TemporalMaxPooling)
+from .shape_ops import (Padding, Reshape, SpatialZeroPadding, Squeeze,
+                        Transpose, View)
 from .table_ops import CAddTable
 
 # the reference's alias spellings of Graph (nn/StaticGraph.scala; pyspark's
@@ -31,19 +34,21 @@ StaticGraph = Graph
 Model = Graph
 
 __all__ = ["Abs", "ActivityRegularization", "AddConstant",
-           "BatchNormalization", "Bottle", "CAdd", "CAddTable", "CMul",
-           "ClassNLLCriterion", "Concat", "ConcatTable", "Container",
+           "BatchNormalization", "Bottle", "CAdd", "CAddTable",
+           "ClassNLLCriterion", "CMul", "Concat", "ConcatTable", "Container",
            "Criterion", "CrossEntropyCriterion", "Ctx", "Dropout",
-           "DynamicGraph", "Echo", "Exp", "GaussianDropout", "GaussianNoise",
-           "GaussianSampler", "Graph", "Highway", "Identity",
-           "InitializationMethod", "Input", "L1Penalty", "Linear",
-           "Log", "Log1p", "LogSoftMax", "MSECriterion", "MapTable", "Model",
-           "Module", "MsraFiller", "MulConstant", "NegativeEntropyPenalty",
-           "Node", "Ones", "Padding", "ParallelTable", "Power", "RMSNorm",
-           "RandomNormal", "RandomUniform", "ReLU", "Remat", "Reshape",
-           "Scale", "Sequential", "SpaceToDepthConvolution",
-           "SpatialAveragePooling", "SpatialBatchNormalization",
-           "SpatialConvolution", "SpatialDropout1D", "SpatialDropout2D",
-           "SpatialDropout3D", "SpatialMaxPooling", "SpatialZeroPadding",
-           "Sqrt", "Square", "StaticGraph", "Tanh", "Transpose", "View",
-           "Xavier", "Zeros", "fold_batchnorm"]
+           "DynamicGraph", "Echo", "Exp", "fold_batchnorm", "GaussianDropout",
+           "GaussianNoise", "GaussianSampler", "Graph", "Highway", "Identity",
+           "InitializationMethod", "Input", "L1Penalty", "Linear", "Log",
+           "Log1p", "LogSoftMax", "LookupTable", "MapTable", "Model",
+           "Module", "MSECriterion", "MsraFiller", "MulConstant",
+           "NegativeEntropyPenalty", "Node", "Ones", "Padding",
+           "ParallelTable", "Power", "RandomNormal", "RandomUniform", "ReLU",
+           "Remat", "Reshape", "RMSNorm", "Scale", "Sequential",
+           "SpaceToDepthConvolution", "SpatialAveragePooling",
+           "SpatialBatchNormalization", "SpatialConvolution",
+           "SpatialDilatedConvolution", "SpatialDropout1D",
+           "SpatialDropout2D", "SpatialDropout3D", "SpatialMaxPooling",
+           "SpatialZeroPadding", "Sqrt", "Square", "Squeeze", "StaticGraph",
+           "Tanh", "TemporalConvolution", "TemporalMaxPooling", "Transpose",
+           "View", "Xavier", "Zeros"]

@@ -1,4 +1,6 @@
-"""Convolution (≙ ``bigdl_tpu/nn/conv.py``): ``SpatialConvolution``.
+"""Convolution (≙ ``bigdl_tpu/nn/conv.py``): ``SpatialConvolution``,
+``SpaceToDepthConvolution``, ``SpatialDilatedConvolution`` and
+``TemporalConvolution``.
 
 Every conv is one ``F.conv2d`` (cuDNN on the card).  The weight is OIHW
 in both formats.  With ``format="NHWC"`` the input ``(B, H, W, C)`` is
@@ -151,3 +153,72 @@ class SpaceToDepthConvolution(SpatialConvolution):
         if self.with_bias:
             y = y + p["bias"].to(x.dtype)
         return y
+
+
+class SpatialDilatedConvolution(Module):
+    """2D convolution with a dilated kernel over NCHW input (the weight
+    OIHW).  ``pad_w``/``pad_h`` = -1 selects SAME padding for the dilated
+    kernel.  Xavier weight, zero bias, drawn from ``gen``."""
+
+    def __init__(self, n_input_plane, n_output_plane, kw, kh, dw=1, dh=1,
+                 pad_w=0, pad_h=0, dilation_w=1, dilation_h=1,
+                 w_regularizer=None, b_regularizer=None, with_bias=True,
+                 name=None, *, gen: torch.Generator = None):
+        super().__init__(name=name)
+        check_regularizers(self, w_regularizer, b_regularizer)
+        self.n_input_plane = n_input_plane
+        self.n_output_plane = n_output_plane
+        self.kernel = (kh, kw)
+        self.stride = (dh, dw)
+        self.pad = (pad_h, pad_w)
+        self.dilation = (dilation_h, dilation_w)
+        self.with_bias = with_bias
+        fan_in = n_input_plane * kh * kw
+        fan_out = n_output_plane * kh * kw
+        self.weight = torch.nn.Parameter(init_tensor(
+            self, gen, (n_output_plane, n_input_plane, kh, kw), fan_in,
+            fan_out, Xavier()))
+        if with_bias:
+            self.bias = torch.nn.Parameter(init_tensor(
+                self, gen, (n_output_plane,), fan_in, fan_out, Zeros(),
+                kind="bias"))
+
+    def apply(self, params, x, ctx):
+        p = self.own(params)
+        pads = [_same_pad(x.shape[2 + i], s, k, d) if pd == -1 else (pd, pd)
+                for i, (pd, k, s, d) in enumerate(zip(
+                    self.pad, self.kernel, self.stride, self.dilation))]
+        return F.conv2d(pad_hw(x, pads), p["weight"].to(x.dtype),
+                        p["bias"].to(x.dtype) if self.with_bias else None,
+                        stride=self.stride, dilation=self.dilation)
+
+
+class TemporalConvolution(Module):
+    """1D convolution over ``(B, T, input_frame_size)`` input, giving
+    ``(B, T', output_frame_size)``; no padding.  The weight is OIW
+    ``(output_frame_size, input_frame_size, kernel_w)``: Xavier weight
+    and zero bias, drawn from ``gen``."""
+
+    def __init__(self, input_frame_size, output_frame_size, kernel_w,
+                 stride_w=1, propagate_back=True, w_regularizer=None,
+                 b_regularizer=None, name=None, *,
+                 gen: torch.Generator = None):
+        super().__init__(name=name)
+        check_regularizers(self, w_regularizer, b_regularizer)
+        self.input_frame_size = input_frame_size
+        self.output_frame_size = output_frame_size
+        self.kernel_w = kernel_w
+        self.stride_w = stride_w
+        fan_in = input_frame_size * kernel_w
+        self.weight = torch.nn.Parameter(init_tensor(
+            self, gen, (output_frame_size, input_frame_size, kernel_w),
+            fan_in, output_frame_size, Xavier()))
+        self.bias = torch.nn.Parameter(init_tensor(
+            self, gen, (output_frame_size,), fan_in, output_frame_size,
+            Zeros(), kind="bias"))
+
+    def apply(self, params, x, ctx):
+        p = self.own(params)
+        y = F.conv1d(x.transpose(1, 2), p["weight"].to(x.dtype),
+                     p["bias"].to(x.dtype), stride=self.stride_w)
+        return y.transpose(1, 2)

@@ -203,6 +203,12 @@ class Module(torch.nn.Module):
         ``Module.modules()``)."""
         return [m for m in self.modules() if isinstance(m, Module)]
 
+    def _device_tensors(self):
+        """The tensors this module holds itself (not its children's),
+        which place it on a device: its parameters and buffers."""
+        return itertools.chain(self.parameters(recurse=False),
+                               self.buffers(recurse=False))
+
     # -- parameters in the reference's flat layout ---------------------- #
     def param_dict(self) -> Params:
         """``{module_name: {param_name: tensor}}`` over this module and
@@ -467,6 +473,35 @@ class Module(torch.nn.Module):
 
     def is_training(self) -> bool:
         return self.training
+
+    # -- inference and int8 (Layer.predict, Layer.quantize) -------------- #
+    def _predictor(self, batch_size):
+        # one long-lived Predictor per batch size, reused across calls
+        cache = self.__dict__.setdefault("_predictors", {})
+        if batch_size not in cache:
+            from ..optim.predictor import Predictor
+            cache[batch_size] = Predictor(self, batch_size=batch_size)
+        return cache[batch_size]
+
+    def predict(self, x, batch_size=128):
+        """Batched inference on the model's device (an array, a list of
+        ``Sample`` s or a DataSet) -> numpy outputs (≙ Layer.predict)."""
+        return self._predictor(batch_size).predict(x)
+
+    def predict_class(self, x, batch_size=128):
+        """1-based class predictions (≙ Layer.predict_class)."""
+        return self._predictor(batch_size).predict_class(x)
+
+    # the pyspark layer.py spellings
+    predict_local = predict
+    predict_class_local = predict_class
+
+    def quantize(self, calibration_data=None):
+        """An int8 copy of this model (≙ Layer.quantize, see
+        :func:`bigdl_tpu_torch.quantized.quantize`); ``calibration_data``
+        bakes static activation scales."""
+        from ..quantized import quantize
+        return quantize(self, calibration_data=calibration_data)
 
 
 def _as_tensors(x) -> List[torch.Tensor]:

@@ -1,5 +1,5 @@
-"""Pooling (≙ ``bigdl_tpu/nn/pooling.py``): ``SpatialMaxPooling`` and
-``SpatialAveragePooling``.
+"""Pooling (≙ ``bigdl_tpu/nn/pooling.py``): ``SpatialMaxPooling``,
+``SpatialAveragePooling`` and ``TemporalMaxPooling``.
 
 The reference's geometry pads each spatial dim by ``(lo, hi)`` from
 :func:`_pool_pads`, possibly asymmetrically (ResNet's stem max-pool on
@@ -105,3 +105,18 @@ class SpatialAveragePooling(Module):
                 s = s / F.avg_pool2d(pad_hw(ones, pads), kernel, stride,
                                      divisor_override=1)
         return from_nchw(s, self.format)
+
+
+class TemporalMaxPooling(Module):
+    """Max over windows of ``k_w`` time steps, ``d_w`` apart (default
+    ``k_w``), of a ``(B, T, C)`` input; no padding, a partial last window
+    is dropped."""
+
+    def __init__(self, k_w, d_w=None, name=None):
+        super().__init__(name=name)
+        self.k_w = k_w
+        self.d_w = d_w or k_w
+
+    def apply(self, params, x, ctx):
+        y = F.max_pool1d(x.transpose(1, 2), self.k_w, self.d_w)
+        return y.transpose(1, 2)

@@ -1,10 +1,11 @@
 """Shape layers (≙ ``bigdl_tpu/nn/shape_ops.py``): ``Reshape`` and
-``View``, which keep the batch dim, ``Transpose``, ``Padding`` and
-``SpatialZeroPadding``.  Dimension arguments are 1-based, as the
-reference's (Torch's) are."""
+``View``, which keep the batch dim, ``Squeeze``, ``Transpose``,
+``Padding`` and ``SpatialZeroPadding``.  Dimension arguments are 1-based,
+as the reference's (Torch's) are."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 import torch.nn.functional as F
 
 from .module import Module
@@ -61,6 +62,31 @@ def _axis(dim, ndim, batch_offset=0):
     if dim < 0:
         return ndim + dim
     return dim - 1 + batch_offset
+
+
+class Squeeze(Module):
+    """Drop singleton dims: ``dim`` (1-based, possibly negative, or a
+    tuple of them; counted after the batch dim with ``batch_mode``), or
+    every singleton dim when ``dim`` is None."""
+
+    def __init__(self, dim=None, num_input_dims=0, batch_mode=False,
+                 name=None):
+        super().__init__(name=name)
+        self.dim = dim
+        self.batch_mode = batch_mode
+
+    def apply(self, params, x, ctx):
+        if self.dim is None:
+            return torch.squeeze(x)
+        dims = self.dim if isinstance(self.dim, (tuple, list)) \
+            else (self.dim,)
+        axes = tuple(_axis(d, x.ndim, 1 if self.batch_mode else 0)
+                     for d in dims)
+        for a in axes:
+            if x.shape[a] != 1:
+                raise ValueError(f"{self.name}: cannot squeeze dim {a} of "
+                                 f"size {x.shape[a]}")
+        return torch.squeeze(x, dim=axes)
 
 
 class Transpose(Module):

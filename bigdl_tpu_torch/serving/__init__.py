@@ -7,7 +7,8 @@
     requests into micro-batches under a max-latency deadline, shedding
     (:class:`LoadShedError`) at admission when full.
   * :class:`ModelRegistry` — named, versioned models with immutable
-    weight :class:`Snapshot` s and atomic hot-swap.
+    weight :class:`Snapshot` s and atomic hot-swap; an entry can serve
+    the model's post-training int8 copy (``quantize_int8=True``).
   * :class:`ServingEngine` — warmup of every bucket, per-request
     deadline propagation, graceful drain, Recorder wiring.
   * :class:`DecodeEngine` + :class:`PagedKVCache` — token-streaming
@@ -18,7 +19,9 @@
   * :class:`ReplicaSet` + :class:`OverloadController` — N engines behind
     one submit API: health-gated routing, wedge ejection and budgeted
     failover, exactly-once completion, probe readmission, priority shed
-    and brownout (``build_replica_set``, ``build_decode_replica_set``).
+    and brownout, to an int8 entry with ``build_replica_set(
+    int8_degrade=True)`` (``build_replica_set``,
+    ``build_decode_replica_set``).
   * :class:`CanaryPublisher` — weight publication through one quiesced
     canary with a golden gate, fleet-wide promotion, bitwise rollback.
   * :class:`WeightStreamPublisher` — trigger-fired live train→serve

@@ -41,7 +41,16 @@ them afterwards.
 
 The ``serving.swap`` fault site fires inside the (retried) validation.
 
-Not ported yet (ROADMAP queue A, item 9): the ``quantize_int8`` path.
+``state`` is the model's persistent state (batch norm's running
+statistics, ``Module.initial_state``), held as owning copies the same way.
+
+``register(quantize_int8=True)`` serves an int8 copy of the model
+(``quantized.quantize_for_serving``, calibrated with ``calibration_data``
+when given).  Its int8 weights are constants of the modules, not leaves
+of the snapshot, so the entry is inference-only: ``swap_weights`` on it
+raises, and new weights mean a new quantization through ``swap_model``.
+The entry keeps its calibration batches, so that a canary promotion can
+quantize the new weights with the same activation scales.
 """
 from __future__ import annotations
 
@@ -53,7 +62,7 @@ import numpy as np
 import torch
 
 from .. import faults as faultplane
-from .._device import resolve_device
+from .._device import model_device, resolve_device
 from ..nn.module import Module
 from ..utils.retry import RetryPolicy
 
@@ -82,13 +91,18 @@ class ModelEntry:
 
     def __init__(self, name: str, model: Module, snapshot: Snapshot,
                  input_shape: Optional[Tuple[int, ...]], dtype,
-                 device: torch.device):
+                 device: torch.device, inference_only: bool = False,
+                 calibration_data=None):
         self.name = name
         self.model = model
         self.snapshot = snapshot
         self.input_shape = input_shape
         self.dtype = dtype
         self.device = device
+        # an int8 entry: its weights are module constants, not swappable
+        self.inference_only = inference_only
+        # the batches an int8 entry was calibrated with
+        self.calibration_data = calibration_data
         self.compiled: Dict[int, Callable] = {}     # bucket -> runner
         self.warmed = False
         self.swap_lock = threading.Lock()
@@ -100,8 +114,16 @@ class ModelEntry:
 
 
 def _model_device(model: Module) -> torch.device:
-    p = next(iter(model.parameters()), None)
-    return p.device if p is not None else resolve_device(None)
+    try:
+        return model_device(model)
+    except ValueError:
+        return resolve_device(None)
+
+
+def _snapshot(model: Module, version: str) -> Snapshot:
+    """Owning copies of ``model``'s parameters and state."""
+    return Snapshot(owning_copy(model.param_dict()),
+                    owning_copy(model.initial_state()), version)
 
 
 def owning_copy(params):
@@ -147,8 +169,9 @@ class ModelRegistry:
     # -- registration ----------------------------------------------------- #
     def register(self, name: str, model: Module, *,
                  input_shape: Optional[Tuple[int, ...]] = None,
-                 dtype=np.float32, version: Optional[str] = None
-                 ) -> ModelEntry:
+                 dtype=np.float32, version: Optional[str] = None,
+                 quantize_int8: bool = False,
+                 calibration_data=None) -> ModelEntry:
         """Add ``model`` under ``name``.  It is served on the device its
         parameters live on.
 
@@ -156,14 +179,25 @@ class ModelRegistry:
         is required for :meth:`~bigdl_tpu_torch.serving.ServingEngine.warmup`
         to run the bucket ladder (without it the first request of each
         bucket pays — and counts — a recompile).  The snapshot holds
-        owning copies of the module's parameters (see the module
-        docstring).
+        owning copies of the module's parameters and state (see the
+        module docstring).
+
+        ``quantize_int8=True`` serves
+        :func:`bigdl_tpu_torch.quantized.quantize_for_serving` of
+        ``model`` instead, with static activation scales from
+        ``calibration_data`` (input batches) when given.  Such an entry is
+        inference-only.
         """
+        if quantize_int8:
+            from ..quantized import quantize_for_serving
+            model = quantize_for_serving(model,
+                                         calibration_data=calibration_data)
         entry = ModelEntry(
-            name, model,
-            Snapshot(owning_copy(model.param_dict()), {}, version or "v1"),
+            name, model, _snapshot(model, version or "v1"),
             None if input_shape is None else tuple(input_shape),
-            np.dtype(dtype), _model_device(model))
+            np.dtype(dtype), _model_device(model),
+            inference_only=quantize_int8,
+            calibration_data=calibration_data if quantize_int8 else None)
         with self._lock:
             if name in self._entries:
                 raise ValueError(f"model {name!r} already registered; "
@@ -200,6 +234,10 @@ class ModelRegistry:
         grabbed; new batches see the new one.
         """
         entry = self.get(name)
+        if entry.inference_only:
+            raise ValueError(
+                f"model {name!r} is int8/inference-only: its weights are "
+                "constants of its modules; use swap_model() and re-warm")
         with entry.swap_lock:
             old = entry.snapshot
             new_params = old.params if params is None else params
@@ -219,6 +257,8 @@ class ModelRegistry:
             # trainer that adopts the module must never write into a
             # published snapshot
             _rebind(entry.model, new_params)
+            if state is not None:
+                entry.model.set_state(new_state)
             return snap
 
     def sync_from_model(self, name: str,
@@ -228,21 +268,22 @@ class ModelRegistry:
         (``set_weights``, an in-process trainer)."""
         entry = self.get(name)
         return self.swap_weights(name, owning_copy(entry.model.param_dict()),
+                                 owning_copy(entry.model.initial_state()),
                                  version=version)
 
     def swap_model(self, name: str, model: Module,
                    version: Optional[str] = None) -> ModelEntry:
-        """Replace the module itself (a new architecture).  Clears the
-        engine's warmed runners — call ``engine.warmup(name)`` before
-        taking traffic, or the next request per bucket pays a counted
-        recompile.  The snapshot holds owning copies of ``model``'s
-        parameters."""
+        """Replace the module itself (a new architecture, or a new int8
+        quantization).  Clears the engine's warmed runners — call
+        ``engine.warmup(name)`` before taking traffic, or the next
+        request per bucket pays a counted recompile.  The snapshot holds
+        owning copies of ``model``'s parameters and state."""
         entry = self.get(name)
         with entry.swap_lock:
             entry.model = model
             entry.device = _model_device(model)
-            entry.snapshot = Snapshot(owning_copy(model.param_dict()), {},
-                                      version or entry.next_version())
+            entry.snapshot = _snapshot(model,
+                                       version or entry.next_version())
             entry.compiled = {}
             entry.warmed = False
         return entry

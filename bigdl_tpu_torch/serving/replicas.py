@@ -49,9 +49,12 @@ engine batch or step (how a chaos test wedges or errors one replica);
 retried through ``RetryPolicy(name="serving.publish")``; a failed
 validation is fatal and rolls back).
 
-Not ported yet: ``serve_metrics`` (ROADMAP queue A, item 8) and the int8
-brownout entry with its refresh on promotion (queue A, item 9); both
-raise.
+``build_replica_set(int8_degrade=True)`` registers the int8
+``<name>.int8`` entry in every replica as the brownout target; a canary
+promotion quantizes it anew from the promoted snapshot on every replica
+(``serving/degrade_refreshed``, ``serving/degrade_refresh_failures``).
+
+Not ported yet: ``serve_metrics`` (ROADMAP queue A, item 8); it raises.
 """
 from __future__ import annotations
 
@@ -1073,14 +1076,6 @@ class CanaryPublisher:
             raise ValueError(f"no golden batch registered for {name!r}; "
                              "CanaryPublisher(golden={...}) needs one "
                              "per published model")
-        if name in self.rs.degrade:
-            # the reference re-quantizes the int8 degrade entry from the
-            # promoted weights; refused before anything is staged
-            raise NotImplementedError(
-                f"CanaryPublisher.publish({name!r}): refreshing the brownout "
-                f"degrade entry {self.rs.degrade[name]!r} needs "
-                "quantize_for_serving, which is not ported yet (ROADMAP "
-                "queue A, item 9)")
         rec = self.recorder
         with self._publish_lock:
             rec.inc("serving/canary_publishes")
@@ -1205,7 +1200,42 @@ class CanaryPublisher:
         rec.emit_record("replica_event", kind="canary_promote",
                         model=name, version=snap.version,
                         replicas=len(promoted) + 1)
+        degrade_name = self.rs.degrade.get(name)
+        if degrade_name is not None:
+            self._refresh_degrade(name, degrade_name, snap)
         return snap
+
+    def _refresh_degrade(self, name: str, degrade_name: str,
+                         snap: Snapshot):
+        """Quantize every replica's int8 degrade entry anew from the
+        promoted snapshot's tensors (with the entry's own calibration
+        batches), so that a brownout after a publish serves the NEW
+        weights.  Best-effort per replica: the primary entries already
+        agree fleet-wide, so a failed refresh is counted and logged, not
+        unwound."""
+        from ..quantized import quantize_for_serving
+        rec = self.recorder
+        for rep in self.rs.replicas:
+            registry = rep.engine.registry
+            try:
+                entry8 = registry.get(degrade_name)
+            except KeyError:
+                continue
+            try:
+                primary = registry.get(name)
+                live = primary.snapshot
+                q = quantize_for_serving(
+                    primary.model, calibration_data=entry8.calibration_data,
+                    params=live.params, state=live.state)
+                registry.swap_model(degrade_name, q, version=snap.version)
+                rep.engine.warmup(degrade_name)
+                rec.inc("serving/degrade_refreshed")
+            except Exception as e:
+                rec.inc("serving/degrade_refresh_failures")
+                print(f"[serving] degrade entry {degrade_name!r} on "
+                      f"replica {rep.index} could not be refreshed to "
+                      f"{snap.version}: {e!r} — browned-out requests "
+                      "there serve the previous weights", flush=True)
 
     @staticmethod
     def _rollback(registry: ModelRegistry, name: str, old: Snapshot):
@@ -1223,15 +1253,11 @@ def build_replica_set(model, n: int, *, name: str = "main",
                       **rs_kw) -> ReplicaSet:
     """Build an N-replica set over ``model``: one registry + engine +
     recorder per replica, all serving ``name`` (each registry holds its own
-    owning copy of the weights, on the model's device).  ``int8_degrade``
-    (the reference's quantized ``<name>.int8`` brownout entry) raises: it
-    needs ``quantize_for_serving``.  A generic ``degrade=`` map to other
-    registered names still routes brownouts."""
-    if int8_degrade or calibration_data is not None:
-        raise NotImplementedError(
-            "build_replica_set(int8_degrade=True): the int8 serving entry "
-            "needs quantize_for_serving, which is not ported yet (ROADMAP "
-            "queue A, item 9)")
+    owning copy of the weights, on the model's device).  With
+    ``int8_degrade=True`` each registry also gets the quantized
+    ``<name>.int8`` entry (calibrated with ``calibration_data`` when given)
+    and the set's brownout ``degrade`` map routes to it under sustained
+    saturation."""
     engine_kw = dict(engine_kw or {})
     # per-replica health scoring needs per-replica telemetry: each
     # engine always gets its own Recorder, never a shared one
@@ -1240,7 +1266,13 @@ def build_replica_set(model, n: int, *, name: str = "main",
     for _ in range(int(n)):
         reg = ModelRegistry()
         reg.register(name, model, input_shape=input_shape, dtype=dtype)
+        if int8_degrade:
+            reg.register(f"{name}.int8", model, input_shape=input_shape,
+                         dtype=dtype, quantize_int8=True,
+                         calibration_data=calibration_data)
         engines.append(ServingEngine(reg, recorder=Recorder(), **engine_kw))
+    if int8_degrade:
+        rs_kw.setdefault("degrade", {name: f"{name}.int8"})
     return ReplicaSet(engines, **rs_kw)
 
 

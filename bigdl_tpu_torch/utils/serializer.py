@@ -18,7 +18,7 @@ them in place after the call returns); arrays decode to numpy, and the
 caller places them on its device.  A helper object decodes only when its
 class lives in ``bigdl_tpu_torch`` or was passed to
 :func:`register_class`.  The module half (``save_module``,
-``topology_dict``, orbax) is not ported yet (ROADMAP queue A, item 3).
+``topology_dict``, orbax) is not ported yet (ROADMAP queue A, item 7).
 """
 from __future__ import annotations
 

@@ -311,13 +311,36 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 resume, bitwise the uninterrupted run in parameters, Adam
                 moments and the resumed losses; a NaN batch at step 6
                 under ``policy="rollback"``: one rollback to step 4.
+ 13. predictor — BigDL's inference facade and int8 serving.  (a)
+                ``examples/serving_predictor.py`` at its widths (SEQ 12,
+                EMB 16, 32 filters, 3 classes, 512 synthetic documents):
+                ``LocalOptimizer`` with ``Adam(2e-3, fused=True)`` for 4
+                epochs (K4, one launch an update; a second identical run
+                must end bitwise), ``PredictionService`` (the demo rows
+                >= 3/4, 4 concurrent callers, logits within 1e-4 of the
+                CPU's), then ``model.quantize(calibration_data=...)``
+                behind a second service (the same labels; each
+                QuantizedLinear's int32 accumulator bitwise its float64
+                product).  (b) ResNet-50 (ImageNet, 224, 1000 classes,
+                fp32 logits) in ``build_replica_set(int8_degrade=True)``
+                with 2 replicas: every quantized layer's accumulator
+                bitwise its float64 version, int8 logits within 0.05 of
+                float, a forced brownout served by ``.int8``, a canary
+                publish that refreshes ``.int8`` on both replicas, and
+                float and int8 times at b32 with their profiles.  (c)
+                TransformerLM ``base`` weight-only int8: bytes < 0.5x,
+                greedy ``generate`` of 32 tokens, next-token agreement
+                on the fp32 context >= 0.8 and the loss within 0.05,
+                tokens/s and peak memory.  K4 and K1 against their plain
+                versions at this path's shapes.
 
 Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"stream": {...}}`` line, a
 ``{"classifier": {...}}`` line, a ``{"distri": {...}}`` line, a
 ``{"recipe": {...}}`` line, a ``{"vgg": {...}}`` line, a
 ``{"durable": {...}}`` line, a ``{"lm_long": {...}}`` line, a
-``{"host_sync": {...}}`` line, a ``{"kernels": [...]}`` line (all six
+``{"host_sync": {...}}`` line, a ``{"predictor": {...}}`` line, a
+``{"phase_s": ...}`` line, a ``{"kernels": [...]}`` line (all six
 kernels; K1-K4 also with their ``long8k`` readings), the card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits with
@@ -6266,6 +6289,534 @@ def phase_lm_long(card: str, device: str = "cuda", small: bool = False):
     return out
 
 
+# --------------------------------------------------------------------- #
+# 13. predictor: the inference facade and int8 serving                  #
+# --------------------------------------------------------------------- #
+# examples/serving_predictor.py at its own widths (its copy: the script
+# imports nothing of the reference)
+SP_CLASSES = ("alt.atheism", "comp.graphics", "rec.autos")
+SP_SEQ, SP_EMB, SP_FILTERS, SP_DOCS = 12, 16, 32, 512
+SP_EPOCHS, SP_BATCH, SP_LR = 4, 32, 2e-3
+SP_TOPIC_WORDS = (
+    "belief religion atheism church god doctrine faith secular",
+    "graphics image pixel render shader texture polygon driver",
+    "engine car wheel brake gearbox motor exhaust sedan")
+SP_NOISE = "the a of and to in for on with is are was this that".split()
+SP_ROWS = ("the church doctrine and secular belief",
+           "render the texture with a new shader driver",
+           "the brake and the gearbox of the sedan",
+           "image pixel polygon graphics")
+SP_EXPECTED = ("alt.atheism", "comp.graphics", "rec.autos", "comp.graphics")
+SP_CPU_TOL = 1e-4            # logits on the card against the CPU, same weights
+PRED_INT8_REL = 0.05         # the reference's band, int8 against float logits
+PRED_CALIB_BATCHES, PRED_CALIB_BATCH = 2, 8
+PRED_TIME_BATCH = 32
+PRED_LM_BATCH, PRED_LM_PROMPT, PRED_LM_NEW = 4, 32, 32
+PRED_LM_AGREE = 0.8          # greedy tokens agreeing, the reference's 0.8
+PRED_LM_LOSS_REL = 5e-3      # int8 against fp32 loss, random weights
+# the fine-tune before the greedy check: AdamW steps on the rows until the
+# loss is below PRED_LM_FIT_LOSS, at most PRED_LM_FIT_STEPS
+PRED_LM_LR, PRED_LM_FIT_LOSS, PRED_LM_FIT_STEPS = 1e-3, 0.1, 150
+PRED_WQ_RATIO = 0.5          # int8 bytes / fp32 bytes must stay below
+PRED_PROFILE_CLASSES = (("s8", "int8 GEMM"), ("i8", "int8 GEMM"),
+                        ("imma", "int8 GEMM"), ("conv", "convolution"),
+                        ("gemm", "matmul"), ("copy", "copies (im2col)"),
+                        ("elementwise", "elementwise"),
+                        ("reduce", "reductions"))
+
+
+def _sp_corpus(n, rng):
+    """``synthesize_corpus`` of examples/serving_predictor.py."""
+    docs, labels = [], []
+    for _ in range(n):
+        label = rng.randint(0, len(SP_CLASSES))
+        words = SP_TOPIC_WORDS[label].split()
+        body = [words[rng.randint(0, len(words))] if rng.rand() < 0.6
+                else SP_NOISE[rng.randint(0, len(SP_NOISE))]
+                for _ in range(SP_SEQ)]
+        docs.append(" ".join(body))
+        labels.append(float(label + 1))
+    return docs, np.asarray(labels, np.float32)
+
+
+def _sp_vectorize(docs, vocab, tok):
+    out = np.zeros((len(docs), SP_SEQ), np.float32)
+    for i, d in enumerate(docs):
+        ids = [vocab.get_index(w) + 1 for w in tok.tokenize(d)][:SP_SEQ]
+        out[i, :len(ids)] = ids
+    return out
+
+
+def _sp_model(vocab_size, device):
+    from bigdl_tpu_torch import nn
+    return nn.Sequential(
+        nn.LookupTable(vocab_size + 1, SP_EMB),
+        nn.TemporalConvolution(SP_EMB, SP_FILTERS, 3), nn.ReLU(),
+        nn.TemporalMaxPooling(SP_SEQ - 2, 1), nn.Squeeze(2),
+        nn.Linear(SP_FILTERS, len(SP_CLASSES)), nn.LogSoftMax()).to(device)
+
+
+def _conv_plain_acc(m, qx):
+    """The float64 convolution of the codes ``qx`` with ``m``'s int8
+    weight: the accumulator's plain version (exact below 2**53)."""
+    import torch.nn.functional as F
+    xc = qx.double() if m.format == "NCHW" else \
+        qx.double().permute(0, 3, 1, 2)
+    (top, bottom), (left, right) = m._pads(tuple(xc.shape[2:4]))
+    y = F.conv2d(F.pad(xc, (left, right, top, bottom)), m.qweight.double(),
+                 stride=m.stride, dilation=m.dilation, groups=m.n_group)
+    return y if m.format == "NCHW" else y.permute(0, 2, 3, 1)
+
+
+def _acc_checks(qmodel, x, fails):
+    """One inference forward of the int8 model on ``x``; each quantized
+    convolution's and linear layer's int32 accumulator, on the codes of
+    the activation it is given, against its float64 version.  Returns
+    the counts checked."""
+    from bigdl_tpu_torch import quantized as tq
+    targets = [m for m in qmodel.modules()
+               if isinstance(m, tq.QuantizedModule)]
+    counts = {"conv": 0, "linear": 0}
+    for m in targets:
+        def wrapped(p, a, ctx, _m=m, _orig=m.apply):
+            qx, _ = _m.quantize_input(a)
+            acc = _m.accumulate(qx)
+            if isinstance(_m, tq.QuantizedSpatialConvolution):
+                plain, kind = _conv_plain_acc(_m, qx), "conv"
+            else:
+                plain, kind = qx.double() @ _m.qweight.double().t(), "linear"
+            if acc.dtype != torch.int32 or acc.shape != plain.shape \
+                    or not torch.equal(acc.double(), plain):
+                fails.append(f"{_m.name}: int32 accumulator differs from "
+                             f"its float64 version")
+            counts[kind] += 1
+            return _orig(p, a, ctx)
+        m.apply = wrapped
+    try:
+        with torch.inference_mode():
+            qmodel.run(qmodel.param_dict(), x, state=qmodel.initial_state())
+    finally:
+        for m in targets:
+            m.__dict__.pop("apply", None)
+    return counts
+
+
+def _pred_rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-12))
+
+
+def _pred_text(device, fails):
+    """(a): the example's flow: train (K4), serve float and int8."""
+    import concurrent.futures as cf
+    import copy
+    from bigdl_tpu_torch import quantized as tq
+    from bigdl_tpu_torch.data.text import Dictionary, SentenceTokenizer
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import (Adam, LocalOptimizer,
+                                       PredictionService, Trigger)
+
+    rng = np.random.RandomState(0)
+    docs, labels = _sp_corpus(SP_DOCS, rng)
+    tok = SentenceTokenizer()
+    vocab = Dictionary([tok.tokenize(d) for d in docs])
+    x = _sp_vectorize(docs, vocab, tok)
+    torch.manual_seed(0)
+    model = _sp_model(vocab.get_vocab_size(), device)
+    twin = copy.deepcopy(model)
+
+    def train(m):
+        t = time.monotonic()
+        (LocalOptimizer(m, (x, labels), ClassNLLCriterion(),
+                        batch_size=SP_BATCH, device=device)
+         .set_optim_method(Adam(learning_rate=SP_LR, fused=True))
+         .set_end_when(Trigger.max_epoch(SP_EPOCHS))).optimize()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return time.monotonic() - t
+    before = _build.launch_counts().get("fused_adam", 0)
+    train_s = train(model)
+    k4 = _build.launch_counts().get("fused_adam", 0) - before
+    want_k4 = SP_EPOCHS * (SP_DOCS // SP_BATCH)      # one launch an update
+    if device != "cpu" and k4 != want_k4:
+        fails.append(f"text: K4 launched {k4} times, expected {want_k4}")
+    train(twin)
+    same = all(torch.equal(a, b) for a, b in zip(model.get_weights(),
+                                                 twin.get_weights()))
+    if not same:
+        fails.append("text: two identical training runs ended with other "
+                     "weights")
+    del twin
+
+    ids = _sp_vectorize(list(SP_ROWS), vocab, tok)
+    service = PredictionService(model)
+    qmodel = model.quantize(calibration_data=[x[:64]])
+    qservice = PredictionService(qmodel)
+    try:
+        def classify(text, svc=service):
+            scores = np.asarray(svc.predict(_sp_vectorize([text], vocab,
+                                                          tok)))[0]
+            return SP_CLASSES[int(scores.argmax())]
+        labels_f = [classify(r) for r in SP_ROWS]
+        with cf.ThreadPoolExecutor(4) as pool:
+            concurrent = list(pool.map(classify, SP_ROWS))
+        correct = sum(a == b for a, b in zip(labels_f, SP_EXPECTED))
+        if correct < 3:
+            fails.append(f"text: {correct}/4 demo rows right: {labels_f}")
+        if concurrent != labels_f:
+            fails.append("text: concurrent callers got other labels")
+        logits = np.asarray(service.predict(ids))
+        cpu = copy.deepcopy(model).to("cpu")
+        cpu_err = float(np.abs(logits - cpu.predict(ids)).max())
+        if cpu_err > SP_CPU_TOL:
+            fails.append(f"text: logits {cpu_err:.3g} from the CPU's")
+        labels_q = [classify(r, qservice) for r in SP_ROWS]
+        if labels_q != labels_f:
+            fails.append(f"text: int8 labels {labels_q} != {labels_f}")
+        counts = [_acc_checks(qmodel, torch.from_numpy(a).to(device), fails)
+                  for a in (x[:64], ids)]
+        checked = sum(c["linear"] for c in counts)
+        calibrated = all(m.act_absmax is not None for m in qmodel.modules()
+                         if isinstance(m, tq.QuantizedModule))
+        if counts != [{"conv": 0, "linear": 1}] * 2 or not calibrated:
+            fails.append(f"text: accumulators checked {counts}, "
+                         f"calibrated {calibrated}")
+        qlogits = np.asarray(qservice.predict(ids))
+    finally:
+        service.shutdown()
+        qservice.shutdown()
+    return {"vocab": vocab.get_vocab_size(), "train_s": train_s,
+            "leaf_shapes": [tuple(w.shape) for w in model.get_weights()],
+            "k4_launches": k4, "labels": labels_f, "demo_correct": correct,
+            "int8_labels": labels_q, "cpu_max_abs_err": cpu_err,
+            "int8_logit_rel": _pred_rel(qlogits, logits),
+            "two_runs_bitwise": same, "linear_acc_checked": checked}
+
+
+def _pred_resnet(device, small, fails, card):
+    """(b): ResNet-50 behind a 2-replica set with the int8 brownout
+    entry; accumulators, the band, the brownout route, the canary's
+    refresh and times."""
+    from bigdl_tpu_torch.models import resnet
+    from bigdl_tpu_torch.serving import CanaryPublisher, build_replica_set
+    from bigdl_tpu_torch.serving.registry import owning_copy
+
+    hw, classes = (32, 10) if small else (224, 1000)
+    t0 = time.monotonic()
+    model = resnet.build(class_num=classes, depth=20 if small else 50,
+                         dataset="cifar10" if small else "imagenet",
+                         with_logsoftmax=False, device=device, seed=0)
+    rs = np.random.RandomState(5)
+    calib = [rs.randn(PRED_CALIB_BATCH, 3, hw, hw).astype(np.float32)
+             for _ in range(PRED_CALIB_BATCHES)]
+    xq = rs.randn(PRED_CALIB_BATCH, 3, hw, hw).astype(np.float32)
+    sset = build_replica_set(
+        model, 2, name="resnet", input_shape=(3, hw, hw),
+        int8_degrade=True, calibration_data=calib, wedge_after=600.0,
+        engine_kw=dict(max_batch=PRED_CALIB_BATCH, max_delay_ms=1.0))
+    sset.warmup()
+    build_s = time.monotonic() - t0
+    out = {"build_and_warm_s": build_s}
+    try:
+        reg0 = sset.replicas[0].engine.registry
+        q8 = reg0.get("resnet.int8").model
+        counts = _acc_checks(q8, torch.from_numpy(xq).to(device), fails)
+        want_convs = 21 if small else 53
+        if counts != {"conv": want_convs, "linear": 1}:
+            fails.append(f"resnet: accumulators checked {counts}")
+        out["acc_checked"] = counts
+        y_f = np.asarray(sset.predict("resnet", xq, timeout=600))
+        sset.controller.browned = True
+        y_8 = np.asarray(sset.predict("resnet", xq, timeout=600))
+        sset.controller.browned = False
+        out["int8_rel"] = _pred_rel(y_8, y_f)
+        if not out["int8_rel"] < PRED_INT8_REL:
+            fails.append(f"resnet: int8 logits {out['int8_rel']:.4g} from "
+                         f"float, band {PRED_INT8_REL}")
+        out["brownout_requests"] = sset.recorder.counter_value(
+            "serving/brownout_requests")
+        if out["brownout_requests"] < 1:
+            fails.append("resnet: the forced brownout served no request")
+        # a publish whose classifier is 1.5x: the int8 entry must follow
+        fc = [m for m in model.modules() if type(m).__name__ == "Linear"][-1]
+        new = owning_copy(reg0.get("resnet").snapshot.params)
+        for k in new[fc.name]:
+            new[fc.name][k] = new[fc.name][k] * 1.5
+        pub = CanaryPublisher(sset, {"resnet": xq[:2]}, drift_rtol=100.0,
+                              quiesce_timeout=600.0, validate_timeout=600.0)
+        t = time.monotonic()
+        snap = pub.publish("resnet", new)
+        out["publish_with_refresh_s"] = time.monotonic() - t
+        versions = [r.engine.registry.get("resnet.int8").snapshot.version
+                    for r in sset.replicas]
+        refreshed = sset.recorder.counter_value("serving/degrade_refreshed")
+        if versions != [snap.version] * 2 or refreshed != 2 \
+                or sset.recorder.counter_value(
+                    "serving/degrade_refresh_failures"):
+            fails.append(f"resnet: int8 entries {versions} after publishing "
+                         f"{snap.version}, refreshed {refreshed}")
+        y_f2 = np.asarray(sset.predict("resnet", xq, timeout=600))
+        sset.controller.browned = True
+        y_82 = [np.asarray(r.engine.predict("resnet.int8", xq, timeout=600))
+                for r in sset.replicas]
+        sset.controller.browned = False
+        out["int8_rel_after_publish"] = max(_pred_rel(y, y_f2) for y in y_82)
+        out["int8_moved_rel"] = _pred_rel(y_82[0], y_8)
+        if not out["int8_rel_after_publish"] < PRED_INT8_REL \
+                or not out["int8_moved_rel"] > 0.2:
+            fails.append(f"resnet: after the publish the int8 answer is "
+                         f"{out['int8_rel_after_publish']:.4g} from float "
+                         f"and moved {out['int8_moved_rel']:.4g}")
+        out["versions"] = versions
+        q8 = sset.replicas[0].engine.registry.get("resnet.int8").model
+        f32 = sset.replicas[0].engine.registry.get("resnet")
+    finally:
+        sset.shutdown(drain=True)
+    # one batch of 32, float against int8, on the same device
+    xb = torch.from_numpy(rs.randn(PRED_TIME_BATCH, 3, hw, hw).astype(
+        np.float32)).to(device)
+    fsnap = f32.snapshot
+    qp, qs = q8.param_dict(), q8.initial_state()
+
+    def run_f():
+        f32.model.run(fsnap.params, xb, state=fsnap.state)
+
+    def run_q():
+        q8.run(qp, xb, state=qs)
+    if device != "cpu":
+        with torch.inference_mode():
+            times = {"float_ms": [], "int8_ms": []}
+            for fn, key in ((run_f, "float_ms"), (run_q, "int8_ms"),
+                            (run_q, "int8_ms"), (run_f, "float_ms")):
+                times[key].append(cuda_ms(fn, iters=5, warm=2))
+            for fn, key in ((run_f, "float"), (run_q, "int8")):
+                torch.cuda.synchronize()
+                start = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                out[f"{key}_peak_gb_above_start_b32"] = (
+                    torch.cuda.max_memory_allocated() - start) / 1e9
+            out["profile_int8_b32"] = profile_steps(
+                run_q, steps=1, classes=PRED_PROFILE_CLASSES, top=8)
+            out["profile_float_b32"] = profile_steps(
+                run_f, steps=1, classes=PRED_PROFILE_CLASSES, top=4)
+        out.update(times)
+        log(f"resnet b{PRED_TIME_BATCH}: float {times['float_ms']} ms, "
+            f"int8 {times['int8_ms']} ms ({card})")
+    return out
+
+
+def _pred_lm(device, small, fails, card):
+    """(c): weight-only int8 for TransformerLM ``generate``.  The loss is
+    held on the random weights, with random tokens and targets, as the
+    reference's test holds it.  Greedy tokens are held after a fine-tune
+    in which the model learns to continue the 4 rows from their prompts:
+    random weights leave the top logits within int8's rounding of each
+    other, so one flipped argmax would send the rest of a row elsewhere."""
+    from bigdl_tpu_torch import quantized as tq
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel import SpmdTrainer
+
+    lm = T.build("tiny" if small else "base", device=device, seed=0)
+    params = lm.param_dict()
+    rs = np.random.RandomState(7)
+    seq = PRED_LM_PROMPT + PRED_LM_NEW
+
+    def ids(n):
+        return torch.from_numpy(rs.randint(
+            0, lm.cfg.vocab_size, (PRED_LM_BATCH, n))).to(device)
+
+    def deq(p):
+        return tq.dequantize_weights(p, torch.float32)
+    t = time.monotonic()
+    qp = tq.quantize_weights_only(params, min_size=4096)
+    quant_s = time.monotonic() - t
+    ratio = tq.quantized_bytes(qp) / tq.quantized_bytes(params)
+    if not ratio < PRED_WQ_RATIO:
+        fails.append(f"lm: int8 bytes ratio {ratio:.4f}")
+    tokens, targets = ids(seq), ids(seq)
+    with torch.inference_mode():
+        loss_fp = float(lm.loss(params, tokens, targets))
+        loss_q = float(lm.loss(deq(qp), tokens, targets))
+    loss_rel = abs(loss_q - loss_fp) / loss_fp
+    if not loss_rel < PRED_LM_LOSS_REL:
+        fails.append(f"lm: int8 loss {loss_q} against fp32 {loss_fp}, "
+                     f"{loss_rel:.3g} relative (gate {PRED_LM_LOSS_REL})")
+
+    rows = ids(seq + 1)
+    trainer = SpmdTrainer(lm, AdamW(learning_rate=PRED_LM_LR, fused=True),
+                          device=device)
+    fit = []
+    t = time.monotonic()
+    while len(fit) < PRED_LM_FIT_STEPS \
+            and (not fit or fit[-1] > PRED_LM_FIT_LOSS):
+        fit.append(float(trainer.step(rows[:, :-1], rows[:, 1:])))
+    fit_s = time.monotonic() - t
+    params = trainer.params
+    del trainer
+    qp = tq.quantize_weights_only(params, min_size=4096)
+    prompt = rows[:, :PRED_LM_PROMPT]
+
+    def gen(p, transform, n=PRED_LM_NEW):
+        """(tokens, seconds, peak GB above what was allocated before)"""
+        if device != "cpu":
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        with torch.inference_mode():
+            out = lm.generate(p, prompt, n, params_transform=transform)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        dt = time.monotonic() - t
+        peak = (torch.cuda.max_memory_allocated() - start) / 1e9 \
+            if device != "cpu" else None
+        return out, dt, peak
+    gen(params, None, 2)                     # warm the shapes
+    gen(qp, deq, 2)
+    # in turns, fp32 / int8 / int8 / fp32: host-bound steps vary by call
+    runs = {"fp32": [], "int8": []}
+    for key in ("fp32", "int8", "int8", "fp32"):
+        runs[key].append(gen(params, None) if key == "fp32"
+                         else gen(qp, deq))
+    out_fp, out_q = runs["fp32"][0][0], runs["int8"][0][0]
+    # the reference's measure: every token of the rows, prompt and new
+    agree = float((out_fp == out_q).float().mean())
+    agree_new = float((out_fp[:, PRED_LM_PROMPT:]
+                       == out_q[:, PRED_LM_PROMPT:]).float().mean())
+    recalled = float((out_fp[:, PRED_LM_PROMPT:]
+                      == rows[:, PRED_LM_PROMPT:seq]).float().mean())
+    if not agree >= PRED_LM_AGREE:
+        fails.append(f"lm: greedy int8 tokens agree {agree:.3f} with fp32's "
+                     f"(gate {PRED_LM_AGREE}; {agree_new:.3f} of the new)")
+    new_tokens = PRED_LM_BATCH * PRED_LM_NEW
+    timed = {key: {"s": [r[1] for r in rs_],
+                   "tokens_per_s": [new_tokens / r[1] for r in rs_],
+                   "peak_gb_above_start": [r[2] for r in rs_]}
+             for key, rs_ in runs.items()}
+    res = {"preset": "tiny" if small else "base", "bytes_ratio": ratio,
+           "n_layers": lm.cfg.n_layers, "heads": lm.cfg.n_heads,
+           "head_dim": lm.cfg.head_dim, "quantize_s": quant_s,
+           "loss_fp32_random": loss_fp, "loss_int8_random": loss_q,
+           "loss_rel": loss_rel, "fit_steps": len(fit),
+           "fit_losses": [fit[0], fit[-1]], "fit_s": fit_s,
+           "recalled_fp32": recalled, "agree": agree, "agree_new": agree_new,
+           **timed}
+    log(f"lm weight-only int8: {json.dumps(res)} ({card})")
+    return res
+
+
+def _pred_kernel_checks(text, lm, fails):
+    """The kernels this path launched, against their plain versions at
+    its shapes, after its counts were read: K4 bitwise in one launch over
+    the text model's leaves (Adam) and the LM's (AdamW); K1 and K2 + K3
+    at the LM's (batch, heads, prompt + new, head_dim), fp32 causal, the
+    shape of its fine-tune steps and of its two loss calls."""
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.ops import flash_attention_mod as fa
+    from bigdl_tpu_torch.optim import Adam, AdamW
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    out = {}
+    for label, method, shapes in (
+            ("text", Adam(learning_rate=SP_LR, fused=True),
+             [tuple(s) for s in text["leaf_shapes"]]),
+            ("lm", AdamW(learning_rate=PRED_LM_LR, fused=True),
+             _preset_shapes(lm["preset"]))):
+        kw = method.update_scalars(
+            {"step": torch.tensor(63, dtype=torch.int32, device="cuda")})
+        p0s, g0s, m0s, v0s = ([torch.randn(s, generator=gen, device="cuda")
+                               .mul_(scale) for s in shapes]
+                              for scale in (0.05, 1e-2, 1e-3, 1e-3))
+        v0s = [t.square_() for t in v0s]
+        kern, plain, launches = _adam_trees(fo, kw, p0s, g0s, m0s, v0s)
+        k4 = {"leaves": len(shapes), "launches": launches,
+              "bitwise": all(torch.equal(a, b) for a, b in zip(kern, plain)),
+              "max_abs_err": max((a - b).abs().max().item()
+                                 for a, b in zip(kern, plain))}
+        if not k4["bitwise"] or launches != 1:
+            fails.append(f"K4 at the {label} model's leaves: {k4}")
+        out[f"K4 fused_adam {label}"] = k4
+        del kern, plain, p0s, g0s, m0s, v0s
+    s = PRED_LM_PROMPT + PRED_LM_NEW
+    shape = (PRED_LM_BATCH, lm["heads"], s, s, lm["head_dim"])
+    q, k, v = _qkv(*shape, torch.float32, 16, layout="main")
+    do = _grad_out(q, "main", 17)
+    err, lse_err, tol, ok, _ = _compare(fa, q, k, v, True)
+    b_err, _, b_tol, b_ok, _ = compare_bwd(fa, q, k, v, do, causal=True)
+    out["K1-K3 flash"] = {
+        "shape": list(shape), "dtype": "float32", "causal": True,
+        "fwd_max_abs_err": err, "lse_max_abs_err": lse_err,
+        "fwd_tolerance": tol, "bwd_max_abs_err": b_err,
+        "bwd_tolerance": b_tol, "ok": ok and b_ok}
+    if not ok or not b_ok:
+        fails.append(f"K1 {ok}, K2+K3 {b_ok} against the plain versions at "
+                     f"the LM's shape {shape}")
+    log(f"predictor kernels: {json.dumps(out)}")
+    return out
+
+
+def phase_predictor(card: str, device: str = "cuda", small: bool = False):
+    """BigDL's inference facade and int8 serving.  (a) The text classifier
+    of examples/serving_predictor.py (SEQ 12, EMB 16, 32 filters, 3
+    classes, 512 documents) trained 4 epochs by ``LocalOptimizer`` with
+    ``Adam(2e-3, fused=True)`` (K4, one launch an update; a second
+    identical run must end bitwise), served through ``PredictionService``
+    (the demo rows, 4 concurrent callers, logits against the CPU's) and,
+    quantized with calibration, through a second one (the same labels;
+    each QuantizedLinear's accumulator bitwise its float64 product).  (b)
+    ResNet-50 (ImageNet, 224, 1000 classes, fp32 logits) in a 2-replica
+    set with the int8 brownout entry (calibrated on 2 batches of 8):
+    every quantized layer's accumulator bitwise its float64 version, int8
+    within 0.05 of float, a forced brownout, a canary publish refreshing
+    the int8 entry on both replicas, and b32 times.  (c) TransformerLM
+    ``base`` weight-only int8: bytes and the loss against fp32 on the
+    random weights; then a fine-tune (AdamW, K1-K4) that teaches it 4
+    rows, and greedy ``generate`` on the dequantized weights agreeing with
+    fp32's, tokens/s and peak memory.  The launches are counted exactly,
+    and each kernel is then held against its plain version at this path's
+    shapes.  ``device="cpu", small=True`` rehearses it on the CPU
+    (ResNet-20 at 32x32, ``tiny``)."""
+    from bigdl_tpu_torch.ops import _build
+    t0 = time.monotonic()
+    fails = []
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    legs_s = {}
+    t = time.monotonic()
+    text = _pred_text(device, fails)
+    legs_s["text"] = time.monotonic() - t
+    t = time.monotonic()
+    res = _pred_resnet(device, small, fails, card)
+    legs_s["resnet"] = time.monotonic() - t
+    t = time.monotonic()
+    lm = _pred_lm(device, small, fails, card)
+    legs_s["lm"] = time.monotonic() - t
+    launches = _build.launch_counts()
+    kernels = {}
+    if device != "cpu":
+        # the text model's 2 runs, an update each; the LM's fine-tune
+        # steps (every layer a forward and a backward) and 2 loss calls
+        n, steps = lm["n_layers"], lm["fit_steps"]
+        want = {"fused_adam": text["k4_launches"] * 2 + steps,
+                "flash_fwd": n * (steps + 2), "flash_bwd_dkv": n * steps,
+                "flash_bwd_dq": n * steps}
+        got = {name: launches.get(name, 0) for name in want}
+        if got != want:
+            fails.append(f"launches {got}, expected {want}")
+        kernels = _pred_kernel_checks(text, lm, fails)
+    out = {"card": card, "text": text, "resnet": res, "lm": lm,
+           "launches": launches, "kernel_checks": kernels, "legs_s": legs_s,
+           "phase_s": time.monotonic() - t0}
+    if fails:
+        raise AssertionError(f"predictor: {fails}")
+    log(f"predictor phase: {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -6318,6 +6869,7 @@ def main() -> int:
     vgg = timed(phase_vgg, card)
     durable = timed(phase_durable, card)
     lm_long = timed(phase_lm_long, card)
+    predictor = timed(phase_predictor, card)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
@@ -6331,7 +6883,8 @@ def main() -> int:
                "durable": durable["launches"],
                "lm_long": lm_long["launches"],
                "lm_long_eval": lm_long["eval_launches"],
-               "lm_durable": lm_long["durable"]["launches"]}
+               "lm_durable": lm_long["durable"]["launches"],
+               "predictor": predictor["launches"]}
     kernels = [k1, *k23, k4, k5, k6]
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
@@ -6353,6 +6906,7 @@ def main() -> int:
     print(json.dumps({"lm_long": {k: v for k, v in lm_long.items()
                                   if k != "kernels"}}), flush=True)
     print(json.dumps({"host_sync": host_sync}), flush=True)
+    print(json.dumps({"predictor": predictor}), flush=True)
     print(json.dumps({"phase_s": phase_s,
                       "total_s": time.monotonic() - t0}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

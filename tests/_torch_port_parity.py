@@ -68,7 +68,12 @@ def port_run(tm, x, dy, state=None, training=False, draws=None,
     ctx = tnn.Ctx(state=state, training=training, draws=draws,
                   generator=generator)
     y = tm.apply(params, xt, ctx)
-    grads = torch.autograd.grad(y, [xt] + leaves, torch.from_numpy(dy))
+    # an input read as indices (LookupTable) has a zero gradient, as the
+    # reference's cast to int32 gives
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(
+        [xt] + leaves, torch.autograd.grad(y, [xt] + leaves,
+                                           torch.from_numpy(dy),
+                                           allow_unused=True))]
     order = {id(p): i for i, p in enumerate(leaves)}
     by_leaf = grads[1:]
     ordered = [by_leaf[order[id(w)]].numpy() for w in _own_weights(tm)]
@@ -77,21 +82,44 @@ def port_run(tm, x, dy, state=None, training=False, draws=None,
 
 def _own_weights(tm):
     """The port's parameters in get_weights order (not detached)."""
+    return [t for _, t in _named_own_weights(tm)]
+
+
+def _named_own_weights(tm):
     from bigdl_tpu_torch.nn.module import _weights_order
     out = []
     for m in tm._ref_modules():
         own = dict(m.named_parameters(recurse=False))
-        out.extend(own[k] for k in _weights_order(own))
+        out.extend((f"{m.name}/{k}", own[k]) for k in _weights_order(own))
     return out
 
 
-def assert_grads(got, want, rel):
-    """Per leaf: max |Δg| ≤ rel · max |g|."""
+def assert_grads(got, want, rel, names=None):
+    """Per leaf: max |Δg| ≤ rel · max |g|.  ``names`` (one per leaf) go
+    into the failure message."""
     assert [g.shape for g in got] == [g.shape for g in want]
     for i, (a, b) in enumerate(zip(got, want)):
         err = float(np.abs(a - b).max()) if a.size else 0.0
         scale = float(np.abs(b).max()) if b.size else 0.0
-        assert err <= rel * scale or err == 0.0, (i, err, scale)
+        what = names[i] if names is not None else i
+        assert err <= rel * scale or err == 0.0, (
+            f"{what}: max |dg| {err:.3e} > band {rel * scale:.3e} "
+            f"({rel} x max |g| {scale:.3e})")
+
+
+def assert_close(got, want, where, rtol, atol):
+    """``np.testing.assert_allclose`` whose message names ``where`` and
+    the worst element: its error against its band ``atol + rtol·|want|``."""
+    got, want = np.asarray(got), np.asarray(want)
+    msg = where
+    if got.shape == want.shape and got.size:
+        err = np.abs(got.astype(np.float64) - want)
+        band = atol + rtol * np.abs(want.astype(np.float64))
+        k = int(np.nanargmax(np.where(np.isnan(err), np.inf, err - band)))
+        msg = (f"{where}: worst |d| {err.flat[k]:.3e} against its band "
+               f"{band.flat[k]:.3e} (rtol {rtol}, atol {atol}) at "
+               f"{tuple(int(i) for i in np.unravel_index(k, got.shape))}")
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=msg)
 
 
 def _dropout_inputs(jm, params, state, x):
@@ -154,13 +182,17 @@ def layer_walk(jm, tm, params, state, x, training, key=None, draws=None,
         dy = rand(100 + i, shape)
         yjj, gj, gxj, sj = ref_run(jc, params, a, dy, state, training, key)
         yt, gt, gxt, st = port_run(tc, a, dy, tstate, training, draws=draws)
-        np.testing.assert_allclose(yt, yjj, err_msg=f"layer {i}", **tol)
-        assert_grads([gxt] + gt, [gxj] + gj, grad_rel)
+        where = f"layer {i} ({type(tc).__name__} {tc.name})"
+        assert_close(yt, yjj, f"{where} output", **tol)
+        assert_grads([gxt] + gt, [gxj] + gj, grad_rel,
+                     names=[f"{where} input gradient"]
+                     + [f"{where} weight gradient {n}"
+                        for n, _ in _named_own_weights(tc)])
         assert len(st) == len(sj) == (tc.name in tstate and training)
         for (tn, tsub), (jn, jsub) in zip(st.items(), sj.items()):
             for k in tsub:
-                np.testing.assert_allclose(tsub[k].numpy(),
-                                           np.asarray(jsub[k]), **tol)
+                assert_close(tsub[k].numpy(), np.asarray(jsub[k]),
+                             f"{where} state {k}", **tol)
         drew += bool(training and isinstance(tc, tnn.Dropout))
         a = np.array(yjj)
     return drew

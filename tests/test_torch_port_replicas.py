@@ -531,21 +531,91 @@ def test_add_replica_probe_gated_and_decommission():
 
 
 # --------------------------------------------------------------------- #
+# the int8 brownout entry and its refresh on promotion                  #
+# --------------------------------------------------------------------- #
+def _calib():
+    return [np.random.RandomState(0).rand(4, 4).astype(np.float32)]
+
+
+def _int8_brownout(api):
+    calib = _calib()
+    rs = _rs(api, n=1, int8_degrade=True, calibration_data=calib)
+    try:
+        x = calib[0]
+        exact = np.asarray(rs.predict("m", x, timeout=30))
+        rs.controller.browned = True      # force the ladder's verdict
+        browned = np.asarray(rs.predict("m", x, timeout=30))
+        reg = rs.replicas[0].engine.registry
+        entry8 = reg.get("m.int8")
+        try:
+            reg.swap_weights("m.int8", entry8.snapshot.params)
+            swap = None
+        except ValueError as e:
+            swap = "int8/inference-only" in str(e)
+        return dict(
+            close=np.allclose(browned, exact, rtol=0.2, atol=0.1),
+            differs=not np.array_equal(browned, exact),
+            y=np.round(browned, 5).tolist(),
+            brownout=rs.recorder.counter_value(
+                "serving/brownout_requests") >= 1,
+            kinds=sorted(type(m).__name__ for m in entry8.model.modules()),
+            inference_only=entry8.inference_only, swap=swap,
+            version=entry8.snapshot.version)
+    finally:
+        rs.shutdown(drain=True)
+
+
+def test_brownout_routes_to_int8_degrade_entry():
+    out = both(_int8_brownout)
+    assert out["close"] and out["differs"] and out["brownout"]
+    assert out["inference_only"] and out["swap"]
+    assert out["kinds"].count("QuantizedLinear") == 2
+
+
+def _int8_refresh(api):
+    calib = _calib()
+    rs = _rs(api, n=2, int8_degrade=True, calibration_data=calib)
+    try:
+        golden = calib[0]
+        pub = api.S.CanaryPublisher(rs, {"m": golden}, drift_rtol=100.0)
+        rs.controller.browned = True
+        before = np.asarray(rs.predict("m", golden, timeout=30))
+        rs.controller.browned = False
+        snap = pub.publish("m", api.scaled(api.model, 1.2), {})
+        versions = [r.engine.registry.get("m.int8").snapshot.version
+                    for r in rs.replicas]
+        exact = np.asarray(rs.predict("m", golden, timeout=30))
+        rs.controller.browned = True
+        browned = [np.asarray(r.engine.predict("m", golden, timeout=30))
+                   for r in rs.replicas]
+        via_set = np.asarray(rs.predict("m", golden, timeout=30))
+        return dict(
+            fresh=versions == [snap.version] * 2,
+            refreshed=rs.recorder.counter_value("serving/degrade_refreshed"),
+            failures=rs.recorder.counter_value(
+                "serving/degrade_refresh_failures"),
+            tracks=all(np.allclose(b, exact, rtol=0.25, atol=0.15)
+                       for b in browned),
+            moved=not np.allclose(via_set, before, rtol=0.05, atol=0.05),
+            y=np.round(via_set, 5).tolist())
+    finally:
+        rs.shutdown(drain=True)
+
+
+def test_canary_promotion_refreshes_int8_degrade_entry():
+    out = both(_int8_refresh)
+    assert out["fresh"] and out["refreshed"] == 2 and out["failures"] == 0
+    assert out["tracks"] and out["moved"]
+
+
+# --------------------------------------------------------------------- #
 # what the port does not have yet                                       #
 # --------------------------------------------------------------------- #
 def test_unported_control_plane_options_raise():
     api = _side("port")
-    with pytest.raises(NotImplementedError, match="queue A, item 9"):
-        TS.build_replica_set(api.model, 1, name="m", input_shape=(4,),
-                             int8_degrade=True)
-    rs = _rs(api, n=1, degrade={"m": "m.cheap"})
+    rs = _rs(api, n=1)
     try:
         with pytest.raises(NotImplementedError, match="queue A, item 8"):
             rs.serve_metrics()
-        pub = TS.CanaryPublisher(rs, {"m": np.ones((1, 4), np.float32)})
-        with pytest.raises(NotImplementedError, match="queue A, item 9"):
-            pub.publish("m", api.scaled(api.model, 1.0))
-        assert rs.replicas[0].engine.registry.get("m").snapshot.version \
-            == "v1"                         # refused before staging
     finally:
         rs.shutdown(drain=True)

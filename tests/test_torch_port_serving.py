@@ -310,7 +310,9 @@ def test_import_leaves_jax_and_reference_out():
         "bigdl_tpu_torch.utils.seqfile, bigdl_tpu_torch.data.image, "
         "bigdl_tpu_torch.data.device_augment, bigdl_tpu_torch.data.mnist, "
         "bigdl_tpu_torch.data.cifar, bigdl_tpu_torch.optim.lr_schedule, "
-        "bigdl_tpu_torch.optim.regularizer\n"
+        "bigdl_tpu_torch.optim.regularizer, bigdl_tpu_torch.data.text, "
+        "bigdl_tpu_torch.data.news20, bigdl_tpu_torch.serving.registry, "
+        "bigdl_tpu_torch.nn.linear, bigdl_tpu_torch.nn.shape_ops\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
@@ -341,7 +343,9 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                 "native/__init__.py", "utils/crc32c.py", "utils/seqfile.py",
                 "data/image.py", "data/device_augment.py", "data/mnist.py",
                 "data/cifar.py", "optim/lr_schedule.py",
-                "optim/regularizer.py"):
+                "optim/regularizer.py", "data/text.py", "data/news20.py",
+                "serving/registry.py", "nn/linear.py", "nn/shape_ops.py",
+                "nn/module.py", "_device.py"):
         assert f"bigdl_tpu_torch/{new}" in names
     assert len(files) > 10
     for f in files:
