@@ -3,10 +3,11 @@
 layouts.
 
 A whole-tree shard holds global host arrays.  Under ``DistriOptimizer``'s
-fsdp and zero1 no rank holds every leaf whole, so each rank writes its
-own *fragments* — its slices of each leaf with their global index ranges
-— and :func:`assemble` merges the fragments of every rank into global
-arrays, whatever layout and world size wrote them:
+fsdp and zero1, and ``SpmdTrainer`` on a mesh of several ranks, no rank
+holds every leaf whole, so each rank writes its own *fragments* — its
+slices of each leaf with their global index ranges (:func:`_bounds`, on
+any dims) — and :func:`assemble` merges the fragments of every rank into
+global arrays, whatever layout and world size wrote them:
 
   * fsdp: a dim-0-sharded leaf's fragment is rank r's block of rows; a
     replicated leaf is written whole by rank 0;
@@ -14,7 +15,9 @@ arrays, whatever layout and world size wrote them:
     bucket contributes the range of its flattened elements that falls in
     rank r's chunk (``shape`` is then the flat length and ``reshape`` the
     leaf's shape; the reference's assembler ignores ``reshape`` and
-    returns such a leaf flat).
+    returns such a leaf flat);
+  * ``SpmdTrainer``: a block of a leaf split on any dims over several
+    mesh axes, written by the first of the ranks holding it.
 
 A payload carries the tree's skeleton (leaves replaced by a placeholder)
 in the order the reference flattens (sorted dict keys), so the two
@@ -30,15 +33,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..parallel.mesh import MODEL_AXES
 from .manifest import CheckpointError
 
 FRAGMENT_KEY = "__elastic_fragments__"
 FRAGMENT_VERSION = 1
 _LEAF = "__leaf__"      # skeleton placeholder (a string: stays a leaf)
-
-# model-parallel axes re-partition tensors (the reference's
-# parallel.mesh.MODEL_AXES); data axes (dp, fsdp) do not
-MODEL_AXES = ("sp", "tp", "pp", "ep")
 
 
 # --------------------------------------------------------------------- #
@@ -181,6 +181,19 @@ class Pieces:
 
 def is_fragment_payload(payload) -> bool:
     return isinstance(payload, dict) and FRAGMENT_KEY in payload
+
+
+def _bounds(index, shape) -> List[List[int]]:
+    """``[[start, stop], ...]`` of a block given as a tuple of slices over
+    a leaf of ``shape`` (the reference's ``_bounds``): the index range a
+    fragment records on every dim, sharded over any axes."""
+    out = []
+    for sl, dim in zip(index, shape):
+        start, stop, step = sl.indices(dim)
+        if step != 1:
+            raise CheckpointError(f"non-contiguous shard slice {sl!r}")
+        out.append([int(start), int(stop)])
+    return out
 
 
 def split_fragments(tree, process_index: int = 0) -> Dict[str, Any]:

@@ -36,6 +36,17 @@
 // once) before any arithmetic and writes back with __stcs.  clr, bc1 and
 // bc2 are loaded once a thread, from one address a block.  AdamW's decay
 // is a template parameter.
+//
+// bfloat16 leaves (p, g, m and v all bfloat16) take their own
+// instantiation (bigdl_fused_adam_bf16), the reference's per-leaf math for
+// a leaf that is not float32 (bigdl_tpu/kernels/fused_optim.py:154-166):
+// the moments in bfloat16, each operation's float result rounded to
+// bfloat16 as PyTorch's eager ops round it, with b1, omb1, b2 and omb2
+// rounded to bfloat16 by the wrapper, as JAX rounds the reference's weakly
+// typed scalars (0.999 becomes 1.0); the step in float32, since clr, bc1
+// and bc2 are float32 and promote it, then cast to bfloat16 and
+// subtracted; AdamW's clr * wd rounded to bfloat16 before it scales
+// p_old.  The wrapper sends each dtype's leaves to its own launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -59,43 +70,51 @@ struct Scalars {
     float clr, bc1, bc2, b1, omb1, b2, omb2, eps, cwd;
 };
 
-template <bool DECAY>
+// One element in the op order of the plain version, each result rounded
+// to T as PyTorch rounds each op on a T tensor (E::rd; the identity for
+// float); the step is float throughout, as clr, bc1 and bc2 promote it.
+template <typename T, bool DECAY>
 __device__ __forceinline__ void update(float& p, float& m, float& v,
                                        float g, const Scalars& s) {
+    using E = mt::Elem<T>;
     const float p0 = p;
-    m = s.b1 * m + s.omb1 * g;
-    v = s.b2 * v + (s.omb2 * g) * g;
-    p = p0 - (s.clr * (m / s.bc1)) / (sqrtf(v / s.bc2) + s.eps);
-    if (DECAY) p = p - s.cwd * p0;
+    m = E::rd(E::rd(s.b1 * m) + E::rd(s.omb1 * g));
+    v = E::rd(E::rd(s.b2 * v) + E::rd(E::rd(s.omb2 * g) * g));
+    p = E::rd(p0 - E::rd((s.clr * (m / s.bc1))
+                         / (sqrtf(v / s.bc2) + s.eps)));
+    if (DECAY) p = E::rd(p - E::rd(s.cwd * p0));
 }
 
-template <bool DECAY>
+template <typename T, bool DECAY>
 __device__ __forceinline__ void update4(float4& p, float4& m, float4& v,
                                         const float4& g, const Scalars& s) {
-    update<DECAY>(p.x, m.x, v.x, g.x, s);
-    update<DECAY>(p.y, m.y, v.y, g.y, s);
-    update<DECAY>(p.z, m.z, v.z, g.z, s);
-    update<DECAY>(p.w, m.w, v.w, g.w, s);
+    update<T, DECAY>(p.x, m.x, v.x, g.x, s);
+    update<T, DECAY>(p.y, m.y, v.y, g.y, s);
+    update<T, DECAY>(p.z, m.z, v.z, g.z, s);
+    update<T, DECAY>(p.w, m.w, v.w, g.w, s);
 }
 
-template <bool DECAY>
+template <typename T, bool DECAY>
 __global__ void __launch_bounds__(NT)
 fused_adam_kernel(const __grid_constant__ AdamTable t,
                   const float* __restrict__ clr_p,
                   const float* __restrict__ bc1_p,
                   const float* __restrict__ bc2_p, float b1, float omb1,
                   float b2, float omb2, float eps, float wd) {
+    using E = mt::Elem<T>;
     const mt::Chunk c = mt::find_chunk(t);
     const int l = c.leaf, len = c.len;
     const int64_t off = c.off;
-    float* __restrict__ p = t.ptr[0][l] + off;
-    const float* __restrict__ g = t.ptr[1][l];
-    float* __restrict__ m = t.ptr[2][l] + off;
-    float* __restrict__ v = t.ptr[3][l] + off;
+    T* __restrict__ p = reinterpret_cast<T*>(t.ptr[0][l]) + off;
+    const T* __restrict__ g = reinterpret_cast<const T*>(t.ptr[1][l]);
+    T* __restrict__ m = reinterpret_cast<T*>(t.ptr[2][l]) + off;
+    T* __restrict__ v = reinterpret_cast<T*>(t.ptr[3][l]) + off;
     const uint32_t cin = uint32_t(t.cin[l]), hw = uint32_t(t.hw[l]);
     const float clr = *clr_p;
+    // AdamW's decay factor: clr * wd, rounded to T as the plain version
+    // casts it
     const Scalars s{clr, *bc1_p, *bc2_p, b1, omb1, b2, omb2, eps,
-                    DECAY ? clr * wd : 0.f};
+                    DECAY ? E::rd(clr * wd) : 0.f};
 
     if (t.vec[l]) {
         const int nv = len >> 2;
@@ -104,18 +123,17 @@ fused_adam_kernel(const __grid_constant__ AdamTable t,
         for (int k = 0; k < VPT; ++k) {
             const int j = threadIdx.x + k * NT;
             if (j < nv) {
-                pv[k] = __ldcs(reinterpret_cast<const float4*>(p) + j);
-                mv[k] = __ldcs(reinterpret_cast<const float4*>(m) + j);
-                vv[k] = __ldcs(reinterpret_cast<const float4*>(v) + j);
+                pv[k] = E::ld4(p, j);
+                mv[k] = E::ld4(m, j);
+                vv[k] = E::ld4(v, j);
                 if (cin == 0) {
-                    gv[k] = __ldcs(reinterpret_cast<const float4*>(g + off)
-                                   + j);
+                    gv[k] = E::ld4(g + off, j);
                 } else {
                     const uint32_t e = uint32_t(off) + 4u * uint32_t(j);
-                    gv[k].x = __ldcs(g + cl_index(e, cin, hw));
-                    gv[k].y = __ldcs(g + cl_index(e + 1, cin, hw));
-                    gv[k].z = __ldcs(g + cl_index(e + 2, cin, hw));
-                    gv[k].w = __ldcs(g + cl_index(e + 3, cin, hw));
+                    gv[k].x = E::ld(g, cl_index(e, cin, hw));
+                    gv[k].y = E::ld(g, cl_index(e + 1, cin, hw));
+                    gv[k].z = E::ld(g, cl_index(e + 2, cin, hw));
+                    gv[k].w = E::ld(g, cl_index(e + 3, cin, hw));
                 }
             }
         }
@@ -123,35 +141,58 @@ fused_adam_kernel(const __grid_constant__ AdamTable t,
         for (int k = 0; k < VPT; ++k) {
             const int j = threadIdx.x + k * NT;
             if (j < nv) {
-                update4<DECAY>(pv[k], mv[k], vv[k], gv[k], s);
-                __stcs(reinterpret_cast<float4*>(p) + j, pv[k]);
-                __stcs(reinterpret_cast<float4*>(m) + j, mv[k]);
-                __stcs(reinterpret_cast<float4*>(v) + j, vv[k]);
+                update4<T, DECAY>(pv[k], mv[k], vv[k], gv[k], s);
+                E::st4(p, j, pv[k]);
+                E::st4(m, j, mv[k]);
+                E::st4(v, j, vv[k]);
             }
         }
         // the ragged tail of a leaf's last chunk: at most 3 elements
         const int e = (nv << 2) + threadIdx.x;
         if (e < len) {
-            float pe = p[e], me = m[e], ve = v[e];
+            float pe = E::ld(p, e), me = E::ld(m, e), ve = E::ld(v, e);
             const float ge = cin == 0
-                ? g[off + e] : g[cl_index(uint32_t(off + e), cin, hw)];
-            update<DECAY>(pe, me, ve, ge, s);
-            p[e] = pe;
-            m[e] = me;
-            v[e] = ve;
+                ? E::ld(g, off + e)
+                : E::ld(g, cl_index(uint32_t(off + e), cin, hw));
+            update<T, DECAY>(pe, me, ve, ge, s);
+            E::st(p, e, pe);
+            E::st(m, e, me);
+            E::st(v, e, ve);
         }
     } else {
         for (int e = threadIdx.x; e < len; e += NT) {
-            float pe = __ldcs(p + e), me = __ldcs(m + e), ve = __ldcs(v + e);
+            float pe = E::ld(p, e), me = E::ld(m, e), ve = E::ld(v, e);
             const float ge = cin == 0
-                ? __ldcs(g + off + e)
-                : __ldcs(g + cl_index(uint32_t(off + e), cin, hw));
-            update<DECAY>(pe, me, ve, ge, s);
-            __stcs(p + e, pe);
-            __stcs(m + e, me);
-            __stcs(v + e, ve);
+                ? E::ld(g, off + e)
+                : E::ld(g, cl_index(uint32_t(off + e), cin, hw));
+            update<T, DECAY>(pe, me, ve, ge, s);
+            E::st(p, e, pe);
+            E::st(m, e, me);
+            E::st(v, e, ve);
         }
     }
+}
+
+template <typename T>
+int launch(const int64_t* ptrs, const int64_t* meta, int count,
+           const void* clr, const void* bc1, const void* bc2, float b1,
+           float omb1, float b2, float omb2, float eps, float wd, int decay,
+           void* stream) {
+    AdamTable t;
+    const int64_t chunks = mt::fill(t, ptrs, meta, count, 4);
+    if (chunks <= 0) return int(cudaErrorInvalidValue);
+    auto s = static_cast<cudaStream_t>(stream);
+    auto cp = static_cast<const float*>(clr);
+    auto b1p = static_cast<const float*>(bc1);
+    auto b2p = static_cast<const float*>(bc2);
+    const unsigned blocks = unsigned(chunks);
+    if (decay)
+        fused_adam_kernel<T, true><<<blocks, NT, 0, s>>>(
+            t, cp, b1p, b2p, b1, omb1, b2, omb2, eps, wd);
+    else
+        fused_adam_kernel<T, false><<<blocks, NT, 0, s>>>(
+            t, cp, b1p, b2p, b1, omb1, b2, omb2, eps, wd);
+    return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -173,19 +214,19 @@ extern "C" int bigdl_fused_adam(const int64_t* ptrs, const int64_t* meta,
                                 const void* bc2, float b1, float omb1,
                                 float b2, float omb2, float eps, float wd,
                                 int decay, void* stream) {
-    AdamTable t;
-    const int64_t chunks = mt::fill(t, ptrs, meta, count, 4);
-    if (chunks <= 0) return int(cudaErrorInvalidValue);
-    auto s = static_cast<cudaStream_t>(stream);
-    auto cp = static_cast<const float*>(clr);
-    auto b1p = static_cast<const float*>(bc1);
-    auto b2p = static_cast<const float*>(bc2);
-    const unsigned blocks = unsigned(chunks);
-    if (decay)
-        fused_adam_kernel<true><<<blocks, NT, 0, s>>>(
-            t, cp, b1p, b2p, b1, omb1, b2, omb2, eps, wd);
-    else
-        fused_adam_kernel<false><<<blocks, NT, 0, s>>>(
-            t, cp, b1p, b2p, b1, omb1, b2, omb2, eps, wd);
-    return int(cudaGetLastError());
+    return launch<float>(ptrs, meta, count, clr, bc1, bc2, b1, omb1, b2,
+                         omb2, eps, wd, decay, stream);
+}
+
+// K4 over `count` bfloat16 leaves (p, g, m and v all bfloat16): the same
+// arguments; each pointer is read as four bfloat16s where the leaf's
+// float4 flag is set, which then means 8-byte aligned.
+extern "C" int bigdl_fused_adam_bf16(const int64_t* ptrs,
+                                     const int64_t* meta, int count,
+                                     const void* clr, const void* bc1,
+                                     const void* bc2, float b1, float omb1,
+                                     float b2, float omb2, float eps,
+                                     float wd, int decay, void* stream) {
+    return launch<__nv_bfloat16>(ptrs, meta, count, clr, bc1, bc2, b1, omb1,
+                                 b2, omb2, eps, wd, decay, stream);
 }

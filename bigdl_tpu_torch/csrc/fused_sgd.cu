@@ -38,6 +38,16 @@
 // loads (__ldcs: every byte is touched once) are all made before any
 // arithmetic; p and v stay vectorised under a channels-last g, which is
 // gathered with scalar loads.
+//
+// bfloat16 leaves (p, g and v all bfloat16) take their own instantiations
+// (bigdl_fused_sgd_mom_bf16, bigdl_fused_sgd_plain_bf16), the reference's
+// per-leaf math for a leaf that is not float32
+// (bigdl_tpu/kernels/fused_optim.py:204-212, :219-224): the velocity in
+// bfloat16, each operation's float result rounded to bfloat16 as
+// PyTorch's eager ops round it, with mu, omd and wd rounded to bfloat16
+// by the wrapper, as JAX rounds the reference's weakly typed scalars, and
+// clr rounded to bfloat16 here before it scales the step.  The wrapper
+// sends each dtype's leaves to its own launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,33 +68,39 @@ static_assert(sizeof(LeafTable) + sizeof(void*) + 3 * sizeof(float)
                   <= mt::PARAM_BYTES,
               "LeafTable exceeds the kernel parameter space");
 
-template <bool MOM, bool DECAY, bool NESTEROV>
+// One element in the op order of the plain version, each result rounded
+// to T as PyTorch rounds each op on a T tensor (E::rd; the identity for
+// float).  clr is rounded to T first, as the plain version casts it.
+template <typename T, bool MOM, bool DECAY, bool NESTEROV>
 __device__ __forceinline__ void update(float& p, float& v, float g,
                                        float clr, float mu, float omd,
                                        float wd) {
-    if (DECAY) g = g + wd * p;
+    using E = mt::Elem<T>;
+    if (DECAY) g = E::rd(g + E::rd(wd * p));
     if (MOM) {
-        const float vel = mu * v + omd * g;
-        const float step = NESTEROV ? g + mu * vel : vel;
-        p = p - clr * step;
+        const float vel = E::rd(E::rd(mu * v) + E::rd(omd * g));
+        const float step = NESTEROV ? E::rd(g + E::rd(mu * vel)) : vel;
+        p = E::rd(p - E::rd(clr * step));
         v = vel;
     } else {
-        p = p - clr * g;
+        p = E::rd(p - E::rd(clr * g));
     }
 }
 
-template <bool MOM, bool DECAY, bool NESTEROV>
+template <typename T, bool MOM, bool DECAY, bool NESTEROV>
 __device__ __forceinline__ void chunk_update(const LeafTable& t,
                                              const float* __restrict__ clr_p,
                                              float mu, float omd, float wd) {
+    using E = mt::Elem<T>;
     const mt::Chunk c = mt::find_chunk(t);
     const int lo = c.leaf, len = c.len;
     const int64_t off = c.off;
-    float* __restrict__ p = t.ptr[0][lo] + off;
-    const float* __restrict__ g = t.ptr[1][lo];
-    float* __restrict__ v = MOM ? t.ptr[2][lo] + off : nullptr;
+    T* __restrict__ p = reinterpret_cast<T*>(t.ptr[0][lo]) + off;
+    const T* __restrict__ g = reinterpret_cast<const T*>(t.ptr[1][lo]);
+    T* __restrict__ v = MOM ? reinterpret_cast<T*>(t.ptr[2][lo]) + off
+                            : nullptr;
     const uint32_t cin = uint32_t(t.cin[lo]), hw = uint32_t(t.hw[lo]);
-    const float clr = *clr_p;
+    const float clr = E::rd(*clr_p);
 
     if (t.vec[lo]) {
         const int nv = len >> 2;
@@ -93,18 +109,16 @@ __device__ __forceinline__ void chunk_update(const LeafTable& t,
         for (int k = 0; k < VPT; ++k) {
             const int j = threadIdx.x + k * NT;
             if (j < nv) {
-                pv[k] = __ldcs(reinterpret_cast<const float4*>(p) + j);
-                vv[k] = MOM ? __ldcs(reinterpret_cast<const float4*>(v) + j)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
+                pv[k] = E::ld4(p, j);
+                vv[k] = MOM ? E::ld4(v, j) : make_float4(0.f, 0.f, 0.f, 0.f);
                 if (cin == 0) {
-                    gv[k] = __ldcs(reinterpret_cast<const float4*>(g + off)
-                                   + j);
+                    gv[k] = E::ld4(g + off, j);
                 } else {
                     const uint32_t e = uint32_t(off) + 4u * uint32_t(j);
-                    gv[k].x = __ldcs(g + cl_index(e, cin, hw));
-                    gv[k].y = __ldcs(g + cl_index(e + 1, cin, hw));
-                    gv[k].z = __ldcs(g + cl_index(e + 2, cin, hw));
-                    gv[k].w = __ldcs(g + cl_index(e + 3, cin, hw));
+                    gv[k].x = E::ld(g, cl_index(e, cin, hw));
+                    gv[k].y = E::ld(g, cl_index(e + 1, cin, hw));
+                    gv[k].z = E::ld(g, cl_index(e + 2, cin, hw));
+                    gv[k].w = E::ld(g, cl_index(e + 3, cin, hw));
                 }
             }
         }
@@ -112,54 +126,96 @@ __device__ __forceinline__ void chunk_update(const LeafTable& t,
         for (int k = 0; k < VPT; ++k) {
             const int j = threadIdx.x + k * NT;
             if (j < nv) {
-                update<MOM, DECAY, NESTEROV>(pv[k].x, vv[k].x, gv[k].x, clr,
-                                             mu, omd, wd);
-                update<MOM, DECAY, NESTEROV>(pv[k].y, vv[k].y, gv[k].y, clr,
-                                             mu, omd, wd);
-                update<MOM, DECAY, NESTEROV>(pv[k].z, vv[k].z, gv[k].z, clr,
-                                             mu, omd, wd);
-                update<MOM, DECAY, NESTEROV>(pv[k].w, vv[k].w, gv[k].w, clr,
-                                             mu, omd, wd);
-                __stcs(reinterpret_cast<float4*>(p) + j, pv[k]);
-                if (MOM) __stcs(reinterpret_cast<float4*>(v) + j, vv[k]);
+                update<T, MOM, DECAY, NESTEROV>(pv[k].x, vv[k].x, gv[k].x,
+                                                clr, mu, omd, wd);
+                update<T, MOM, DECAY, NESTEROV>(pv[k].y, vv[k].y, gv[k].y,
+                                                clr, mu, omd, wd);
+                update<T, MOM, DECAY, NESTEROV>(pv[k].z, vv[k].z, gv[k].z,
+                                                clr, mu, omd, wd);
+                update<T, MOM, DECAY, NESTEROV>(pv[k].w, vv[k].w, gv[k].w,
+                                                clr, mu, omd, wd);
+                E::st4(p, j, pv[k]);
+                if (MOM) E::st4(v, j, vv[k]);
             }
         }
         // the ragged tail of a leaf's last chunk: at most 3 elements
         const int e = (nv << 2) + threadIdx.x;
         if (e < len) {
-            float pe = p[e], ve = MOM ? v[e] : 0.f;
+            float pe = E::ld(p, e), ve = MOM ? E::ld(v, e) : 0.f;
             const float ge = cin == 0
-                ? g[off + e] : g[cl_index(uint32_t(off + e), cin, hw)];
-            update<MOM, DECAY, NESTEROV>(pe, ve, ge, clr, mu, omd, wd);
-            p[e] = pe;
-            if (MOM) v[e] = ve;
+                ? E::ld(g, off + e)
+                : E::ld(g, cl_index(uint32_t(off + e), cin, hw));
+            update<T, MOM, DECAY, NESTEROV>(pe, ve, ge, clr, mu, omd, wd);
+            E::st(p, e, pe);
+            if (MOM) E::st(v, e, ve);
         }
     } else {
         for (int e = threadIdx.x; e < len; e += NT) {
-            float pe = __ldcs(p + e), ve = MOM ? __ldcs(v + e) : 0.f;
+            float pe = E::ld(p, e), ve = MOM ? E::ld(v, e) : 0.f;
             const float ge = cin == 0
-                ? __ldcs(g + off + e)
-                : __ldcs(g + cl_index(uint32_t(off + e), cin, hw));
-            update<MOM, DECAY, NESTEROV>(pe, ve, ge, clr, mu, omd, wd);
-            __stcs(p + e, pe);
-            if (MOM) __stcs(v + e, ve);
+                ? E::ld(g, off + e)
+                : E::ld(g, cl_index(uint32_t(off + e), cin, hw));
+            update<T, MOM, DECAY, NESTEROV>(pe, ve, ge, clr, mu, omd, wd);
+            E::st(p, e, pe);
+            if (MOM) E::st(v, e, ve);
         }
     }
 }
 
-template <bool DECAY, bool NESTEROV>
+template <typename T, bool DECAY, bool NESTEROV>
 __global__ void __launch_bounds__(NT)
 sgd_mom_kernel(const __grid_constant__ LeafTable t,
                const float* __restrict__ clr, float mu, float omd,
                float wd) {
-    chunk_update<true, DECAY, NESTEROV>(t, clr, mu, omd, wd);
+    chunk_update<T, true, DECAY, NESTEROV>(t, clr, mu, omd, wd);
 }
 
-template <bool DECAY>
+template <typename T, bool DECAY>
 __global__ void __launch_bounds__(NT)
 sgd_plain_kernel(const __grid_constant__ LeafTable t,
                  const float* __restrict__ clr, float wd) {
-    chunk_update<false, DECAY, false>(t, clr, 0.f, 0.f, wd);
+    chunk_update<T, false, DECAY, false>(t, clr, 0.f, 0.f, wd);
+}
+
+template <typename T>
+int launch_mom(const int64_t* ptrs, const int64_t* meta, int count,
+               const void* clr, float mu, float omd, float wd, int decay,
+               int nesterov, void* stream) {
+    LeafTable t;
+    const int64_t chunks = mt::fill(t, ptrs, meta, count, 3);
+    if (chunks <= 0) return int(cudaErrorInvalidValue);
+    auto s = static_cast<cudaStream_t>(stream);
+    auto cp = static_cast<const float*>(clr);
+    const unsigned blocks = unsigned(chunks);
+    if (decay && nesterov)
+        sgd_mom_kernel<T, true, true><<<blocks, NT, 0, s>>>(t, cp, mu, omd,
+                                                            wd);
+    else if (decay)
+        sgd_mom_kernel<T, true, false><<<blocks, NT, 0, s>>>(t, cp, mu, omd,
+                                                             wd);
+    else if (nesterov)
+        sgd_mom_kernel<T, false, true><<<blocks, NT, 0, s>>>(t, cp, mu, omd,
+                                                             wd);
+    else
+        sgd_mom_kernel<T, false, false><<<blocks, NT, 0, s>>>(t, cp, mu,
+                                                              omd, wd);
+    return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_plain(const int64_t* ptrs, const int64_t* meta, int count,
+                 const void* clr, float wd, int decay, void* stream) {
+    LeafTable t;
+    const int64_t chunks = mt::fill(t, ptrs, meta, count, 2);
+    if (chunks <= 0) return int(cudaErrorInvalidValue);
+    auto s = static_cast<cudaStream_t>(stream);
+    auto cp = static_cast<const float*>(clr);
+    const unsigned blocks = unsigned(chunks);
+    if (decay)
+        sgd_plain_kernel<T, true><<<blocks, NT, 0, s>>>(t, cp, wd);
+    else
+        sgd_plain_kernel<T, false><<<blocks, NT, 0, s>>>(t, cp, wd);
+    return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -180,22 +236,8 @@ extern "C" int bigdl_fused_sgd_mom(const int64_t* ptrs, const int64_t* meta,
                                    int count, const void* clr, float mu,
                                    float omd, float wd, int decay,
                                    int nesterov, void* stream) {
-    LeafTable t;
-    const int64_t chunks = mt::fill(t, ptrs, meta, count, 3);
-    if (chunks <= 0) return int(cudaErrorInvalidValue);
-    auto s = static_cast<cudaStream_t>(stream);
-    auto cp = static_cast<const float*>(clr);
-    const unsigned blocks = unsigned(chunks);
-    if (decay && nesterov)
-        sgd_mom_kernel<true, true><<<blocks, NT, 0, s>>>(t, cp, mu, omd, wd);
-    else if (decay)
-        sgd_mom_kernel<true, false><<<blocks, NT, 0, s>>>(t, cp, mu, omd, wd);
-    else if (nesterov)
-        sgd_mom_kernel<false, true><<<blocks, NT, 0, s>>>(t, cp, mu, omd, wd);
-    else
-        sgd_mom_kernel<false, false><<<blocks, NT, 0, s>>>(t, cp, mu, omd,
-                                                           wd);
-    return int(cudaGetLastError());
+    return launch_mom<float>(ptrs, meta, count, clr, mu, omd, wd, decay,
+                             nesterov, stream);
 }
 
 // K6 over `count` leaves: ptrs and meta as for K5 (v's address is not
@@ -205,15 +247,25 @@ extern "C" int bigdl_fused_sgd_plain(const int64_t* ptrs,
                                      const int64_t* meta, int count,
                                      const void* clr, float wd, int decay,
                                      void* stream) {
-    LeafTable t;
-    const int64_t chunks = mt::fill(t, ptrs, meta, count, 2);
-    if (chunks <= 0) return int(cudaErrorInvalidValue);
-    auto s = static_cast<cudaStream_t>(stream);
-    auto cp = static_cast<const float*>(clr);
-    const unsigned blocks = unsigned(chunks);
-    if (decay)
-        sgd_plain_kernel<true><<<blocks, NT, 0, s>>>(t, cp, wd);
-    else
-        sgd_plain_kernel<false><<<blocks, NT, 0, s>>>(t, cp, wd);
-    return int(cudaGetLastError());
+    return launch_plain<float>(ptrs, meta, count, clr, wd, decay, stream);
+}
+
+// K5 and K6 over bfloat16 leaves (p, g and v all bfloat16): the same
+// arguments; each pointer is read as four bfloat16s where the leaf's
+// float4 flag is set, which then means 8-byte aligned.
+extern "C" int bigdl_fused_sgd_mom_bf16(const int64_t* ptrs,
+                                        const int64_t* meta, int count,
+                                        const void* clr, float mu,
+                                        float omd, float wd, int decay,
+                                        int nesterov, void* stream) {
+    return launch_mom<__nv_bfloat16>(ptrs, meta, count, clr, mu, omd, wd,
+                                     decay, nesterov, stream);
+}
+
+extern "C" int bigdl_fused_sgd_plain_bf16(const int64_t* ptrs,
+                                          const int64_t* meta, int count,
+                                          const void* clr, float wd,
+                                          int decay, void* stream) {
+    return launch_plain<__nv_bfloat16>(ptrs, meta, count, clr, wd, decay,
+                                       stream);
 }

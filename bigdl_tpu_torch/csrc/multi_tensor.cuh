@@ -22,8 +22,14 @@
 //     ((o*I + i)*HW + hw) takes g's element ((o*HW + hw)*I + i)
 //     (cl_index).  The host gives this tag only to leaves below 2^31
 //     elements, so the index map runs in 32 bits.
+//   * A leaf is float32 or bfloat16: a kernel is instantiated for each
+//     element type (Elem<T>: float4 loads and stores of four floats, or
+//     8-byte loads and stores of four bfloat16s, which the host's vec
+//     flag then requires 8-byte aligned; the arithmetic is in float, and
+//     Elem<T>::rd rounds a result to T, the identity for float).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -37,7 +43,8 @@ constexpr int CHUNK = NT * VPT * 4;         // elements a block: 4096
 constexpr int PARAM_BYTES = 32764;
 
 // The leaves of one launch.  Column 0 of ptr is p, column 1 g, the others
-// the state updated in place (K5's velocity; K4's m and v).
+// the state updated in place (K5's velocity; K4's m and v); a kernel of
+// element type T reads each address as a T*.
 template <int NPTR, int CAP>
 struct LeafTable {
     float* ptr[NPTR][CAP];
@@ -68,6 +75,63 @@ __device__ __forceinline__ Chunk find_chunk(const LeafTable<NPTR, CAP>& t) {
     const int64_t left = t.n[lo] - off;
     return {lo, off, left < CHUNK ? int(left) : CHUNK};
 }
+
+// Element access of a leaf of T, in floats; every load and store touches
+// its bytes once (__ldcs / __stcs).
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+    static __device__ __forceinline__ float4 ld4(const float* p, int j) {
+        return __ldcs(reinterpret_cast<const float4*>(p) + j);
+    }
+    static __device__ __forceinline__ void st4(float* p, int j, float4 v) {
+        __stcs(reinterpret_cast<float4*>(p) + j, v);
+    }
+    static __device__ __forceinline__ float ld(const float* p, int64_t e) {
+        return __ldcs(p + e);
+    }
+    static __device__ __forceinline__ void st(float* p, int64_t e,
+                                              float v) {
+        __stcs(p + e, v);
+    }
+    static __device__ __forceinline__ float rd(float x) { return x; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+    using B = __nv_bfloat16;
+    static __device__ __forceinline__ float4 ld4(const B* p, int j) {
+        const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p) + j);
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        return make_float4(a.x, a.y, b.x, b.y);
+    }
+    static __device__ __forceinline__ void st4(B* p, int j, float4 v) {
+        __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+        __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+        uint2 u;
+        u.x = *reinterpret_cast<unsigned*>(&a);
+        u.y = *reinterpret_cast<unsigned*>(&b);
+        __stcs(reinterpret_cast<uint2*>(p) + j, u);
+    }
+    static __device__ __forceinline__ float ld(const B* p, int64_t e) {
+        return __bfloat162float(__ushort_as_bfloat16(
+            __ldcs(reinterpret_cast<const unsigned short*>(p) + e)));
+    }
+    static __device__ __forceinline__ void st(B* p, int64_t e, float v) {
+        __stcs(reinterpret_cast<unsigned short*>(p) + e,
+               __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+    }
+    // round to the nearest bfloat16, ties to even, as PyTorch rounds the
+    // float result of each elementwise op on a bfloat16 tensor
+    static __device__ __forceinline__ float rd(float x) {
+        return __bfloat162float(__float2bfloat16_rn(x));
+    }
+};
 
 __device__ __forceinline__ uint32_t cl_index(uint32_t e, uint32_t cin,
                                              uint32_t hw) {

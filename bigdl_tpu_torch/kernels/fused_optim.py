@@ -5,28 +5,33 @@ Port of ``bigdl_tpu/kernels/fused_optim.py``: Adam/AdamW (K4,
 ``csrc/fused_adam.cu``), SGD with momentum (K5) and plain SGD (K6), both
 in ``csrc/fused_sgd.cu``.  For each leaf:
 
-  * an f32 leaf on a CUDA tensor — the kernel, which replaces the
-    reference's Pallas kernel: one pass that reads each input once and
-    writes the parameter (and its moments or velocity) in place.  Each
-    kernel launches once per update over a table of all the leaves of one
-    device (:func:`leaf_tables`), split into ``ceil(leaves / capacity)``
+  * a leaf on a CUDA tensor whose tensors are all f32, or all bf16 — the
+    kernel, which replaces the reference's Pallas kernel: one pass that
+    reads each input once and writes the parameter (and its moments or
+    velocity) in place.  Each kernel launches once per update and dtype
+    over a table of all the leaves of that dtype on one device
+    (:func:`leaf_tables`), split into ``ceil(leaves / capacity)``
     launches only past the table's size (:data:`ADAM_CAPACITY`,
-    :data:`SGD_CAPACITY`).
+    :data:`SGD_CAPACITY`).  A bf16 leaf takes the kernel's bf16
+    instantiation: the reference's per-leaf math for a leaf that is not
+    f32 (its ``_leaf_ok`` tree-map path), which the kernel computes as
+    the plain version does.
   * a leaf on a CPU tensor, of any dtype — the plain version
     (:func:`adam_leaf_plain`, :func:`sgd_leaf_plain`), the reference's
     per-leaf math in plain PyTorch ops.  It is also ``fused=False``'s
     update and what ``chip_smoke.py`` holds the kernel against on the
     card.
-  * a CUDA leaf that the kernel does not take — an empty leaf is left as
-    it is (there is nothing to update); a leaf that is not f32 raises.
-    The reference sends such a leaf to its tree-map math (``_leaf_ok``);
-    on the card the port does not fall back to the plain version without
-    being asked: ``fused=False`` asks for it.  Every leaf of
-    TransformerLM ``base``, ResNet-50 and LeNet-5 is f32 and goes through
-    a kernel.
+  * a CUDA leaf that the kernels do not take — an empty leaf is left as
+    it is (there is nothing to update); a leaf of another dtype, or of
+    mixed dtypes, raises.  On the card the port does not fall back to
+    the plain version without being asked: ``fused=False`` asks for it.
 
-Both compute the reference's op order, and the kernels are built without
-FMA contraction, so on the card the two agree bit for bit.  Parameters,
+Both compute the reference's op order: on a bf16 leaf each Python scalar
+(``beta1``, ``1 - beta1``, ``momentum``, ...) is first rounded to bf16, as
+JAX rounds the reference's weakly typed scalars to the leaf's dtype, and
+each op's float result is rounded to bf16, as PyTorch's eager ops round
+it.  The kernels are built without FMA contraction, so on the card the
+two agree bit for bit.  Parameters,
 moments and velocities are updated in place: the counterpart of the
 reference trainer donating its buffers.  The step-dependent scalars
 (``clr``; Adam's ``bc1`` and ``bc2``) stay on the device (fp32, one value
@@ -36,6 +41,7 @@ host sync.
 from __future__ import annotations
 
 import ctypes
+import functools
 from array import array
 from itertools import accumulate
 from operator import attrgetter, or_
@@ -51,6 +57,10 @@ SGD_PLAIN = "fused_sgd_plain"
 
 
 _F32 = torch.float32
+_BF16 = torch.bfloat16
+# the dtypes a kernel takes -> (suffix of its C function, the alignment
+# its vector path needs)
+_KERNEL_DTYPES = {_F32: ("", 16), _BF16: ("_bf16", 8)}
 # per-tensor reads, mapped over a column of leaves
 _dtype, _shape = attrgetter("dtype"), attrgetter("shape")
 _numel, _data_ptr = torch.Tensor.numel, torch.Tensor.data_ptr
@@ -60,26 +70,34 @@ _is_cuda = attrgetter("is_cuda")
 
 
 def _kernel_takes(leaves, kernel):
-    """The CUDA ``leaves`` (each ``(p, g, ...)``) that ``kernel`` takes:
-    the non-empty ones (nothing to update in an empty one), each f32
-    throughout; raises for a leaf of any other dtype.  Checked one column
-    of leaves at a time."""
+    """The CUDA ``leaves`` (each ``(p, g, ...)``) that ``kernel`` takes,
+    by dtype: ``{dtype: leaves}``, the non-empty ones (nothing to update
+    in an empty one), each f32 throughout or bf16 throughout; raises for
+    a leaf of any other dtype or of mixed dtypes.  A tree of one dtype is
+    checked one column of leaves at a time."""
     numels = list(map(_numel, (leaf[0] for leaf in leaves)))
     if 0 in numels:
         leaves = [leaf for leaf, n in zip(leaves, numels) if n]
-    for col in zip(*leaves):
-        if set(map(_dtype, col)) != {_F32}:
-            leaf = next(leaf for leaf in leaves
-                        if any(t.dtype is not _F32 for t in leaf))
+    if not leaves:
+        return {}
+    first = leaves[0][0].dtype
+    if first in _KERNEL_DTYPES and all(
+            set(map(_dtype, col)) == {first} for col in zip(*leaves)):
+        return {first: leaves}
+    groups = {}
+    for leaf in leaves:
+        dtypes = set(map(_dtype, leaf))
+        if len(dtypes) != 1 or leaf[0].dtype not in _KERNEL_DTYPES:
             p = leaf[0]
-            dtypes = sorted({str(t.dtype).replace("torch.", "")
-                             for t in leaf})
+            names = sorted(str(t).replace("torch.", "") for t in dtypes)
             raise NotImplementedError(
-                f"{kernel}: the kernel takes float32 leaves; this leaf "
-                f"{tuple(p.shape)} on {p.device} has dtypes {dtypes}.  A "
-                f"kernel for other dtypes is not ported yet (ROADMAP queue "
-                f"A, item 2); use fused=False for the plain update")
-    return leaves
+                f"{kernel}: the kernel takes float32 leaves or bfloat16 "
+                f"leaves, each of one dtype throughout; this leaf "
+                f"{tuple(p.shape)} "
+                f"on {p.device} has dtypes {names}; use fused=False for "
+                f"the plain update")
+        groups.setdefault(leaf[0].dtype, []).append(leaf)
+    return groups
 
 
 def zip_leaves(*trees) -> List[Tuple[torch.Tensor, ...]]:
@@ -110,18 +128,40 @@ def _zip_into(nodes, out) -> None:
 # --------------------------------------------------------------------- #
 # the plain version                                                     #
 # --------------------------------------------------------------------- #
+def _as(x, dtype):
+    """A device scalar ``x`` in ``dtype`` (a Python number stays one)."""
+    return x.to(dtype) if isinstance(x, torch.Tensor) else x
+
+
+@functools.lru_cache(maxsize=None)
+def _in(x: float, dtype: torch.dtype) -> float:
+    """The Python number ``x`` rounded to ``dtype``: what a weakly typed
+    scalar of the reference becomes beside a leaf of that dtype.  ``x``
+    itself for f32, since an op on an f32 leaf (and the kernel's float
+    argument) rounds it to f32 already."""
+    if dtype == _F32:
+        return x
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+
 @torch.no_grad()
 def adam_leaf_plain(p, g, m, v, *, clr, bc1, bc2, beta1, beta2, eps,
                     weight_decay=0.0) -> None:
     """One leaf of ``Adam.update`` (AdamW's decoupled decay when
     ``weight_decay``), in the reference's op order, one PyTorch op at a
-    time; writes p, m and v in place."""
-    new_m = beta1 * m + (1 - beta1) * g
-    new_v = beta2 * v + (1 - beta2) * g * g
-    new_p = p - (clr * (new_m / bc1)
-                 / (torch.sqrt(new_v / bc2) + eps)).to(p.dtype)
+    time; writes p, m and v in place.  On a bf16 leaf the moments are
+    bf16 (each op rounded, ``beta1``, ``1 - beta1``, ``beta2`` and
+    ``1 - beta2`` rounded to bf16 first), and the step is f32, as the
+    reference's f32 ``clr``, ``bc1`` and ``bc2`` promote it, then cast to
+    the leaf's dtype; AdamW's ``clr * weight_decay`` is cast to it
+    first."""
+    dt = p.dtype
+    new_m = _in(beta1, dt) * m + _in(1 - beta1, dt) * g
+    new_v = _in(beta2, dt) * v + _in(1 - beta2, dt) * g * g
+    new_p = p - (clr * (new_m.to(_F32) / bc1)
+                 / (torch.sqrt(new_v.to(_F32) / bc2) + eps)).to(p.dtype)
     if weight_decay:
-        new_p = new_p - clr * weight_decay * p
+        new_p = new_p - _as(clr * weight_decay, p.dtype) * p
     p.copy_(new_p)
     m.copy_(new_m)
     v.copy_(new_v)
@@ -151,6 +191,8 @@ _C_FUNCS = {
                             [_P, _P, _I, _P] + [_F] * 3 + [_I, _I, _P]),
     "bigdl_fused_sgd_plain": ("fused_sgd", [_P, _P, _I, _P, _F, _I, _P]),
 }
+# each kernel's bf16 instantiation takes its f32 one's arguments
+_C_FUNCS.update({f"{name}_bf16": spec for name, spec in _C_FUNCS.items()})
 _CAPACITY = {"fused_adam": ADAM_CAPACITY, "fused_sgd": SGD_CAPACITY}
 _TABLE_FNS = {}
 
@@ -175,9 +217,9 @@ def _table_fn(c_name):
     return fn
 
 
-def _adam_fn():
-    """K4's C function."""
-    return _table_fn("bigdl_fused_adam")
+def _adam_fn(dtype=_F32):
+    """K4's C function for leaves of ``dtype``."""
+    return _table_fn("bigdl_fused_adam" + _KERNEL_DTYPES[dtype][0])
 
 
 def _device_scalar(x, name, dev, kernel=KERNEL_NAME):
@@ -224,7 +266,7 @@ def grad_layout(g) -> Optional[Tuple[int, int]]:
     return None
 
 
-def leaf_tables(leaves, kernel, in_place):
+def leaf_tables(leaves, kernel, in_place, align: int = 16):
     """The launch tables of K4, K5 or K6 over ``leaves`` (each ``(p, g,
     *state)``, non-empty), built column by column after
     :func:`_check_leaves` (raises before any launch).
@@ -236,8 +278,9 @@ def leaf_tables(leaves, kernel, in_place):
     and K6, the addresses of p, g and the state (0 where K6 has none);
     ``meta`` five a leaf: n, the leaf's first chunk of :data:`CHUNK`
     elements within the table (a prefix sum), the gradient's layout
-    (:func:`grad_layout`) and 1 when every pointer the kernel reads as
-    float4 is 16-byte aligned.  ``kept`` holds the contiguous copies of
+    (:func:`grad_layout`) and 1 when every pointer the kernel reads four
+    elements at a time is ``align``-byte aligned (16 for f32's float4, 8
+    for four bf16s).  ``kept`` holds the contiguous copies of
     the gradients that needed one; they must stay alive until the
     launches are made."""
     _check_leaves(leaves, kernel, in_place)
@@ -262,7 +305,7 @@ def leaf_tables(leaves, kernel, in_place):
                                         zip(addr[1], cin)]
     for col in (addr[0], *addr[2:]):
         low = list(map(or_, low, col))
-    vec = [a & 15 == 0 for a in low]
+    vec = [a & (align - 1) == 0 for a in low]
     ns = list(map(_numel, ps))
     nch = [-(-n // CHUNK) for n in ns]
     tables = []
@@ -301,26 +344,32 @@ def _route(leaves, kernel, plain, cuda, kw) -> None:
     groups = [[leaf for leaf, d in zip(leaves, devs) if d == dev]
               for dev in dict.fromkeys(devs)] if len(set(devs)) > 1 \
         else [leaves]
-    # every CUDA leaf is checked before the first launch
+    # every CUDA leaf is checked before the first launch; then a launch a
+    # device and dtype
     groups = [_kernel_takes(group, kernel) for group in groups]
-    for group in groups:
-        if group:
-            cuda(group, **kw)
+    for by_dtype in groups:
+        for dtype, group in by_dtype.items():
+            cuda(group, dtype=dtype, **kw)
 
 
 def _adam_cuda(leaves, *, clr, bc1, bc2, beta1, beta2, eps,
-               weight_decay) -> None:
+               weight_decay, dtype=_F32) -> None:
     """Launch ``csrc/fused_adam.cu`` over all ``(p, g, m, v)`` of
-    ``leaves`` (f32, non-empty, all on one CUDA device) on the current
-    stream: one launch per table of :data:`ADAM_CAPACITY` leaves.  All
-    inputs are checked before the first launch."""
+    ``leaves`` (all of ``dtype``, f32 or bf16, non-empty, all on one CUDA
+    device) on the current stream: one launch per table of
+    :data:`ADAM_CAPACITY` leaves.  All inputs are checked before the
+    first launch."""
     dev = leaves[0][0].device
     scalars = [_device_scalar(x, n, dev)
                for x, n in ((clr, "clr"), (bc1, "bc1"), (bc2, "bc2"))]
-    tables, kept = leaf_tables(leaves, KERNEL_NAME, ("p", "m", "v"))
-    fn = _adam_fn()
-    tail = (*(t.data_ptr() for t in scalars), beta1, 1 - beta1, beta2,
-            1 - beta2, eps, float(weight_decay), int(bool(weight_decay)))
+    tables, kept = leaf_tables(leaves, KERNEL_NAME, ("p", "m", "v"),
+                               _KERNEL_DTYPES[dtype][1])
+    fn = _adam_fn(dtype)
+    # the moments' scalars rounded to the leaves' dtype, as the plain
+    # version rounds them; eps and weight_decay meet f32 values there
+    tail = (*(t.data_ptr() for t in scalars),
+            *(_in(x, dtype) for x in (beta1, 1 - beta1, beta2, 1 - beta2)),
+            eps, float(weight_decay), int(bool(weight_decay)))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for ptrs, meta, count in tables:
@@ -341,9 +390,9 @@ def fused_adam_update(params, grads, m, v, *, clr, bc1, bc2, beta1, beta2,
     computed on the leaves' device; ``weight_decay`` > 0 applies AdamW's
     decoupled decay in the same pass.  Updates params, m and v in place
     and returns ``(params, m, v)``.  A CPU leaf goes to
-    :func:`adam_leaf_plain`; a CUDA leaf to the kernel, or it raises if it
-    is not f32 (an empty one is skipped); a leaf on any other device
-    raises.
+    :func:`adam_leaf_plain`; a CUDA leaf to the kernel (one launch per
+    dtype), or it raises if it is not f32 or bf16 throughout (an empty
+    one is skipped); a leaf on any other device raises.
     """
     kw = dict(clr=clr, bc1=bc1, bc2=bc2, beta1=beta1, beta2=beta2, eps=eps,
               weight_decay=weight_decay)
@@ -371,40 +420,49 @@ def sgd_leaf_plain(p, g, v=None, *, clr, momentum=0.0, dampening=0.0,
                    nesterov=False, weight_decay=0.0) -> None:
     """One leaf of ``SGD.update``, in the reference's op order, one PyTorch
     op at a time; writes p (and the velocity v, given when the method has
-    momentum) in place."""
+    momentum) in place.  On a bf16 leaf every scalar is rounded to bf16
+    before it is used, ``clr`` too."""
+    dt = p.dtype
     if weight_decay > 0:
-        g = g + weight_decay * p
+        g = g + _in(weight_decay, dt) * p
     if v is not None:
-        vel = momentum * v + (1.0 - dampening) * g
-        g = g + momentum * vel if nesterov else vel
+        mu = _in(momentum, dt)
+        vel = mu * v + _in(1.0 - dampening, dt) * g
+        g = g + mu * vel if nesterov else vel
         v.copy_(vel)
-    p.copy_(p - clr * g.to(p.dtype))
+    p.copy_(p - _as(clr, p.dtype) * g.to(p.dtype))
 
 
-def _sgd_fn(mom: bool):
-    """K5's (``mom``) or K6's C function."""
-    return _table_fn("bigdl_fused_sgd_mom" if mom
-                     else "bigdl_fused_sgd_plain")
+def _sgd_fn(mom: bool, dtype=_F32):
+    """K5's (``mom``) or K6's C function for leaves of ``dtype``."""
+    return _table_fn(("bigdl_fused_sgd_mom" if mom
+                      else "bigdl_fused_sgd_plain")
+                     + _KERNEL_DTYPES[dtype][0])
 
 
 def _sgd_cuda(leaves, *, clr, momentum, dampening, nesterov,
-              weight_decay) -> None:
+              weight_decay, dtype=_F32) -> None:
     """Launch K5 (leaves ``(p, g, v)``) or K6 (leaves ``(p, g)``) over all
-    ``leaves`` (f32, non-empty, all on one CUDA device) on the current
-    stream: one launch per table of :data:`SGD_CAPACITY` leaves.  All
-    inputs are checked before the first launch."""
+    ``leaves`` (all of ``dtype``, f32 or bf16, non-empty, all on one CUDA
+    device) on the current stream: one launch per table of
+    :data:`SGD_CAPACITY` leaves.  All inputs are checked before the first
+    launch."""
     dev = leaves[0][0].device
     mom = len(leaves[0]) == 3
     kernel = SGD_MOM if mom else SGD_PLAIN
     clr_t = _device_scalar(clr, "clr", dev, kernel)
-    tables, kept = leaf_tables(leaves, kernel, ("p", "v") if mom else ("p",))
-    fn = _sgd_fn(mom)
+    tables, kept = leaf_tables(leaves, kernel, ("p", "v") if mom else ("p",),
+                               _KERNEL_DTYPES[dtype][1])
+    fn = _sgd_fn(mom, dtype)
     decay = int(weight_decay > 0)
+    # the scalars rounded to the leaves' dtype, as the plain version
+    # rounds them (the kernel rounds clr itself)
+    wd = _in(weight_decay, dtype)
     if mom:
-        tail = (clr_t.data_ptr(), momentum, 1.0 - dampening,
-                float(weight_decay), decay, int(bool(nesterov)))
+        tail = (clr_t.data_ptr(), _in(momentum, dtype),
+                _in(1.0 - dampening, dtype), wd, decay, int(bool(nesterov)))
     else:
-        tail = (clr_t.data_ptr(), float(weight_decay), decay)
+        tail = (clr_t.data_ptr(), wd, decay)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for ptrs, meta, count in tables:
@@ -423,9 +481,9 @@ def fused_sgd_update(params, grads, velocity=None, *, clr, momentum=0.0,
     ``momentum > 0`` and a velocity is given, else K6.  ``clr`` is the
     step's fp32 learning rate on the leaves' device.  Updates params (and
     velocity) in place and returns ``(params, velocity)``.  A CPU leaf
-    goes to :func:`sgd_leaf_plain`; a CUDA leaf to the kernel, or it
-    raises if it is not f32 (an empty one is skipped); a leaf on any other
-    device raises."""
+    goes to :func:`sgd_leaf_plain`; a CUDA leaf to the kernel (one launch
+    per dtype), or it raises if it is not f32 or bf16 throughout (an
+    empty one is skipped); a leaf on any other device raises."""
     mom = momentum > 0 and velocity is not None
     kernel = SGD_MOM if mom else SGD_PLAIN
     kw = dict(clr=clr, momentum=momentum, dampening=dampening,

@@ -39,10 +39,19 @@ than (B, chunk, V) logits exist at once; ``dropout`` draws one keep mask
 a block through :meth:`Ctx.draw` (the training loop's generator, or the
 mask ``Ctx.draws`` gives under the block's name) and applies it to the
 attention and the MLP outputs, as the reference's ``_drop`` draws both
-from one key.  ``use_ring_attention`` is taken as the reference takes it
-on one device: it asks for nothing without an ``sp`` axis larger than 1,
-which is ROADMAP queue A, item 5, as MoE (``moe_experts``, which raises)
-is.
+from one key.
+
+Parallel layout: each module declares the reference's tensor-parallel
+layout in ``pspec`` (:meth:`TransformerLM.param_pspecs`), and in a step
+sharded over a mesh (``Ctx.shard``, set by ``parallel.SpmdTrainer``)
+runs its rank's share with Megatron's collectives
+(:mod:`~bigdl_tpu_torch.parallel.tp_ops`): column-parallel ``wq``/``wk``/
+``wv``, ``w1``/``w3`` and head, row-parallel ``wo`` and ``w2``, a
+vocab-sharded embedding and a vocab-parallel loss.  The flash kernels
+run unchanged on the rank's ``H/tp`` heads.  ``use_ring_attention``
+binds the sp ring (``parallel.ring_attention``) through
+``attention_fn`` when the mesh has ``sp`` > 1, and asks for nothing
+otherwise.  MoE (``moe_experts``) raises: ROADMAP queue A, item 5.
 
 Weights are drawn from a ``torch.Generator`` seeded by ``build(seed=)``
 on the CPU and then moved, so one seed gives the same weights on every
@@ -67,6 +76,19 @@ from ..nn.module import Ctx, Module
 from ..nn.normalization import RMSNorm
 from ..ops.flash_attention import (DEFAULT_MASK_VALUE, _mask as _attn_mask,
                                    flash_attention)
+from ..parallel import tp_ops
+
+
+def _tp(ctx):
+    """The tensor-parallel group ``(group, size, index)`` of a sharded
+    step when tp > 1, else None."""
+    shard = getattr(ctx, "shard", None)
+    return None if shard is None else shard.tp
+
+
+def _seq_offset(ctx) -> int:
+    shard = getattr(ctx, "shard", None)
+    return 0 if shard is None else shard.seq[0]
 
 
 @dataclasses.dataclass
@@ -148,17 +170,27 @@ class TokenEmbedding(Module):
     Out-of-range ids behave as the reference's ``jnp.take`` does: a
     negative id wraps once (``-1`` is row ``V-1``), and an id that is
     still outside ``[0, V)`` gives a row of NaN.
+
+    Layout (the reference's): vocab-sharded over tp (``("tp", None)``)
+    and exempt from fsdp (``fsdp_exempt``); under tp each rank looks up
+    its rows and the partial rows are summed (``tp_ops.vocab_embedding``).
     """
+
+    fsdp_exempt = True
 
     def __init__(self, vocab_size, d_model, gen: torch.Generator,
                  name=None):
         super().__init__(name=name)
         self.vocab_size = vocab_size
         self.d_model = d_model
+        self.pspec = {"weight": ("tp", None)}
         self.weight = _normal((vocab_size, d_model), d_model ** -0.5, gen)
 
     def apply(self, params, x, ctx):
         w = self.own(params)["weight"]
+        tp = _tp(ctx)
+        if tp is not None:
+            return tp_ops.vocab_embedding(w, x, tp)
         v = w.shape[0]
         ids = x.long()
         ids = torch.where(ids < 0, ids + v, ids)
@@ -171,8 +203,16 @@ class MultiHeadAttention(Module):
     """Causal self-attention with RoPE + flash attention.
 
     ``attention_fn``, when set, replaces the attention core
-    ``(q, k, v) -> o`` — the reference's seam for ring attention; here
-    ``chip_smoke.py`` uses it to run the model with the plain attention.
+    ``(q, k, v) -> o``: the seam the trainer binds the sp ring to
+    (``SpmdTrainer.attach``), and ``chip_smoke.py`` the plain attention.
+
+    Layout (Megatron's, the reference's): ``wq``/``wk``/``wv``
+    column-sharded over tp (``(None, "tp")``: each rank holds ``H/tp``
+    whole heads), ``wo`` row-sharded (``("tp", None)``), one all-reduce
+    after ``wo``.  In a sharded step the positions are global (this
+    rank's sequence block starts at ``ctx.shard.seq[0]``); with sp > 1
+    and no ring, q, k and v are gathered over sp and each rank keeps its
+    rows of the output.
     """
 
     def __init__(self, cfg: TransformerConfig, gen: torch.Generator,
@@ -185,6 +225,8 @@ class MultiHeadAttention(Module):
         self.wk = _normal(shape, scale, gen)
         self.wv = _normal(shape, scale, gen)
         self.wo = _normal(shape, scale, gen)
+        self.pspec = {"wq": (None, "tp"), "wk": (None, "tp"),
+                      "wv": (None, "tp"), "wo": ("tp", None)}
         self.attention_fn = None
 
     def apply(self, params, x, ctx):
@@ -192,23 +234,28 @@ class MultiHeadAttention(Module):
         p = self.own(params)
         b, s, _ = x.shape
         dt = x.dtype
-        q, k, v = (self._proj(p, x, w) for w in ("wq", "wk", "wv"))
-        positions = torch.arange(s, device=x.device)
+        tp = _tp(ctx)
+        xin = tp_ops.copy_to_group(x, tp)
+        q, k, v = (self._proj(p, xin, w) for w in ("wq", "wk", "wv"))
+        positions = _seq_offset(ctx) + torch.arange(s, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+        sp = None if ctx.shard is None else ctx.shard.sp
         if self.attention_fn is not None:
             o = self.attention_fn(q, k, v)
+        elif sp is not None:
+            o = _gathered_attention(q, k, v, sp)
         else:
             o = flash_attention(q, k, v, causal=True)
-        o = o.transpose(1, 2).reshape(b, s, cfg.d_model)
-        return torch.matmul(o, p["wo"].to(dt))
+        o = o.transpose(1, 2).reshape(b, s, -1)
+        return tp_ops.reduce_from_group(torch.matmul(o, p["wo"].to(dt)), tp)
 
     def _proj(self, p, x, w):
-        """``x @ p[w]`` as (B, H, S, Dh)."""
+        """``x @ p[w]`` as (B, H, S, Dh), H the heads this rank holds."""
         b, s, _ = x.shape
         cfg = self.cfg
         y = torch.matmul(x, p[w].to(x.dtype))
-        return y.reshape(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+        return y.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
 
     def apply_cached(self, params, x, cache, start: int):
         """Incremental attention: project the ``s`` new positions (global
@@ -276,8 +323,21 @@ class MultiHeadAttention(Module):
         return torch.matmul(o, p["wo"].to(dt))
 
 
+def _gathered_attention(q, k, v, sp):
+    """Causal attention of this rank's sequence block when the sequence
+    is split over sp without the ring: q, k and v gathered over sp (a
+    reduce-scatter backward), the flash attention over the whole
+    sequence, this rank's rows of the output."""
+    group, size, index = sp
+    s = q.shape[2]
+    full = [tp_ops.gather_from_group(t, group, size, 2) for t in (q, k, v)]
+    o = flash_attention(*full, causal=True)
+    return o[:, :, index * s:(index + 1) * s]
+
+
 class SwiGLU(Module):
-    """Gated MLP: (silu(x w1) * x w3) w2."""
+    """Gated MLP: (silu(x w1) * x w3) w2; under tp ``w1``/``w3``
+    column-sharded and ``w2`` row-sharded, one all-reduce after ``w2``."""
 
     def __init__(self, cfg: TransformerConfig, gen: torch.Generator,
                  name=None):
@@ -288,13 +348,17 @@ class SwiGLU(Module):
         self.w1 = _normal((cfg.d_model, cfg.d_ff), s_in, gen)
         self.w3 = _normal((cfg.d_model, cfg.d_ff), s_in, gen)
         self.w2 = _normal((cfg.d_ff, cfg.d_model), s_out, gen)
+        self.pspec = {"w1": (None, "tp"), "w3": (None, "tp"),
+                      "w2": ("tp", None)}
 
     def apply(self, params, x, ctx):
         p = self.own(params)
         dt = x.dtype
+        tp = _tp(ctx)
+        x = tp_ops.copy_to_group(x, tp)
         h = F.silu(torch.matmul(x, p["w1"].to(dt))) \
             * torch.matmul(x, p["w3"].to(dt))
-        return torch.matmul(h, p["w2"].to(dt))
+        return tp_ops.reduce_from_group(torch.matmul(h, p["w2"].to(dt)), tp)
 
 
 class TransformerBlock(Module):
@@ -318,13 +382,22 @@ class TransformerBlock(Module):
         """The block's keep mask in training with ``dropout > 0``, else
         None: one draw of ``x``'s shape (``uniform < keep``), shared by
         both sublayers as the reference's two ``_drop`` calls share one
-        key (``ctx.rng(self)``)."""
+        key (``ctx.rng(self)``).  In a sharded step the mask is drawn at
+        the global (batch, sequence) shape and this rank keeps its block,
+        so that the draws do not depend on the mesh."""
         rate = self.cfg.dropout
         if not ctx.training or rate <= 0.0:
             return None
         keep = 1.0 - rate
-        return ctx.draw(self, x.device, lambda g: torch.rand(
-            x.shape, generator=g, device=x.device) < keep)
+        shard = ctx.shard
+        shape = x.shape if shard is None else \
+            (shard.rows[2], shard.seq[2]) + tuple(x.shape[2:])
+        mask = ctx.draw(self, x.device, lambda g: torch.rand(
+            shape, generator=g, device=x.device) < keep)
+        if shard is not None:
+            mask = mask[shard.rows[0]:shard.rows[1],
+                        shard.seq[0]:shard.seq[1]]
+        return mask
 
     def _drop(self, y, mask):
         """``where(mask, y / keep, 0)`` in ``y``'s dtype (``keep`` rounded
@@ -357,7 +430,9 @@ class TransformerBlock(Module):
 
 
 class LMHead(Module):
-    """Final projection to vocab logits, ``(D, V)``."""
+    """Final projection to vocab logits, ``(D, V)``; under tp
+    column-sharded on the vocab (``(None, "tp")``), each rank's logits
+    its block of the vocab."""
 
     def __init__(self, cfg: TransformerConfig, gen: torch.Generator,
                  name=None):
@@ -365,8 +440,10 @@ class LMHead(Module):
         self.cfg = cfg
         self.weight = _normal((cfg.d_model, cfg.vocab_size),
                               cfg.d_model ** -0.5, gen)
+        self.pspec = {"weight": (None, "tp")}
 
     def apply(self, params, x, ctx):
+        x = tp_ops.copy_to_group(x, _tp(ctx))
         return torch.matmul(x, self.own(params)["weight"].to(x.dtype))
 
 
@@ -413,6 +490,7 @@ class TransformerLM(Module):
         if self.head is not None:
             return self.head.apply(params, h, ctx)
         w = params[self.embed.name]["weight"]            # (V, D) tied
+        h = tp_ops.copy_to_group(h, _tp(ctx))
         return torch.matmul(h, w.t().to(h.dtype))
 
     def apply(self, params, x, ctx):
@@ -429,13 +507,14 @@ class TransformerLM(Module):
         if ctx is None:
             ctx = Ctx(state={}, training=training, generator=generator)
         h = self.apply_trunk(params, tokens, ctx)
+        tp = _tp(ctx)
         if not loss_chunk or loss_chunk >= h.shape[1]:
             logits = self.head_logits(params, h, ctx).float()
-            return lm_token_nll(logits, targets, ignore_index)
-        head_ctx = Ctx(state={}, training=ctx.training)
+            return lm_token_nll(logits, targets, ignore_index, tp=tp)
+        head_ctx = Ctx(state={}, training=ctx.training, shard=ctx.shard)
         return chunked_token_nll(
             lambda h_c: self.head_logits(params, h_c, head_ctx),
-            h, targets, loss_chunk, ignore_index)
+            h, targets, loss_chunk, ignore_index, tp=tp)
 
     def loss(self, params, tokens, targets, *, ignore_index=-1,
              loss_chunk=None, training=False, generator=None, ctx=None):
@@ -445,6 +524,19 @@ class TransformerLM(Module):
                                   loss_chunk=loss_chunk, training=training,
                                   generator=generator, ctx=ctx)
         return tot / torch.clamp(cnt, min=1.0)
+
+    def param_pspecs(self, params):
+        """The layout of ``params``: ``{module: {key: spec}}``, a spec a
+        tuple of axis names (or None) a dim, as the modules declare it in
+        ``pspec``; ``()`` (replicated) for the rest.  The trainer layers
+        fsdp on top (``parallel.spmd``)."""
+        by_name = {m.name: m for m in self.modules()
+                   if isinstance(m, Module)}
+        specs = {}
+        for mod_name, sub in params.items():
+            ps = getattr(by_name.get(mod_name), "pspec", {})
+            specs[mod_name] = {k: tuple(ps.get(k, ())) for k in sub}
+        return specs
 
     # -- generation (kv cache) ----------------------------------------- #
     def _device(self) -> torch.device:
@@ -672,7 +764,7 @@ def gumbel_sample(logits, gen: torch.Generator):
 
 
 def chunked_token_nll(head_fn, h, targets, loss_chunk: int,
-                      ignore_index: int = -1):
+                      ignore_index: int = -1, tp=None):
     """(total masked NLL, valid count) with the vocab projection done a
     sequence chunk at a time, each chunk's head and log-sum-exp under
     ``torch.utils.checkpoint`` (non-reentrant), so that the backward
@@ -683,7 +775,8 @@ def chunked_token_nll(head_fn, h, targets, loss_chunk: int,
     parameters.  The chunk is clamped to S (never padded up past the
     sequence); a ragged tail is padded with zero hiddens and
     ``ignore_index`` targets, so it adds nothing.  Chunks are summed in
-    order from 0, as the reference's ``lax.scan`` sums them."""
+    order from 0, as the reference's ``lax.scan`` sums them.  ``tp``: the
+    logits are vocab-sharded over that group (:func:`lm_token_nll`)."""
     b, s, d = h.shape
     loss_chunk = min(int(loss_chunk), s)
     if s % loss_chunk:
@@ -694,7 +787,7 @@ def chunked_token_nll(head_fn, h, targets, loss_chunk: int,
         s += pad
 
     def chunk_nll(h_c, t_c):
-        return lm_token_nll(head_fn(h_c).float(), t_c, ignore_index)
+        return lm_token_nll(head_fn(h_c).float(), t_c, ignore_index, tp=tp)
 
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -706,10 +799,15 @@ def chunked_token_nll(head_fn, h, targets, loss_chunk: int,
     return tot, cnt
 
 
-def lm_token_nll(logits, targets, ignore_index: int = -1):
+def lm_token_nll(logits, targets, ignore_index: int = -1, tp=None):
     """(sum of masked token NLLs, valid-token count): the reference's
     ``clip(targets, 0, V-1)`` gather and ``targets != ignore_index``
-    mask, in fp32."""
+    mask, in fp32.  With ``tp`` (a group ``(group, size, index)``) the
+    logits are this rank's block of the vocab, and the log-sum-exp and
+    the gold logit are reduced over the group
+    (:func:`~bigdl_tpu_torch.parallel.tp_ops.vocab_parallel_nll`)."""
+    if tp is not None:
+        return tp_ops.vocab_parallel_nll(logits, targets, tp, ignore_index)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = targets.long().clamp(0, logits.shape[-1] - 1)

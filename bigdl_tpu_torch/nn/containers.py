@@ -158,7 +158,7 @@ class Remat(Container):
                 g = torch.Generator(device=gen.device)
                 g.set_state(gen_state)
             sub = Ctx(state=ctx.state, training=ctx.training, generator=g,
-                      draws=ctx.draws)
+                      draws=ctx.draws, shard=ctx.shard)
             passes.append(sub)
             return child.apply(params, xx, sub)
 

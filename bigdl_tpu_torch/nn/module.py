@@ -80,22 +80,27 @@ class Ctx:
     """Per-call context threaded through ``apply``: the training flag,
     persistent state in/out dicts, the side losses a layer adds to the
     training loss (which the training loops sum), the ``torch.Generator``
-    the step's random draws come from, and ``draws``: draws given by
-    module name, which a module takes instead of drawing
-    (:meth:`draw`)."""
+    the step's random draws come from, ``draws``: draws given by module
+    name, which a module takes instead of drawing (:meth:`draw`), and
+    ``shard``: this rank's share of a step sharded over a mesh
+    (:class:`~bigdl_tpu_torch.parallel.spmd.Shard`), None on one
+    device."""
 
     __slots__ = ("training", "state", "new_state", "side_losses",
-                 "generator", "draws")
+                 "generator", "draws", "shard")
 
     def __init__(self, state=None, training: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 draws: Optional[Dict[str, Any]] = None):
+                 draws: Optional[Dict[str, Any]] = None, shard=None):
         self.training = training
         self.state = state or {}
         self.new_state: Dict[str, Any] = {}
         self.side_losses: List[torch.Tensor] = []
         self.generator = generator
         self.draws = draws or {}
+        # this rank's share of a sharded step (parallel.spmd.Shard), or
+        # None on one device
+        self.shard = shard
 
     def rng(self, module) -> torch.Generator:
         if self.generator is None:

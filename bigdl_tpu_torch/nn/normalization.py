@@ -90,14 +90,16 @@ class _AllReduceMean(torch.autograd.Function):
         import torch.distributed as dist
         ctx.group, ctx.world = group, world
         out = t.contiguous().clone()
-        dist.all_reduce(out, group=group)
+        if group is not None:
+            dist.all_reduce(out, group=group)
         return out / world
 
     @staticmethod
     def backward(ctx, g):
         import torch.distributed as dist
         out = g.contiguous().clone()
-        dist.all_reduce(out, group=ctx.group)
+        if ctx.group is not None:
+            dist.all_reduce(out, group=ctx.group)
         return out / ctx.world, None, None
 
 

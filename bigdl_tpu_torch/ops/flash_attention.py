@@ -119,6 +119,31 @@ def chunk_merge(q, k_chunk, v_chunk, acc, m, l, q_pos, k_pos, kv_len,
     return acc_new, m_new, l_new
 
 
+def chunk_merge_blockwise(q, k_chunk, v_chunk, acc, m, l, q_pos, k_pos,
+                          kv_len, sm_scale, causal, block_k=1024):
+    """:func:`chunk_merge` with the chunk taken ``block_k`` keys at a time:
+    the same online-softmax merge, in the same key order, with at most
+    (..., Sq, block_k) scores alive (the ring's memory lever at long
+    context).  A ragged last block is padded with keys at ``kv_len``,
+    which the position mask drops."""
+    sk = k_chunk.shape[-2]
+    if block_k is None or sk <= block_k:
+        return chunk_merge(q, k_chunk, v_chunk, acc, m, l, q_pos, k_pos,
+                           kv_len, sm_scale, causal)
+    nb = -(-sk // block_k)
+    pad = nb * block_k - sk
+    if pad:
+        k_chunk = F.pad(k_chunk, (0, 0, 0, pad))
+        v_chunk = F.pad(v_chunk, (0, 0, 0, pad))
+        k_pos = torch.cat([k_pos, k_pos.new_full((pad,), kv_len)])
+    for j in range(nb):
+        blk = slice(j * block_k, (j + 1) * block_k)
+        acc, m, l = chunk_merge(q, k_chunk[..., blk, :], v_chunk[..., blk, :],
+                                acc, m, l, q_pos, k_pos[blk], kv_len,
+                                sm_scale, causal)
+    return acc, m, l
+
+
 def finalize(acc, m, l):
     """(out, lse) from final accumulators; fully-masked rows yield 0."""
     safe_l = torch.where(l == 0.0, torch.ones_like(l), l)

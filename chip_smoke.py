@@ -333,6 +333,22 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 on the fp32 context >= 0.8 and the loss within 0.05,
                 tokens/s and peak memory.  K4 and K1 against their plain
                 versions at this path's shapes.
+ 14. spmd     — the composed dp×fsdp×tp×sp path on one card.  (a) ``base``
+                through ``compose.build_trainer(ComposedConfig(
+                "dp1,fsdp1,tp1,sp1"))`` with ``AdamW(fused=True)``
+                over NCCL at world size 1 for 10 steps at phase 5's
+                batch, K1–K4 launches counted from 0, bitwise against
+                the one-device
+                ``SpmdTrainer`` on the same weights.  (b) K1 and K2+K3 at
+                the per-rank shapes of tp=2 (``base``: 8 × 3 × 512 × 128
+                f32; ``long8k``: 1 × 4 × 8192 × 128 bf16, causal), and K4
+                over one fsdp=2 and one zero1 dp=2 rank's local shards of
+                ``base`` (bitwise).  (c) The ring's merge of two chunks at
+                sp=2, in one process, at long8k's 1 × 8 × 8192 × 128 bf16
+                causal, against K1.  (d) K4, K5 and K6 over a tree of f32
+                and bf16 leaves at ``base``'s shapes, each bitwise, one
+                launch per dtype, timed beside the plain update and the
+                library's.
 
 Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"stream": {...}}`` line, a
@@ -340,8 +356,10 @@ Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"recipe": {...}}`` line, a ``{"vgg": {...}}`` line, a
 ``{"durable": {...}}`` line, a ``{"lm_long": {...}}`` line, a
 ``{"host_sync": {...}}`` line, a ``{"predictor": {...}}`` line, a
-``{"phase_s": ...}`` line, a ``{"kernels": [...]}`` line (all six
-kernels; K1-K4 also with their ``long8k`` readings), the card's name and power limit as nvidia-smi gives them, and
+``{"spmd": {...}}`` line, a ``{"phase_s": ...}`` line, a
+``{"kernels": [...]}`` line (all six kernels; K1-K4 also with their
+``long8k`` readings, K4-K6 with their ``bf16_leaves`` readings), the
+card's name and power limit as nvidia-smi gives them, and
 last ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repo, it exits with
 another code and prints no result.
@@ -1070,19 +1088,20 @@ def phase_adam(card: str):
         raise AssertionError(f"fused_adam is not bitwise equal to its plain "
                              f"version, or did not launch as planned: "
                              f"{bad}")
-    # a leaf the kernel does not take raises on the card, before any launch
-    xb = torch.ones(8, dtype=torch.bfloat16, device="cuda")
+    # a leaf the kernel does not take (fp16; bf16 leaves have their own
+    # instantiation, phase_spmd (d)) raises on the card, before any launch
+    xb = torch.ones(8, dtype=torch.float16, device="cuda")
     before = fo._build.launch_counts().get(fo.KERNEL_NAME, 0)
     try:
         fo.fused_adam_update({"x": xb}, {"x": xb}, {"x": xb.clone()},
                              {"x": xb.clone()}, **kw)
     except NotImplementedError as e:
-        log(f"K4 on a bf16 leaf raises: {e}")
+        log(f"K4 on an fp16 leaf raises: {e}")
     else:
-        raise AssertionError("fused_adam took a bf16 leaf on the card")
+        raise AssertionError("fused_adam took an fp16 leaf on the card")
     if fo._build.launch_counts().get(fo.KERNEL_NAME, 0) != before \
             or not torch.equal(xb, torch.ones_like(xb)):
-        raise AssertionError("fused_adam touched a bf16 leaf it refused")
+        raise AssertionError("fused_adam touched an fp16 leaf it refused")
     torch.cuda.empty_cache()
     return {"name": "fused_adam", "route": "cuda",
             "source": "bigdl_tpu_torch/csrc/fused_adam.cu",
@@ -1982,8 +2001,9 @@ def phase_sgd(card: str):
         raise AssertionError(f"fused_sgd is not bitwise equal to its plain "
                              f"version, or did not launch as planned: "
                              f"{bad}")
-    # a leaf the kernels do not take raises on the card, before any launch
-    xb = torch.ones(8, dtype=torch.bfloat16, device="cuda")
+    # a leaf the kernels do not take (fp16; bf16 leaves have their own
+    # instantiations, phase_spmd (d)) raises on the card, before any launch
+    xb = torch.ones(8, dtype=torch.float16, device="cuda")
     clr = torch.ones((), device="cuda")
     for kernel, vel in ((fo.SGD_MOM, {"x": xb.clone()}),
                         (fo.SGD_PLAIN, None)):
@@ -1992,12 +2012,13 @@ def phase_sgd(card: str):
             fo.fused_sgd_update({"x": xb}, {"x": xb}, vel, clr=clr,
                                 momentum=0.9 if vel else 0.0)
         except NotImplementedError as e:
-            log(f"{kernel} on a bf16 leaf raises: {e}")
+            log(f"{kernel} on an fp16 leaf raises: {e}")
         else:
-            raise AssertionError(f"{kernel} took a bf16 leaf on the card")
+            raise AssertionError(f"{kernel} took an fp16 leaf on the card")
         if fo._build.launch_counts().get(kernel, 0) != before \
                 or not torch.equal(xb, torch.ones_like(xb)):
-            raise AssertionError(f"{kernel} touched a bf16 leaf it refused")
+            raise AssertionError(f"{kernel} touched an fp16 leaf it "
+                                 f"refused")
     replaces = {fo.SGD_MOM: "bigdl_tpu/kernels/fused_optim.py:174",
                 fo.SGD_PLAIN: "bigdl_tpu/kernels/fused_optim.py:186"}
     return [{"name": name, "route": "cuda",
@@ -6817,6 +6838,411 @@ def phase_predictor(card: str, device: str = "cuda", small: bool = False):
     return out
 
 
+# --------------------------------------------------------------------- #
+# 14. spmd: the composed mesh's path on one card, and K4–K6 on bf16      #
+# --------------------------------------------------------------------- #
+SPMD_STEPS = 10
+SPMD_TEMPLATE = "dp1,fsdp1,tp1,sp1"
+# the ring's merge in bf16 against K1, the band tests/test_torch_port_
+# spmd.py states for it on the CPU (the bf16 kernel limit of K1 itself)
+RING_BF16_TOL = KERNEL_TOL[torch.bfloat16]
+SPMD_SMALL = dict(preset="tiny", batch=4, seq=64, long=(1, 2, 256, 64),
+                  base_tp2=(2, 1, 64, 64))
+SPMD_FULL = dict(preset="base", batch=TRAIN_BATCH, seq=SEQ,
+                 long=(1, 4, 8192, 128), base_tp2=(TRAIN_BATCH, 3, SEQ, 128))
+
+
+def _spmd_main_path(cfg, device, fails):
+    """(a): ``base`` through compose.build_trainer over a process group of
+    one rank (NCCL on the card), SPMD_STEPS steps counted from 0, then the
+    one-device SpmdTrainer from the same weights; both must agree bit for
+    bit (every axis of a mesh of one rank has size 1, so no collective
+    runs).  Both run with
+    deterministic algorithms on: the embedding's backward accumulates
+    rows, and its default kernel does not repeat itself."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _spmd_runs(cfg, device, fails)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _spmd_steps(trainer, tok, tgt, device):
+    """SPMD_STEPS steps: (their losses, the host's ms a step over all but
+    the first, which also starts NCCL's communicator and the caches)."""
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    losses = [trainer.step(tok, tgt)]
+    sync()
+    t = time.monotonic()
+    losses += [trainer.step(tok, tgt) for _ in range(SPMD_STEPS - 1)]
+    sync()
+    return losses, (time.monotonic() - t) * 1e3 / (SPMD_STEPS - 1)
+
+
+def _spmd_runs(cfg, device, fails):
+    import tempfile
+
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel import SpmdTrainer
+    from bigdl_tpu_torch.parallel import mesh as mesh_lib
+    from bigdl_tpu_torch.parallel.compose import ComposedConfig, build_trainer
+
+    rs = np.random.RandomState(1)
+    vocab = T.PRESETS[cfg["preset"]]["vocab_size"]
+    ids = rs.randint(0, vocab, (cfg["batch"], cfg["seq"] + 1)).astype(
+        np.int32)
+    tok = torch.from_numpy(ids[:, :-1]).to(device)
+    tgt = torch.from_numpy(ids[:, 1:]).to(device)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    store = tempfile.mkdtemp(prefix="spmd_", dir=str(_build.BUILD_DIR))
+    mesh_lib.init_distributed(f"file://{store}/store", 0, 1, device=device)
+    runs = {}
+    try:
+        model = T.build(cfg["preset"], device=device, seed=0)
+        n_layers = model.cfg.n_layers
+        tr = build_trainer(model, AdamW(learning_rate=TRAIN_LR, fused=True),
+                           ComposedConfig(SPMD_TEMPLATE), device=device)
+        tr.init()
+        backend = torch.distributed.get_backend()
+        log(f"spmd mesh {tr._m} ({backend}), fsdp {tr.fsdp}, ring "
+            f"{tr.ring}, zero1 {tr.zero1}")
+        if device != "cpu":
+            torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        losses, steady_ms = _spmd_steps(tr, tok, tgt, device)
+        host = torch.stack(losses).tolist()
+        runs["mesh"] = {"losses": host, "steady_step_ms": steady_ms,
+                        "launches": _build.launch_counts()}
+        mesh_params = [p.detach().clone() for sub in tr.params.values()
+                       for p in sub.values()]
+    finally:
+        torch.distributed.destroy_process_group()
+        mesh_lib.set_mesh(None)
+    del tr, model
+    model = T.build(cfg["preset"], device=device, seed=0)
+    one = SpmdTrainer(model, AdamW(learning_rate=TRAIN_LR, fused=True),
+                      device=device)
+    losses, steady_ms = _spmd_steps(one, tok, tgt, device)
+    host1 = torch.stack(losses).tolist()
+    runs["one_device"] = {"losses": host1, "steady_step_ms": steady_ms}
+    one_params = [p.detach() for sub in one.params.values()
+                  for p in sub.values()]
+    bitwise = host == host1 and all(torch.equal(a, b) for a, b in
+                                    zip(mesh_params, one_params))
+    worst = max((a - b).abs().max().item()
+                for a, b in zip(mesh_params, one_params))
+    runs.update(bitwise=bitwise, params_max_abs_diff=worst,
+                backend=backend, n_layers=n_layers, steps=SPMD_STEPS)
+    log(f"spmd (a): losses {host[0]:.6f} -> {host[-1]:.6f}; against one "
+        f"device bitwise {bitwise} (params max |d| {worst:.3e}); steady "
+        f"step {runs['mesh']['steady_step_ms']:.2f} ms on the mesh, "
+        f"{runs['one_device']['steady_step_ms']:.2f} ms on one device")
+    if not bitwise:
+        fails.append(f"(a) the mesh of one rank against one device: "
+                     f"losses {host} vs {host1}, params max |d| {worst}")
+    if not host[-1] < host[0]:
+        fails.append(f"(a) the loss did not fall: {host}")
+    if device != "cpu":
+        want = {"flash_fwd": n_layers * SPMD_STEPS,
+                "flash_bwd_dkv": n_layers * SPMD_STEPS,
+                "flash_bwd_dq": n_layers * SPMD_STEPS,
+                "fused_adam": SPMD_STEPS}
+        got = {k: runs["mesh"]["launches"].get(k, 0) for k in want}
+        if got != want or set(runs["mesh"]["launches"]) - set(want):
+            fails.append(f"(a) launches {runs['mesh']['launches']}, "
+                         f"expected {want}")
+    del one, model, mesh_params, one_params
+    return runs
+
+
+def _spmd_attention(fa, shape, dtype, card, fails, what):
+    """K1 and K2+K3 at one rank's shapes, each against its plain version,
+    with their times and bounds."""
+    b, h, s, d = shape
+    q, k, v = _qkv(b, h, s, s, d, dtype, seed=41, layout="main")
+    do = _grad_out(q, "main", 42)
+    err, lse_err, tol, ok, (ref, _) = _compare(fa, q, k, v, True)
+    err2, errs, tol2, ok2, _ = compare_bwd(fa, q, k, v, do, causal=True)
+    ms, library_ms, _ = bwd_times(fa, q, k, v, do)
+    bound, by = attention_bound(b, h, s, s, d, True, dtype)
+    bounds = bwd_bounds(b, h, s, s, d, True, dtype)
+    out = {"shape": [b, h, s, s, d], "dtype": str(dtype).split(".")[-1],
+           "causal": True, "flash_fwd": {
+               "max_abs_err": err, "lse_max_abs_err": lse_err,
+               "tolerance": tol, "ok": ok,
+               "ms": queued_ms(lambda: fa.flash_forward(q, k, v,
+                                                        causal=True),
+                               iters=10),
+               "plain_ms": queued_ms(lambda: fa.flash_forward_plain(
+                   q, k, v, causal=True), iters=2, warm=1),
+               "library_ms": queued_ms(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       q, k, v, is_causal=True), iters=10),
+               "bound_ms": bound, "bound_by": by}}
+    for name in BWD_KERNELS:
+        out[name] = {"max_abs_err": err2, "errors_and_max_ref": errs,
+                     "tolerance": tol2, "ok": ok2, "ms": ms[name],
+                     "library_ms_dq_dk_dv": library_ms,
+                     "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1]}
+    if not (ok and ok2):
+        fails.append(f"(b) {what}: K1 {ok}, K2+K3 {ok2} against the plain "
+                     f"versions")
+    log(f"spmd (b) {what} {shape} {out['dtype']}: K1 err {err:.3e}, K2+K3 "
+        f"err {err2:.3e}")
+    return out, (q, k, v, ref)
+
+
+def _local_tree(specs, params, axes, coords, g, device):
+    """Random f32 leaves of the local shapes ``specs`` give a rank."""
+    from bigdl_tpu_torch.parallel import spmd
+    out = {}
+    for mod, sub in params.items():
+        out[mod] = {}
+        for k, p in sub.items():
+            b = spmd.block(specs[mod][k], tuple(p.shape), axes, coords)
+            shape = tuple(sl.stop - sl.start for sl in b)
+            out[mod][k] = torch.randn(shape, generator=g,
+                                      device=device) * 1e-2
+    return out
+
+
+def _update_pair(method, plain, trees, kernel):
+    """``method.update`` (the kernel) and ``plain.update`` on copies of
+    ``trees`` (params, grads): (bitwise, max_abs_err, kernel launches)."""
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.parallel.allreduce import tree_leaves, tree_map
+    params, grads = trees
+    runs = []
+    for m in (method, plain):
+        p = tree_map(torch.clone, params)
+        st = m.init_state(p)
+        st = tree_map(lambda t: t + 1e-3 if t.dim() else t, st)
+        before = _build.launch_counts().get(kernel, 0)
+        p, st = m.update(grads, p, st)
+        if tree_leaves(params)[0].is_cuda:
+            torch.cuda.synchronize()
+        runs.append((tree_leaves(p) + [t for t in tree_leaves(st)
+                                       if t.dim()],
+                     _build.launch_counts().get(kernel, 0) - before))
+    (got, n), (want, _) = runs
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(got, want) if a.numel())
+    return (all(torch.equal(a, b) for a, b in zip(got, want)), err, n)
+
+
+def _spmd_k4_shards(model, device, fails):
+    """(b) K4 over one fsdp=2 rank's and one zero1 dp=2 rank's local
+    shards of ``model`` (``base``'s parameters on the meta device),
+    bitwise against its plain update."""
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel import spmd
+    params = model.param_dict()
+    g = torch.Generator(device=device).manual_seed(43)
+    out = {}
+    fsdp_specs = spmd.param_shardings(model, params, {"fsdp": 2}, True)
+    dp_specs = spmd.param_shardings(model, params, {"dp": 2}, False)
+    z1 = spmd.zero1_opt_shardings(params, dp_specs, params, {"dp": 2})
+    z1_specs = {mod: {k: z1.get((mod, k), dp_specs[mod][k]) for k in sub}
+                for mod, sub in params.items()}
+    for name, specs, axes in (("fsdp2_rank0", fsdp_specs, {"fsdp": 2}),
+                              ("zero1_dp2_rank0", z1_specs, {"dp": 2})):
+        coords = {a: 0 for a in axes}
+        p = _local_tree(specs, params, axes, coords, g, device)
+        gr = _local_tree(specs, params, axes, coords, g, device)
+        fused = AdamW(learning_rate=TRAIN_LR, fused=True)
+        plain = AdamW(learning_rate=TRAIN_LR)
+        bitwise, err, n = _update_pair(fused, plain, (p, gr), fo.KERNEL_NAME)
+        n_par = sum(t.numel() for sub in p.values() for t in sub.values())
+        out[name] = {"params": n_par, "bitwise": bitwise,
+                     "max_abs_err": err, "check_launches": n,
+                     "sharded_leaves": sum(
+                         any(e for e in specs[mod][k])
+                         for mod, sub in params.items() for k in sub)}
+        if not (bitwise and n == 1):
+            fails.append(f"(b) K4 on {name}'s shards: bitwise {bitwise}, "
+                         f"max_abs_err {err}, {n} launch(es)")
+    log(f"spmd (b) K4 on local shards: {json.dumps(out)}")
+    return out
+
+
+def _spmd_ring(fa, q, k, v, k1_out, fails):
+    """(c) the ring's merge of two chunks in ring order, in one process,
+    at long8k's (1, 8, 8192, 128) bf16 causal, against K1's output."""
+    from bigdl_tpu_torch.parallel.ring_attention import ring_attention_merge
+    t = time.monotonic()
+    got = ring_attention_merge(q, k, v, 2, causal=True, block_k=1024)
+    torch.cuda.synchronize()
+    merge_s = time.monotonic() - t
+    err = (got.float() - k1_out.float()).abs().max().item()
+    ok = bool(torch.isfinite(got.float()).all().item() and torch.allclose(
+        got.float(), k1_out.float(), **RING_BF16_TOL))
+    if not ok:
+        fails.append(f"(c) ring merge at sp=2 against K1: max |d| {err}")
+    log(f"spmd (c) ring merge sp=2 {tuple(q.shape)}: max |d| against K1 "
+        f"{err:.3e} (tol {RING_BF16_TOL}), {merge_s:.2f} s")
+    return {"shape": list(q.shape), "dtype": "bfloat16", "sp": 2,
+            "block_k": 1024, "max_abs_err": err, "tolerance": RING_BF16_TOL,
+            "ok": ok, "s": merge_s}
+
+
+# bf16 leaves beside base's: ragged tails, a gradient one element into its
+# storage (the scalar path) and a channels-last conv gradient (read in
+# place), as phase_adam and phase_sgd hold the f32 kernels
+SPMD_BF16_EXTRA = (("ragged", (4099,), 0, False), ("tail3", (3,), 0, False),
+                   ("offset", (1_000_003,), 1, False),
+                   ("conv", (64, 3, 7, 7), 0, True))
+
+
+def _mixed_tree(params, g, device):
+    """``base``'s leaf shapes, every other leaf (in order) cast to bf16 (the
+    reference test's ``w16`` kind), and the bf16 leaves of
+    SPMD_BF16_EXTRA: (params, grads)."""
+    p, gr = {}, {}
+    i = 0
+    for mod, sub in params.items():
+        p[mod], gr[mod] = {}, {}
+        for k, t in sub.items():
+            dt = torch.bfloat16 if i % 2 else torch.float32
+            p[mod][k] = torch.randn(t.shape, generator=g,
+                                    device=device).to(dt)
+            gr[mod][k] = (torch.randn(t.shape, generator=g, device=device)
+                          * 1e-2).to(dt)
+            i += 1
+    p["extra"], gr["extra"] = {}, {}
+    for name, shape, offset, channels_last in SPMD_BF16_EXTRA:
+        n = int(np.prod(shape))
+        p["extra"][name] = torch.randn(shape, generator=g,
+                                       device=device).bfloat16()
+        flat = torch.randn(n + offset, generator=g, device=device) * 1e-2
+        gg = flat.bfloat16()[offset:].view(shape)
+        if channels_last:
+            gg = gg.contiguous(memory_format=torch.channels_last)
+        gr["extra"][name] = gg
+    return p, gr
+
+
+def _spmd_bf16(model, device, card, fails):
+    """(d) K4, K5 and K6 over a tree of f32 and bf16 leaves at the leaf
+    shapes of ``model`` (``base`` on the meta device), each bitwise
+    against its plain version, one launch per dtype, with times beside
+    the plain update and the library's."""
+    from bigdl_tpu_torch.kernels import fused_optim as fo
+    from bigdl_tpu_torch.optim import SGD, AdamW
+    from bigdl_tpu_torch.parallel.allreduce import tree_leaves, tree_map
+    params = model.param_dict()
+    g = torch.Generator(device=device).manual_seed(44)
+    p, gr = _mixed_tree(params, g, device)
+    leaves = tree_leaves(p)
+    nbf = sum(t.numel() for t in leaves if t.dtype == torch.bfloat16)
+    nf = sum(t.numel() for t in leaves if t.dtype == torch.float32)
+    out = {}
+    for name, make, kernel, library, slots in (
+            ("fused_adam", lambda f: AdamW(learning_rate=TRAIN_LR,
+                                           fused=f),
+             fo.KERNEL_NAME, lambda ps: torch.optim.AdamW(
+                 ps, lr=TRAIN_LR, fused=True), 7),
+            ("fused_sgd_mom", lambda f: SGD(learning_rate=0.1,
+                                            momentum=0.9,
+                                            weight_decay=1e-4, fused=f),
+             fo.SGD_MOM, lambda ps: torch.optim.SGD(
+                 ps, lr=0.1, momentum=0.9, weight_decay=1e-4, fused=True),
+             5),
+            ("fused_sgd_plain", lambda f: SGD(learning_rate=0.1, fused=f),
+             fo.SGD_PLAIN, lambda ps: torch.optim.SGD(ps, lr=0.1,
+                                                      fused=True), 3)):
+        bitwise, err, n = _update_pair(make(True), make(False), (p, gr),
+                                       kernel)
+        fused, plain = make(True), make(False)
+        pk = tree_map(torch.clone, p)
+        sk, sp_ = fused.init_state(pk), plain.init_state(pk)
+        # bytes: each input read once, each output written once
+        nbytes = slots * (4 * nf + 2 * nbf)
+        rec = {"leaves": len(leaves), "f32_params": nf, "bf16_params": nbf,
+               "bitwise": bitwise, "max_abs_err": err, "tolerance": "bitwise",
+               "check_launches": n,
+               "ms": queued_ms(lambda: fused.update(gr, pk, sk), iters=5),
+               "plain_ms": queued_ms(lambda: plain.update(gr, pk, sp_),
+                                     iters=2, warm=1),
+               "bound_ms": nbytes / H100_HBM_BYTES_S * 1e3,
+               "bound_by": "bytes", "card": card}
+        # the library over base's leaves (its fused step takes no
+        # strided gradient)
+        base_p = {m: sub for m, sub in p.items() if m != "extra"}
+        base_g = {m: sub for m, sub in gr.items() if m != "extra"}
+        lib_leaves = [t.detach().clone() for t in tree_leaves(base_p)]
+        for t, gg in zip(lib_leaves, tree_leaves(base_g)):
+            t.grad = gg
+        lib = library(lib_leaves)
+        rec["library_ms"] = queued_ms(lib.step, iters=5)
+        del lib, lib_leaves, pk, sk, sp_
+        out[name] = rec
+        if not (bitwise and n == 2):
+            fails.append(f"(d) {name} on the mixed tree: bitwise {bitwise}, "
+                         f"max_abs_err {err}, {n} launch(es) (one per "
+                         f"dtype expected)")
+    log(f"spmd (d) K4-K6 on f32+bf16 leaves: {json.dumps(out)}")
+    return out
+
+
+def phase_spmd(card: str, device: str = "cuda", small: bool = False):
+    """The composed-parallelism path on one card.  (a) ``base`` (d 768, 12
+    layers, 6 heads) through ``compose.build_trainer(ComposedConfig(
+    "dp1,fsdp1,tp1,sp1"))`` with ``AdamW(fused=True)`` over NCCL at world
+    size 1,
+    SPMD_STEPS steps at phase_training's batch with K1–K4 launches counted
+    from 0, against the one-device SpmdTrainer on the same weights (bit
+    for bit).  (b) K1 and K2+K3 at the per-rank shapes of tp=2 (``base``:
+    3 heads, S 512, f32; ``long8k``: 1 × 4 × 8192 × 128, bf16, causal), and
+    K4 over one fsdp=2 and one zero1 dp=2 rank's local shards of ``base``
+    (bitwise), each against its plain version.  (c) The ring's merge at
+    sp=2 in one process at long8k's (1, 8, 8192, 128) bf16 causal against
+    K1.  (d) K4, K5 and K6 over a tree of f32 and bf16 leaves at ``base``'s
+    shapes, bitwise, one launch per dtype.  ``device="cpu", small=True``
+    rehearses (a) on the CPU over gloo at ``tiny`` (no kernels there)."""
+    t0 = time.monotonic()
+    cfg = SPMD_SMALL if small else SPMD_FULL
+    fails = []
+    legs_s = {}
+    main = _spmd_main_path(cfg, device, fails)
+    legs_s["a"] = time.monotonic() - t0
+    out = {"main": main, "launches": main["mesh"]["launches"]}
+    if device != "cpu":
+        from bigdl_tpu_torch.models import transformer as T
+        from bigdl_tpu_torch.ops import flash_attention_mod as fa
+        torch.cuda.empty_cache()
+        t = time.monotonic()
+        base_tp2, _ = _spmd_attention(fa, cfg["base_tp2"], torch.float32,
+                                      card, fails, "base tp=2")
+        long_tp2, _ = _spmd_attention(fa, cfg["long"], torch.bfloat16, card,
+                                      fails, "long8k tp=2")
+        meta = T.build("base", device="meta")
+        k4_shards = _spmd_k4_shards(meta, "cuda", fails)
+        legs_s["b"] = time.monotonic() - t
+        t = time.monotonic()
+        b, h, s, d = cfg["long"]
+        q, k, v = _qkv(b, 2 * h, s, s, d, torch.bfloat16, seed=45,
+                       layout="main")
+        k1_out, _ = fa.flash_forward(q, k, v, causal=True)
+        ring = _spmd_ring(fa, q, k, v, k1_out, fails)
+        del q, k, v, k1_out
+        torch.cuda.empty_cache()
+        legs_s["c"] = time.monotonic() - t
+        t = time.monotonic()
+        bf16 = _spmd_bf16(meta, "cuda", card, fails)
+        legs_s["d"] = time.monotonic() - t
+        out.update(kernels_tp2={"base": base_tp2, "long8k": long_tp2},
+                   k4_shards=k4_shards, ring=ring, bf16=bf16)
+    out.update(legs_s=legs_s, phase_s=time.monotonic() - t0)
+    if fails:
+        raise AssertionError(f"spmd: {fails}")
+    log(f"spmd phase: {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -6870,6 +7296,7 @@ def main() -> int:
     durable = timed(phase_durable, card)
     lm_long = timed(phase_lm_long, card)
     predictor = timed(phase_predictor, card)
+    spmd = timed(phase_spmd, card)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
@@ -6884,7 +7311,8 @@ def main() -> int:
                "lm_long": lm_long["launches"],
                "lm_long_eval": lm_long["eval_launches"],
                "lm_durable": lm_long["durable"]["launches"],
-               "predictor": predictor["launches"]}
+               "predictor": predictor["launches"],
+               "spmd": spmd["launches"]}
     kernels = [k1, *k23, k4, k5, k6]
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
@@ -6893,6 +7321,9 @@ def main() -> int:
         if k["name"] in lm_long["kernels"]:
             # the same kernel at long8k's shapes (bf16, S 8192)
             k["long8k"] = lm_long["kernels"][k["name"]]
+        if k["name"] in spmd["bf16"]:
+            # the same kernel over a tree of f32 and bf16 leaves
+            k["bf16_leaves"] = spmd["bf16"][k["name"]]
     log(f"total {time.monotonic() - t0:.1f} s")
     print(json.dumps({"slice": slice_}), flush=True)
     print(json.dumps({"decode": decode}), flush=True)
@@ -6907,6 +7338,7 @@ def main() -> int:
                                   if k != "kernels"}}), flush=True)
     print(json.dumps({"host_sync": host_sync}), flush=True)
     print(json.dumps({"predictor": predictor}), flush=True)
+    print(json.dumps({"spmd": spmd}), flush=True)
     print(json.dumps({"phase_s": phase_s,
                       "total_s": time.monotonic() - t0}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -142,7 +142,7 @@ def recorder(monkeypatch):
             "meta": list((ctypes.c_int64 * (5 * count)).from_address(meta)),
             "count": count, "tail": tail})
         return 0
-    monkeypatch.setattr(fo, "_adam_fn", lambda: fn)
+    monkeypatch.setattr(fo, "_adam_fn", lambda dtype=torch.float32: fn)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",

@@ -198,8 +198,33 @@ def test_a_checkpoint_of_another_model_is_refused(tmp_path):
         _port_trainer().load_checkpoint(str(tmp_path / "empty"))
 
 
-def test_mesh_axes_larger_than_one_and_zero1_still_raise():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        SpmdTrainer(None, AdamW(), device="cpu", mesh={"dp": 2})
+def test_mesh_axes_larger_than_one_and_zero1_still_raise(tmp_path):
+    """A mesh of two ranks trains (gloo ranks), writes each rank's
+    fragments, and its checkpoint restores on one device, where the run
+    goes on as an uninterrupted one-device run does; zero1 still needs
+    dp > 1."""
+    from _torch_port_spmd_rank import collect, save_npz, spawn
+    batches = _batches(4, vocab=64, b=2, s=32, seed=7)
+    for i, (x, y) in enumerate(batches):
+        np.savez(tmp_path / f"b{i}.npz", x=x, y=y)
+    ref = _port_trainer()
+    w = {k: {kk: vv.detach().numpy() for kk, vv in sub.items()}
+         for k, sub in ref.model.param_dict().items()}
+    save_npz(tmp_path / "w.npz", w)
+    ck = str(tmp_path / "ck")
+    started = spawn(2, [{
+        "name": "run", "mesh": {"dp": 2}, "weights": str(tmp_path / "w.npz"),
+        "batch": [str(tmp_path / f"b{i}.npz") for i in range(2)],
+        "model": {"preset": "tiny", "overrides": SMALL},
+        "optim": ["SGD", {"learning_rate": 0.1, "momentum": 0.9}],
+        "trainer": {"loss_chunk": 16}, "steps": 2, "save": ck}], tmp_path)
+    want = ref.fit(batches)
+    ranks = collect(started)
+    np.testing.assert_allclose(ranks[0]["run"]["losses"], want[:2],
+                               **STEP_TOL)
+    tt = _port_trainer()
+    tt.load_checkpoint(ck)
+    assert tt._step_count == 2
+    np.testing.assert_allclose(tt.fit(batches[2:]), want[2:], **STEP_TOL)
     with pytest.raises(ValueError, match="dp > 1"):
         SpmdTrainer(None, AdamW(), device="cpu", zero1=True)

@@ -131,16 +131,19 @@ class _OnCard(torch.Tensor):
 @pytest.mark.parametrize("case,expect", [
     ("f32", "kernel"),
     ("empty", "skipped"),
-    ("bf16", "raises"),
+    ("bf16", "kernel"),
     ("bf16 grad", "raises"),
-    ("f32 then bf16", "raises"),
+    ("f32 then bf16", "a kernel a dtype"),
+    ("fp16", "raises"),
 ])
 def test_cuda_leaves_go_to_the_kernel_or_raise(monkeypatch, case, expect):
-    """On the card a leaf goes to the kernel, is skipped when empty, or
-    raises: it never takes the plain version unasked (fused=False asks)."""
+    """On the card a leaf goes to the kernel (f32, or bf16 throughout: its
+    bf16 instantiation; one launch a dtype), is skipped when empty, or
+    raises (fp16, or mixed dtypes in one leaf): it never takes the plain
+    version unasked (fused=False asks)."""
     launched = []
-    monkeypatch.setattr(fo, "_adam_cuda",
-                        lambda leaves, **kw: launched.extend(leaves))
+    monkeypatch.setattr(fo, "_adam_cuda", lambda leaves, dtype, **kw:
+                        launched.append((dtype, len(leaves))))
 
     def leaf(n, dtype=torch.float32, g_dtype=None):
         p = torch.ones(n, dtype=dtype).as_subclass(_OnCard)
@@ -150,7 +153,8 @@ def test_cuda_leaves_go_to_the_kernel_or_raise(monkeypatch, case, expect):
     leaves = {"f32": [leaf(4)], "empty": [leaf(0)],
               "bf16": [leaf(4, torch.bfloat16)],
               "bf16 grad": [leaf(4, g_dtype=torch.bfloat16)],
-              "f32 then bf16": [leaf(4), leaf(4, torch.bfloat16)]}[case]
+              "f32 then bf16": [leaf(4), leaf(4, torch.bfloat16)],
+              "fp16": [leaf(4, torch.float16)]}[case]
     trees = [{f"x{i}": lf[j] for i, lf in enumerate(leaves)}
              for j in range(4)]
     kw = dict(clr=None, bc1=None, bc2=None, beta1=0.9, beta2=0.999, eps=1e-8)
@@ -161,8 +165,12 @@ def test_cuda_leaves_go_to_the_kernel_or_raise(monkeypatch, case, expect):
         assert launched == []           # checked before any launch
     else:
         fo.fused_adam_update(*trees, **kw)
-        assert len(launched) == (1 if expect == "kernel" else 0)
-        assert torch.equal(trees[0]["x0"], torch.ones(len(trees[0]["x0"])))
+        want = {"kernel": [(leaves[0][0].dtype, 1)], "skipped": [],
+                "a kernel a dtype": [(torch.float32, 1),
+                                     (torch.bfloat16, 1)]}[expect]
+        assert launched == want
+        p = trees[0]["x0"]
+        assert torch.equal(p, torch.ones(len(p), dtype=p.dtype))
 
 
 def test_no_silent_fallback_on_other_devices():
@@ -292,19 +300,24 @@ def test_sgd_reference_defaults_and_checks():
     ("momentum f32", "kernel"),
     ("plain f32", "kernel"),
     ("momentum empty", "skipped"),
-    ("momentum bf16", "raises"),
-    ("plain bf16", "raises"),
+    ("momentum bf16", "kernel"),
+    ("plain bf16", "kernel"),
     ("momentum bf16 velocity", "raises"),
+    ("momentum fp16", "raises"),
+    ("plain fp16", "raises"),
 ])
 def test_sgd_cuda_leaves_go_to_the_kernel_or_raise(monkeypatch, case,
                                                    expect):
-    """On the card an SGD leaf goes to K5 (momentum) or K6, is skipped when
-    empty, or raises before any launch: never the plain version unasked."""
+    """On the card an SGD leaf goes to K5 (momentum) or K6 (f32, or bf16
+    throughout: the kernels' bf16 instantiations), is skipped when empty,
+    or raises before any launch (fp16, or mixed dtypes): never the plain
+    version unasked."""
     launched = []
     monkeypatch.setattr(fo, "_sgd_cuda",
                         lambda leaves, **kw: launched.extend(leaves))
     n = 0 if "empty" in case else 4
-    dtype = torch.bfloat16 if case.endswith("bf16") else torch.float32
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16}.get(
+        case.split()[-1], torch.float32)
     p = torch.ones(n, dtype=dtype).as_subclass(_OnCard)
     g = torch.ones(n, dtype=dtype).as_subclass(_OnCard)
     v = torch.zeros(n, dtype=torch.bfloat16 if "velocity" in case
@@ -315,7 +328,8 @@ def test_sgd_cuda_leaves_go_to_the_kernel_or_raise(monkeypatch, case,
     if expect == "raises":
         with pytest.raises(NotImplementedError,
                            match=f"fused_sgd_{'mom' if mom else 'plain'}: "
-                                 f"the kernel takes float32.*fused=False"):
+                                 f"the kernel takes float32 leaves or "
+                                 f"bfloat16 leaves.*fused=False"):
             fo.fused_sgd_update({"x": p}, {"x": g}, vel, **kw)
         assert launched == []
         return
@@ -324,7 +338,7 @@ def test_sgd_cuda_leaves_go_to_the_kernel_or_raise(monkeypatch, case,
     if expect == "kernel":
         assert len(launched[0]) == (3 if mom else 2)     # (p, g[, v])
     assert (v_out is vel) if mom else v_out is None
-    assert torch.equal(p, torch.ones(n))
+    assert torch.equal(p, torch.ones(n, dtype=dtype))
 
 
 @pytest.mark.parametrize("bad,match", [

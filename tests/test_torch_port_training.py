@@ -212,14 +212,49 @@ def test_fit_returns_floats_and_logs(narrow, capsys):
     assert "step 2: loss=" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("kw", [dict(mesh={"dp": 2}),
-                                dict(mesh={"dp": 1, "tp": 4}),
-                                dict(mesh={"fsdp": 2, "sp": 1})])
-def test_mesh_arguments_raise_and_name_the_roadmap_item(kw):
-    """An axis larger than 1 needs the mesh (item 5); a mesh whose every
-    axis is 1 is one device, where fsdp and the ring ask for nothing, as
-    in the reference without those axes; zero1 needs dp > 1 there too."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A, item 5"):
+MESH_MODEL = dict(vocab_size=64, d_model=64, n_heads=4, n_layers=2,
+                  d_ff=128, max_len=64)
+MESH_KWS = [dict(mesh={"dp": 2}), dict(mesh={"dp": 1, "tp": 4}),
+            dict(mesh={"fsdp": 2, "sp": 1})]
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """Each mesh of MESH_KWS trained over its own gloo ranks (all spawned
+    at once, ``_torch_port_spmd_rank.py``): rank 0's results."""
+    from _torch_port_spmd_rank import collect, spawn
+    d = tmp_path_factory.mktemp("meshes")
+    rs = np.random.RandomState(3)
+    ids = rs.randint(0, MESH_MODEL["vocab_size"], (4, 33))
+    np.savez(d / "b.npz", x=ids[:, :-1], y=ids[:, 1:])
+    started = []
+    for i, kw in enumerate(MESH_KWS):
+        sub = d / f"m{i}"
+        sub.mkdir()
+        started.append(spawn(int(np.prod(list(kw["mesh"].values()))), [{
+            "name": "run", "mesh": kw["mesh"], "batch": str(d / "b.npz"),
+            "model": {"preset": "tiny", "overrides": MESH_MODEL},
+            "optim": ["AdamW", {"learning_rate": 1e-3}], "steps": 2,
+            "trainer": {"fsdp": True, "min_fsdp_size": 1}}], sub))
+    x, y = ids[:, :-1], ids[:, 1:]
+    tr = SpmdTrainer(TT.build("tiny", device="cpu", **MESH_MODEL),
+                     AdamW(learning_rate=1e-3), device="cpu")
+    single = [float(tr.step(x, y)) for _ in range(2)]
+    return single, [collect(s)[0]["run"] for s in started]
+
+
+@pytest.mark.parametrize("kw", MESH_KWS)
+def test_mesh_arguments_raise_and_name_the_roadmap_item(kw, mesh_runs):
+    """A mesh with an axis larger than 1 builds over the started process
+    group and trains as one device does (gloo ranks); without a process
+    group it needs one; a mesh whose every axis is 1 is one device, where
+    fsdp and the ring ask for nothing, as in the reference without those
+    axes; zero1 needs dp > 1 there too."""
+    single, runs = mesh_runs
+    run = runs[MESH_KWS.index(kw)]
+    np.testing.assert_allclose(run["losses"], single, rtol=2e-3)
+    assert run["step"] == 2
+    with pytest.raises(RuntimeError, match="process group"):
         SpmdTrainer(None, AdamW(), device="cpu", **kw)
     with pytest.raises(TypeError, match="unexpected"):
         SpmdTrainer(None, AdamW(), device="cpu", tp=2)

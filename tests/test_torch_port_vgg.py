@@ -42,12 +42,26 @@ GRAD_REL = 1e-4
 KEY = jax.random.PRNGKey(11)
 
 
+def _pin_uids(jm):
+    """Number the reference model's modules from 0, as a model built first
+    in a fresh process is numbered.  A reference Dropout keys its mask by
+    its module's uid (``fold_in(key, uid)``), which counts every module
+    the process made before: without the pin the masks, and with them the
+    inputs of the classifier's BatchNormalization(512), change with the
+    tests a worker ran earlier."""
+    base = min(m._uid for m in jm.modules())
+    for m in jm.modules():
+        m._uid -= base
+    return jm
+
+
 @pytest.fixture(scope="module")
 def vgg_models():
     """fmt -> (reference model, its params, its state, port model)."""
     out = {}
     for fmt in ("NCHW", "NHWC"):
-        jm = JV.build(class_num=10, dataset="cifar10", format=fmt)
+        jm = _pin_uids(JV.build(class_num=10, dataset="cifar10",
+                                format=fmt))
         tm = TV.build(class_num=10, dataset="cifar10", format=fmt,
                       device="cpu")
         params, state = cross(jm, tm, seed=1)
