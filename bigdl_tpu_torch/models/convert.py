@@ -4,7 +4,8 @@ Two ways, for two kinds of model:
 
   * :func:`from_jax_params` matches the reference's flat param dict by
     module name, for models whose modules are named after their root
-    (the TransformerLM);
+    (the TransformerLM, MoE blocks' ``block{i}.moe`` router and experts
+    included);
   * :func:`from_jax_weights` matches by position, for models whose
     modules are named after a global uid (the image classifiers).
 

@@ -51,7 +51,10 @@ vocab-sharded embedding and a vocab-parallel loss.  The flash kernels
 run unchanged on the rank's ``H/tp`` heads.  ``use_ring_attention``
 binds the sp ring (``parallel.ring_attention``) through
 ``attention_fn`` when the mesh has ``sp`` > 1, and asks for nothing
-otherwise.  MoE (``moe_experts``) raises: ROADMAP queue A, item 5.
+otherwise.  With ``moe_experts`` each block's MLP is a
+:class:`~bigdl_tpu_torch.nn.moe.SwitchFFN` named ``{block}.moe`` (experts
+sharded over ``ep``), as in the reference; its load-balancing loss goes
+to ``ctx.side_losses``, which the trainers sum.
 
 Weights are drawn from a ``torch.Generator`` seeded by ``build(seed=)``
 on the CPU and then moved, so one seed gives the same weights on every
@@ -369,7 +372,14 @@ class TransformerBlock(Module):
         self.norm1 = RMSNorm(cfg.d_model, name=f"{self.name}.norm1")
         self.attn = MultiHeadAttention(cfg, gen, name=f"{self.name}.attn")
         self.norm2 = RMSNorm(cfg.d_model, name=f"{self.name}.norm2")
-        self.mlp = SwiGLU(cfg, gen, name=f"{self.name}.mlp")
+        if cfg.moe_experts > 0:
+            from ..nn.moe import SwitchFFN
+            self.mlp = SwitchFFN(cfg.d_model, cfg.d_ff, cfg.moe_experts,
+                                 top_k=cfg.moe_top_k,
+                                 capacity_factor=cfg.moe_capacity_factor,
+                                 gen=gen, name=f"{self.name}.moe")
+        else:
+            self.mlp = SwiGLU(cfg, gen, name=f"{self.name}.mlp")
 
     def apply(self, params, x, ctx):
         mask = self._keep_mask(x, ctx)
@@ -453,10 +463,6 @@ class TransformerLM(Module):
     def __init__(self, cfg: TransformerConfig,
                  gen: Optional[torch.Generator] = None, name=None):
         super().__init__(name=name)
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                "TransformerLM: moe_experts (SwitchFFN over an 'ep' axis) is "
-                "not ported yet (ROADMAP queue A, item 5)")
         self.cfg = cfg
         # nn.Remat wrappers of the blocks, made at the first apply_trunk
         # (a plain list: not registered, so no parameter is listed twice)

@@ -4,10 +4,14 @@
 A :class:`ComposedConfig` names the mesh template (``"dp2,fsdp2,tp2"``)
 and the knobs, and :func:`build_trainer` builds the engine:
 
-  * a ``pp`` or ``ep`` axis larger than 1 needs the pipeline engine or
-    MoE, which are not ported (ROADMAP queue A, item 5): it raises;
+  * a ``pp`` axis larger than 1 -> :class:`~bigdl_tpu_torch.parallel.
+    pipeline.PipelineLMTrainer` (the GPipe schedule over point-to-point
+    sends; dp, tp, sp and ep inside a stage), where zero1, the dp bucket
+    streams, the 16-bit wire, the fused update, the overlapped gradient
+    chunks and clipping are its own; ``fsdp`` and ``grad_accum`` are
+    refused, as the reference refuses them;
   * otherwise :class:`~bigdl_tpu_torch.parallel.spmd.SpmdTrainer`
-    (dp/fsdp/tp/sp), where zero1 is a layout of the optimizer state.  The
+    (dp/fsdp/tp/sp/ep), where zero1 is a layout of the optimizer state.  The
     pipeline engine's manual-collective and update knobs (``bucket_bytes``,
     ``compress``, ``fused_optim``, ``clip_norm``, ``overlap_grad_chunks``,
     ``n_microbatches``) are rejected, as the reference rejects them,
@@ -57,11 +61,29 @@ def build_trainer(model, optim, config: ComposedConfig, devices=None, *,
     trains on one device).  Raises on a knob the engine would not
     honour."""
     axes = config.axes()
-    for axis in ("pp", "ep"):
-        if axes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"build_trainer: the {axis!r} axis (the pipeline engine and "
-                f"MoE experts) is not ported yet (ROADMAP queue A, item 5)")
+    mesh = axes         # one device when every axis is 1, else raises
+    if dist.is_initialized():
+        mesh = mesh_lib.create_mesh(axes, devices, device=device)
+    if axes.get("pp", 1) > 1:
+        from .pipeline import PipelineLMTrainer
+        if axes.get("fsdp", 1) > 1:
+            raise ValueError(
+                "fsdp does not compose with the pipeline engine (stage "
+                "params are layer-stacked; use zero1 for the sharded "
+                "update, or drop pp and let SpmdTrainer layer fsdp)")
+        if config.grad_accum > 1:
+            raise ValueError(
+                "grad_accum is the GSPMD engine's microbatching; the "
+                "pipeline engine accumulates via n_microbatches (and "
+                "overlap_grad_chunks) — silently dropping it would "
+                "shrink the effective batch")
+        return PipelineLMTrainer(
+            model, optim, mesh, n_microbatches=config.n_microbatches,
+            seed=config.seed, loss_chunk=config.loss_chunk,
+            zero1=config.zero1, bucket_bytes=config.bucket_bytes,
+            compress=config.compress, fused_optim=config.fused_optim,
+            overlap_grad_chunks=config.overlap_grad_chunks,
+            clip_norm=config.clip_norm, device=device, **config.extra)
     for knob in ("bucket_bytes", "compress", "fused_optim", "clip_norm"):
         if getattr(config, knob):
             raise ValueError(
@@ -80,10 +102,6 @@ def build_trainer(model, optim, config: ComposedConfig, devices=None, *,
             "SPMD engine microbatches via grad_accum — silently dropping "
             "it would change the schedule you asked for")
     from .spmd import SpmdTrainer
-    if dist.is_initialized():
-        mesh = mesh_lib.create_mesh(axes, devices, device=device)
-    else:
-        mesh = axes         # one device when every axis is 1, else raises
     return SpmdTrainer(
         model, optim, mesh=mesh, fsdp=axes.get("fsdp", 1) > 1,
         seed=config.seed, min_fsdp_size=config.min_fsdp_size,

@@ -11,8 +11,11 @@ CPU tests run gloo ranks.
 
 Axes (:data:`KNOWN_AXES`): ``dp`` data parallel, ``fsdp`` sharded data
 parallel, ``sp`` sequence parallel (the ring), ``tp`` tensor parallel,
-``pp`` pipeline and ``ep`` expert parallel (the last two are not ported:
-ROADMAP queue A, item 5).  The layout is the reference's: the ranks are
+``pp`` pipeline (the stages of
+:class:`~bigdl_tpu_torch.parallel.pipeline.PipelineLMTrainer`, which
+sends activations to the next stage, :meth:`Mesh.pp_neighbours`) and
+``ep`` expert parallel (an MoE layer's experts).  The layout is the
+reference's: the ranks are
 laid out row-major over the axes in the order given, ``dp`` outermost, so
 rank ``r``'s coordinate on each axis is ``np.unravel_index(r, sizes)``.
 Every rank makes a process group for each set of axes larger than 1 (the
@@ -136,6 +139,22 @@ class Mesh:
         index = int(np.ravel_multi_index(
             [self.coords[a] for a in axes], [self.shape[a] for a in axes]))
         return self._groups[axes], size, index
+
+    def pp_neighbours(self) -> Tuple[Optional[int], Optional[int]]:
+        """The ranks (in the mesh's group) one step before and after this
+        one on ``pp``, every other coordinate equal; None past either end
+        (and both None without a ``pp`` axis)."""
+        if "pp" not in self.shape:
+            return None, None
+        sizes = [self.shape[a] for a in self.axis_names]
+        out = []
+        for step in (-1, 1):
+            c = dict(self.coords)
+            c["pp"] += step
+            out.append(int(np.ravel_multi_index(
+                [c[a] for a in self.axis_names], sizes))
+                if 0 <= c["pp"] < self.shape["pp"] else None)
+        return out[0], out[1]
 
     def __repr__(self):
         return (f"Mesh({self.shape}, rank={self.rank}, device={self.device},"

@@ -7,8 +7,8 @@ port runs the same step eagerly, each rank on its share, with the
 collectives placed by hand over one process group a set of mesh axes
 (:meth:`~bigdl_tpu_torch.parallel.mesh.Mesh.group_of`):
 
-  * layout: each parameter's tensor-parallel spec is the model's
-    (``param_pspecs``), filtered to the mesh's axes (:func:`_filter_spec`);
+  * layout: each parameter's tensor- and expert-parallel spec is the
+    model's (``param_pspecs``), filtered to the mesh's axes (:func:`_filter_spec`);
     with ``fsdp`` an ``fsdp`` axis is layered onto the first free,
     divisible dim of every parameter of at least ``min_fsdp_size``
     elements (:func:`_add_fsdp`), except a module's marked
@@ -75,10 +75,17 @@ the files are the reference's, so each package restores the other's),
 ``set_train_summary`` / ``set_val_summary`` and, on one rank, a live
 weight stream (``set_weight_stream``).
 
+Experts (a TransformerLM with ``moe_experts``) shard over an ``ep`` axis
+by their pspec, with their moments and checkpoint fragments; the MoE
+layer sees the global batch through ``Shard.tokens`` (the ranks of the
+data axes and sp), as the reference's GSPMD step does.  A ``pp`` axis
+needs the pipeline engine (:class:`~bigdl_tpu_torch.parallel.pipeline.
+PipelineLMTrainer`) and raises here, as the reference's trainer has no
+pipeline.
+
 Not ported: the orbax layout and ``set_data_pipeline`` (ROADMAP queue A,
-item 7), ``serve_metrics`` and ``account_collectives`` (item 8), a weight
-stream from a mesh of several ranks, and the ``pp``/``ep`` axes (item 5);
-each raises.
+item 7), ``serve_metrics`` and ``account_collectives`` (item 8) and a
+weight stream from a mesh of several ranks; each raises.
 """
 from __future__ import annotations
 
@@ -246,15 +253,51 @@ def zero1_opt_shardings(params, shardings, opt_state, axes,
 
 
 class Shard:
-    """This rank's share of a step (``Ctx.shard``): ``tp`` and ``sp`` its
-    groups ``(group, size, index)`` where those axes are larger than 1
-    (else None); ``rows`` and ``seq`` ``(start, stop, total)`` of its block
-    of the batch rows and of the sequence."""
+    """This rank's share of a step (``Ctx.shard``): ``tp``, ``sp`` and
+    ``ep`` its groups ``(group, size, index)`` where those axes are larger
+    than 1 (else None), ``experts`` its group over ``tp × ep`` (the sum of
+    an MoE layer's experts); ``rows`` and ``seq`` ``(start, stop, total)``
+    of its block of the batch rows and of the sequence; ``tokens`` the
+    :class:`~bigdl_tpu_torch.nn.moe.TokenGroup` of the ranks whose blocks
+    make up the batch an MoE layer routes (None: the local block is all
+    of it)."""
 
-    __slots__ = ("tp", "sp", "rows", "seq")
+    __slots__ = ("tp", "sp", "rows", "seq", "ep", "experts", "tokens")
 
-    def __init__(self, tp, sp, rows, seq):
+    def __init__(self, tp, sp, rows, seq, ep=None, experts=None,
+                 tokens=None):
         self.tp, self.sp, self.rows, self.seq = tp, sp, rows, seq
+        self.ep, self.experts, self.tokens = ep, experts, tokens
+
+
+def big(group):
+    """``group`` (``(group, size, index)``) when its size is above 1, else
+    None."""
+    return group if group[1] > 1 else None
+
+
+def token_group(mesh, row_axes, seq_axis: Optional[str] = "sp"):
+    """The :class:`~bigdl_tpu_torch.nn.moe.TokenGroup` of the ranks that
+    split a batch's rows over ``row_axes`` and its sequence over
+    ``seq_axis`` (None when that is this rank alone): each member's row
+    block is its index over ``row_axes``, its sequence block its
+    coordinate on ``seq_axis``."""
+    from ..nn.moe import TokenGroup
+    axes = tuple(row_axes) + ((seq_axis,) if seq_axis else ())
+    group, size, index = mesh.group_of(axes)
+    if size == 1:
+        return None
+    names = [a for a in mesh.axis_names
+             if a in axes and mesh.shape[a] > 1]
+    rows = [a for a in names if a in row_axes]
+    members = []
+    for combo in itertools.product(*(range(mesh.shape[a]) for a in names)):
+        c = dict(zip(names, combo))
+        r = int(np.ravel_multi_index([c[a] for a in rows],
+                                     [mesh.shape[a] for a in rows])) \
+            if rows else 0
+        members.append((r, c.get(seq_axis, 0)))
+    return TokenGroup(group, size, index, members)
 
 
 class _Gathering(Mapping):
@@ -334,10 +377,11 @@ class SpmdTrainer(TelemetryHealth):
                  zero1_min_size: Optional[int] = None, *,
                  device: DeviceLike = None):
         axes = {} if mesh is None else _mesh_axes(mesh)
-        for axis in ("pp", "ep"):
-            if axes.get(axis, 1) > 1:
-                _unported(f"the {axis!r} axis (pipeline stages and MoE "
-                          "experts)", "item 5")
+        if axes.get("pp", 1) > 1:
+            raise ValueError(
+                "SpmdTrainer has no pipeline stages: a 'pp' axis > 1 needs "
+                "parallel.pipeline.PipelineLMTrainer (compose.build_trainer "
+                "picks it for a template with pp > 1)")
         # ZeRO-1 by sharding (arXiv:2004.13336): the moments take dp on
         # their first free, divisible dim (_zero1_opt_shardings)
         if zero1 and axes.get("dp", 1) < 2:
@@ -387,6 +431,7 @@ class SpmdTrainer(TelemetryHealth):
         self.fsdp = bool(fsdp and m is not None and "fsdp" in axes)
         self._batch_axes = tuple(a for a in ("dp", "fsdp") if a in axes)
         self._seq_axis = "sp" if "sp" in axes else None
+        self._tokens = False            # token_group, made at first use
         self.grad_accum = int(grad_accum)
         # chunked head + loss: at most (B, chunk, V) logits at once (see
         # TransformerLM.token_nll); None is one full-sequence projection
@@ -658,8 +703,12 @@ class SpmdTrainer(TelemetryHealth):
         k, sl = b // n, s // sp[1]
         rows = (index * k, (index + 1) * k, b)
         seq = (sp[2] * sl, (sp[2] + 1) * sl, s)
-        shard = Shard(tp if tp[1] > 1 else None, sp if sp[1] > 1 else None,
-                      rows, seq)
+        if self._tokens is False:
+            self._tokens = token_group(self._m, ("dp", "fsdp"))
+        shard = Shard(big(tp), big(sp), rows, seq,
+                      ep=big(self._group(("ep",))),
+                      experts=big(self._group(("tp", "ep"))),
+                      tokens=self._tokens)
         return (tokens[rows[0]:rows[1], seq[0]:seq[1]],
                 targets[rows[0]:rows[1], seq[0]:seq[1]], shard)
 

@@ -349,6 +349,24 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 and bf16 leaves at ``base``'s shapes, each bitwise, one
                 launch per dtype, timed beside the plain update and the
                 library's.
+ 15. pipeline_moe — the GPipe trainer and MoE on one card.  (a) ``base``
+                through ``PipelineLMTrainer(mesh={"pp": 1},
+                n_microbatches=4, fused_optim=True)`` with AdamW over
+                NCCL at world size 1 for 10 steps at phase 5's batch,
+                launches counted from 0 (K1–K3 once a block a
+                microbatch: 480; K4 10), against the one-device
+                ``SpmdTrainer`` on the same weights (loss and parameter
+                bands), and with ``overlap_grad_chunks=2, clip_norm=1.0``
+                against the same trainer on the plain attention and
+                plain AdamW (LOSS_TOL a step).  (b) ``base`` with 8
+                experts (``SwitchFFN``, top-2, capacity 1.25) through the
+                one-device ``SpmdTrainer`` with ``AdamW(fused=True)``, 10
+                steps (K1–K3 120, K4 10), against the plain run: routed
+                freely (step 1's loss; the tokens whose top-k set flips
+                and the loss gap each step, reported), and routed as the
+                kernels' run routed (step 1's gradients a leaf, every
+                step's loss); the aux term in the loss, the step time,
+                tokens/s and peak memory.
 
 Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"stream": {...}}`` line, a
@@ -356,7 +374,8 @@ Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"recipe": {...}}`` line, a ``{"vgg": {...}}`` line, a
 ``{"durable": {...}}`` line, a ``{"lm_long": {...}}`` line, a
 ``{"host_sync": {...}}`` line, a ``{"predictor": {...}}`` line, a
-``{"spmd": {...}}`` line, a ``{"phase_s": ...}`` line, a
+``{"spmd": {...}}`` line, a ``{"pipeline_moe": {...}}`` line, a
+``{"phase_s": ...}`` line, a
 ``{"kernels": [...]}`` line (all six kernels; K1-K4 also with their
 ``long8k`` readings, K4-K6 with their ``bf16_leaves`` readings), the
 card's name and power limit as nvidia-smi gives them, and
@@ -7243,6 +7262,437 @@ def phase_spmd(card: str, device: str = "cuda", small: bool = False):
     return out
 
 
+# --------------------------------------------------------------------- #
+# 15. pipeline_moe: the GPipe trainer and MoE over ep on one card        #
+# --------------------------------------------------------------------- #
+PIPE_STEPS = 10
+PIPE_MICRO = 4
+# (a) against the one-device SpmdTrainer from the same weights: the
+# microbatches sum their gradients in another order; each Adam step moves
+# an element by at most about lr, so two runs part by at most 2·lr a step
+PIPE_LOSS_ABS = 1e-4
+PIPE_PARAM_ABS = 2 * PIPE_STEPS * TRAIN_LR
+PIPE_SMALL = dict(preset="tiny", batch=4, seq=64, moe=dict(moe_experts=4,
+                                                          moe_top_k=2))
+PIPE_FULL = dict(preset="base", batch=TRAIN_BATCH, seq=SEQ,
+                 moe=dict(moe_experts=8, moe_top_k=2))
+
+
+def _pipe_batch(cfg, device):
+    from bigdl_tpu_torch.models import transformer as T
+    rs = np.random.RandomState(1)
+    vocab = T.PRESETS[cfg["preset"]]["vocab_size"]
+    ids = rs.randint(0, vocab, (cfg["batch"], cfg["seq"] + 1)).astype(
+        np.int32)
+    return (torch.from_numpy(ids[:, :-1]).to(device),
+            torch.from_numpy(ids[:, 1:]).to(device))
+
+
+def _set_plain_attention(model, plain: bool):
+    from bigdl_tpu_torch.ops import flash_attention_mod as fa
+    for blk in model.blocks:
+        blk.attn.attention_fn = (lambda q, k, v: fa.flash_attention_plain(
+            q, k, v, causal=True)) if plain else None
+
+
+def _pipe_run(model, w0, mesh, tok, tgt, device, *, plain=False, **kw):
+    """PIPE_STEPS steps of PipelineLMTrainer from the weights ``w0``:
+    (losses, launches, the host's ms a step after the first, final
+    parameters)."""
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel.pipeline import PipelineLMTrainer
+    with torch.no_grad():
+        for p, w in zip(_leaves(model), w0):
+            p.copy_(w)
+    _set_plain_attention(model, plain)
+    try:
+        tr = PipelineLMTrainer(model, AdamW(learning_rate=TRAIN_LR), mesh,
+                               n_microbatches=PIPE_MICRO,
+                               fused_optim=not plain, device=device, **kw)
+        tr.init()
+        sync = torch.cuda.synchronize if device != "cpu" else \
+            (lambda: None)
+        sync()
+        _build.reset_launch_counts()
+        losses = [tr.step(tok, tgt)]
+        sync()
+        t = time.monotonic()
+        losses += [tr.step(tok, tgt) for _ in range(PIPE_STEPS - 1)]
+        sync()
+        step_ms = (time.monotonic() - t) * 1e3 / (PIPE_STEPS - 1)
+        launches = _build.launch_counts()
+    finally:
+        _set_plain_attention(model, False)
+    return (torch.stack(losses).tolist(), launches, step_ms,
+            [p.detach().clone() for p in _leaves(model)])
+
+
+def _leaves(model):
+    return [p for sub in model.param_dict().values() for p in sub.values()]
+
+
+def _pipeline_leg(cfg, device, fails):
+    """(a): ``cfg``'s model through PipelineLMTrainer({"pp": 1},
+    PIPE_MICRO microbatches, fused_optim) over a process group of one
+    rank, against the one-device SpmdTrainer on the same weights and
+    batch; then with overlap_grad_chunks=2 and clip_norm=1.0 against the
+    same trainer on the plain attention and plain AdamW."""
+    import tempfile
+
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel import SpmdTrainer
+    from bigdl_tpu_torch.parallel import mesh as mesh_lib
+
+    tok, tgt = _pipe_batch(cfg, device)
+    model = T.build(cfg["preset"], device=device, seed=0)
+    n_layers = model.cfg.n_layers
+    w0 = [p.detach().clone() for p in _leaves(model)]
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    store = tempfile.mkdtemp(prefix="pipe_", dir=str(_build.BUILD_DIR))
+    mesh_lib.init_distributed(f"file://{store}/store", 0, 1, device=device)
+    out = {"n_layers": n_layers, "microbatches": PIPE_MICRO,
+           "steps": PIPE_STEPS, "backend": torch.distributed.get_backend()}
+    try:
+        mesh = mesh_lib.create_mesh({"pp": 1}, device=device)
+        losses, launches, step_ms, p_pipe = _pipe_run(model, w0, mesh, tok,
+                                                      tgt, device)
+        out["main"] = {"losses": losses, "launches": launches,
+                       "steady_step_ms": step_ms,
+                       "tokens_per_s": tok.numel() / step_ms * 1e3}
+        ov, ov_launches, ov_ms, _ = _pipe_run(
+            model, w0, mesh, tok, tgt, device, overlap_grad_chunks=2,
+            clip_norm=1.0)
+        ov_plain, _, ov_plain_ms, _ = _pipe_run(
+            model, w0, mesh, tok, tgt, device, plain=True,
+            overlap_grad_chunks=2, clip_norm=1.0)
+    finally:
+        torch.distributed.destroy_process_group()
+        mesh_lib.set_mesh(None)
+    with torch.no_grad():
+        for p, w in zip(_leaves(model), w0):
+            p.copy_(w)
+    one = SpmdTrainer(model, AdamW(learning_rate=TRAIN_LR, fused=True),
+                      device=device)
+    one_losses, one_ms = _spmd_steps(one, tok, tgt, device)
+    one_losses = torch.stack(one_losses).tolist()
+    p_one = [p.detach() for p in _leaves(model)]
+    loss_gap = max(abs(a - b) for a, b in zip(losses, one_losses))
+    param_gap = max((a - b).abs().max().item()
+                    for a, b in zip(p_pipe, p_one))
+    ov_gap = max(abs(a - b) for a, b in zip(ov, ov_plain))
+    out.update(one_device_losses=one_losses, one_device_step_ms=one_ms,
+               loss_max_abs_gap=loss_gap,
+               param_max_abs_gap=param_gap,
+               bands={"loss": PIPE_LOSS_ABS, "param": PIPE_PARAM_ABS},
+               overlap_clip={"losses": ov, "plain_losses": ov_plain,
+                             "loss_max_abs_gap": ov_gap,
+                             "tolerance": LOSS_TOL, "launches": ov_launches,
+                             "steady_step_ms": ov_ms,
+                             "plain_steady_step_ms": ov_plain_ms})
+    log(f"pipeline (a): losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+        f"against one device: loss gap {loss_gap:.3e} (band "
+        f"{PIPE_LOSS_ABS}), params max |d| {param_gap:.3e} (band "
+        f"{PIPE_PARAM_ABS}); overlap+clip against plain: {ov_gap:.3e} "
+        f"(tol {LOSS_TOL}); steady step {step_ms:.2f} ms, one device "
+        f"{one_ms:.2f} ms")
+    if loss_gap > PIPE_LOSS_ABS or param_gap > PIPE_PARAM_ABS:
+        fails.append(f"(a) against one device: loss gap {loss_gap}, "
+                     f"params {param_gap}")
+    if ov_gap > LOSS_TOL:
+        fails.append(f"(a) overlap+clip against plain: {ov} vs {ov_plain}")
+    if not losses[-1] < losses[0]:
+        fails.append(f"(a) the loss did not fall: {losses}")
+    if device != "cpu":
+        want = {"flash_fwd": n_layers * PIPE_MICRO * PIPE_STEPS,
+                "flash_bwd_dkv": n_layers * PIPE_MICRO * PIPE_STEPS,
+                "flash_bwd_dq": n_layers * PIPE_MICRO * PIPE_STEPS,
+                "fused_adam": PIPE_STEPS}
+        for what, got in (("main", launches), ("overlap", ov_launches)):
+            if got != want:
+                fails.append(f"(a) {what} launches {got}, expected {want}")
+    del one, model, w0, p_pipe, p_one
+    return out
+
+
+class _Routing:
+    """The routing choices of a model's SwitchFFN blocks, recorded or
+    replayed: while a block's ``apply`` runs, ``torch.argmax`` (called
+    there only by the top-k loop, once a k) is wrapped so that each call's
+    indices are kept (``record``) or replaced by those a recorded run took
+    at the same step, block and k (``replay``), so that a run on the plain
+    versions can route as the kernels' run routed.  ``picks[step]`` lists
+    every call's indices in order."""
+
+    def __init__(self, model, replay=None):
+        self.picks, self._replay = [], replay
+        self._model, self._saved = model, []
+
+    def __enter__(self):
+        real = torch.argmax
+        for blk in self._model.blocks:
+            ffn, orig = blk.mlp, blk.mlp.apply
+
+            def apply(params, x, ctx, orig=orig):
+                step = self.picks[-1]
+                given = None if self._replay is None else \
+                    iter(self._replay[len(self.picks) - 1][len(step):])
+
+                def argmax(t, dim=None, keepdim=False):
+                    idx = real(t, dim=dim, keepdim=keepdim) if given is None \
+                        else next(given)
+                    step.append(idx)
+                    return idx
+                torch.argmax = argmax
+                try:
+                    return orig(params, x, ctx)
+                finally:
+                    torch.argmax = real
+            ffn.apply = apply
+            self._saved.append(ffn)
+        return self
+
+    def next_step(self):
+        self.picks.append([])
+
+    def __exit__(self, *exc):
+        for ffn in self._saved:
+            del ffn.apply
+        return False
+
+
+def _topk_sets(step_picks, top_k):
+    """A step's recorded argmax calls as each block's sorted top-k sets."""
+    return [torch.sort(torch.stack(step_picks[i:i + top_k], dim=-1),
+                       dim=-1).values
+            for i in range(0, len(step_picks), top_k)]
+
+
+def _moe_run(model, w0, tok, tgt, device, plain, replay=None):
+    """PIPE_STEPS SpmdTrainer steps of the MoE model from ``w0`` (kernels,
+    or the plain attention and plain AdamW; ``replay``: route as that
+    recorded run did): losses, launches, the host's ms a step after the
+    first, peak memory, and the routing's record."""
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel import SpmdTrainer
+    with torch.no_grad():
+        for p, w in zip(_leaves(model), w0):
+            p.copy_(w)
+    _set_plain_attention(model, plain)
+    try:
+        with _Routing(model, replay) as routing:
+            tr = SpmdTrainer(model, AdamW(learning_rate=TRAIN_LR,
+                                          fused=not plain), device=device)
+            sync = torch.cuda.synchronize if device != "cpu" else \
+                (lambda: None)
+            if device != "cpu":
+                torch.cuda.reset_peak_memory_stats()
+            sync()
+            _build.reset_launch_counts()
+            routing.next_step()
+            losses = [tr.step(tok, tgt)]
+            sync()
+            t = time.monotonic()
+            for _ in range(PIPE_STEPS - 1):
+                routing.next_step()
+                losses.append(tr.step(tok, tgt))
+            sync()
+            step_ms = (time.monotonic() - t) * 1e3 / (PIPE_STEPS - 1)
+            launches = _build.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+                if device != "cpu" else None
+    finally:
+        _set_plain_attention(model, False)
+    return (torch.stack(losses).tolist(), launches, step_ms, peak,
+            routing.picks)
+
+
+def _moe_step1_grads(model, w0, tok, tgt, plain, replay=None):
+    """Step 1's loss (CE + aux), its CE alone, every leaf's gradient and
+    the routing's record, on the kernels or the plain attention
+    (``replay``: routed as that record)."""
+    from bigdl_tpu_torch.nn.module import Ctx
+    with torch.no_grad():
+        for p, w in zip(_leaves(model), w0):
+            p.copy_(w)
+    _set_plain_attention(model, plain)
+    try:
+        with _Routing(model, replay) as routing:
+            routing.next_step()
+            params = model.param_dict()
+            ctx = Ctx(state={}, training=True)
+            ce = model.loss(params, tok, tgt, ctx=ctx)
+            loss = ce + sum(ctx.side_losses)
+            grads = torch.autograd.grad(loss, _leaves(model))
+    finally:
+        _set_plain_attention(model, False)
+    return loss.item(), ce.item(), grads, routing.picks
+
+
+def _moe_leg(cfg, device, fails):
+    """(b): ``cfg``'s model with MoE blocks through the one-device
+    SpmdTrainer with AdamW(fused=True), against the same run on the plain
+    attention and plain AdamW: routed freely (step 1's loss held; each
+    step's top-k flips and loss gaps reported), and routed as the kernels'
+    run routed (step 1's gradients and every step's loss held)."""
+    from bigdl_tpu_torch.models import transformer as T
+    tok, tgt = _pipe_batch(cfg, device)
+    t = time.monotonic()
+    model = T.build(cfg["preset"], device=device, seed=0, **cfg["moe"])
+    n_layers, top_k = model.cfg.n_layers, model.cfg.moe_top_k
+    n_params = sum(p.numel() for p in _leaves(model))
+    w0 = [p.detach().clone() for p in _leaves(model)]
+    build_s = time.monotonic() - t
+    loss_k, ce_k, g_k, r1 = _moe_step1_grads(model, w0, tok, tgt, False)
+    loss_p, _, g_p, _ = _moe_step1_grads(model, w0, tok, tgt, True, r1)
+    names = [f"{mod}.{k}" for mod, sub in model.param_dict().items()
+             for k in sub]
+    worst, worst_leaf = 0.0, None
+    for name, a, b in zip(names, g_k, g_p):
+        rel = ((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+        if rel > worst:
+            worst, worst_leaf = rel, name
+    del g_k, g_p
+    losses, launches, step_ms, peak, rec_k = _moe_run(model, w0, tok, tgt,
+                                                      device, plain=False)
+    free, _, plain_ms, _, rec_p = _moe_run(model, w0, tok, tgt, device,
+                                           plain=True)
+    pinned, _, _, _, _ = _moe_run(model, w0, tok, tgt, device, plain=True,
+                                  replay=rec_k)
+    flips = [sum(int((a != b).any(dim=-1).sum()) for a, b in
+                 zip(_topk_sets(sk, top_k), _topk_sets(sp, top_k)))
+             for sk, sp in zip(rec_k, rec_p)]
+    free_gaps = [abs(a - b) for a, b in zip(losses, free)]
+    pinned_gaps = [abs(a - b) for a, b in zip(losses, pinned)]
+    n_tok = tok.numel()
+    out = {"n_layers": n_layers, "params": n_params,
+           "experts": model.cfg.moe_experts, "top_k": top_k,
+           "capacity_factor": model.cfg.moe_capacity_factor,
+           "build_s": build_s, "losses": losses,
+           "free_plain_losses": free, "free_loss_abs_gaps": free_gaps,
+           "topk_flips_per_step": flips,
+           "pinned_plain_losses": pinned,
+           "pinned_loss_abs_gaps": pinned_gaps,
+           "step1": {"loss": loss_k, "pinned_plain_loss": loss_p,
+                     "ce": ce_k, "aux": loss_k - ce_k,
+                     "grad_worst_rel": worst, "grad_worst_leaf": worst_leaf},
+           "tolerances": {"loss": LOSS_TOL, "grad_rel": GRAD_REL_TOL},
+           "launches": launches, "steady_step_ms": step_ms,
+           "plain_steady_step_ms": plain_ms,
+           "tokens_per_s": n_tok / step_ms * 1e3, "peak_gb": peak}
+    log(f"moe (b): {n_params} params, {n_layers} layers; losses "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; step 1 CE {ce_k:.6f} + aux "
+        f"{loss_k - ce_k:.3e}; routed freely: top-k flips a step {flips}, "
+        f"loss gaps {[f'{g:.2e}' for g in free_gaps]}; routed as the "
+        f"kernels: step-1 grads worst {worst_leaf} {worst:.3e} (tol "
+        f"{GRAD_REL_TOL}), loss gaps max {max(pinned_gaps):.3e} (tol "
+        f"{LOSS_TOL}); step {step_ms:.1f} ms, {n_tok / step_ms * 1e3:.0f} "
+        f"tokens/s, peak {peak} GB")
+    if free_gaps[0] > LOSS_TOL:
+        fails.append(f"(b) step-1 loss {losses[0]} against plain {free[0]}")
+    if worst > GRAD_REL_TOL:
+        fails.append(f"(b) step-1 gradients routed alike: {worst_leaf} "
+                     f"{worst}")
+    if max(pinned_gaps) > LOSS_TOL:
+        fails.append(f"(b) losses routed alike: gaps {pinned_gaps}")
+    if not (loss_k > ce_k and abs(losses[0] - loss_k) <= LOSS_TOL):
+        fails.append(f"(b) the step loss {losses[0]} is not CE {ce_k} + "
+                     f"the aux term ({loss_k})")
+    if not losses[-1] < losses[0]:
+        fails.append(f"(b) the loss did not fall: {losses}")
+    if device != "cpu":
+        want = {"flash_fwd": n_layers * PIPE_STEPS,
+                "flash_bwd_dkv": n_layers * PIPE_STEPS,
+                "flash_bwd_dq": n_layers * PIPE_STEPS,
+                "fused_adam": PIPE_STEPS}
+        if launches != want:
+            fails.append(f"(b) launches {launches}, expected {want}")
+    if device != "cpu":
+        out["layer_forward_ms"] = _moe_layer_times(model, n_tok)
+        log(f"moe (b) one layer's forward by part: "
+            f"{out['layer_forward_ms']}")
+    del model, w0
+    return out
+
+
+def _moe_layer_times(model, n_tok):
+    """One SwitchFFN layer's forward products at the run's shapes, by CUDA
+    events: the dense dispatch ``(N, E, C) × (N, D)``, the three expert
+    products and the dense combine (their values do not change the
+    work)."""
+    ffn = model.blocks[0].mlp
+    p = ffn.own(model.param_dict())
+    e, c = ffn.n_experts, ffn._capacity(n_tok)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    slot = (torch.rand((n_tok, e, c), generator=g, device="cuda")
+            < 1.0 / c).float()
+    x = torch.randn((n_tok, ffn.d_model), generator=g, device="cuda")
+    xe = torch.einsum("nec,nd->ecd", slot, x)
+    h = torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", xe, p["w1"]))
+    ye = torch.einsum("ecf,efd->ecd", h, p["w2"])
+    with torch.no_grad():
+        parts = {
+            "dispatch": cuda_ms(lambda: torch.einsum("nec,nd->ecd", slot,
+                                                     x), iters=10),
+            "experts": cuda_ms(lambda: torch.einsum(
+                "ecf,efd->ecd", torch.nn.functional.silu(torch.einsum(
+                    "ecd,edf->ecf", xe, p["w1"])) * torch.einsum(
+                    "ecd,edf->ecf", xe, p["w3"]), p["w2"]), iters=10),
+            "combine": cuda_ms(lambda: torch.einsum("nec,ecd->nd", slot,
+                                                    ye), iters=10)}
+    parts["dense_share"] = (parts["dispatch"] + parts["combine"]) / sum(
+        parts[k] for k in ("dispatch", "experts", "combine"))
+    parts["capacity"] = c
+    del slot, x, xe, h, ye
+    return parts
+
+
+def phase_pipeline_moe(card: str, device: str = "cuda", small: bool = False):
+    """The pipeline engine and MoE on one card.  (a) ``base`` (d 768, 12
+    layers, 6 heads, vocab 32000, f32) through ``PipelineLMTrainer(mesh=
+    {"pp": 1}, n_microbatches=4, fused_optim=True)`` with AdamW over NCCL
+    at world size 1, PIPE_STEPS steps at phase_training's batch with
+    launches counted from 0 (K1–K3 once a block a microbatch, K4 once a
+    step), against the one-device SpmdTrainer (bands PIPE_*), and again
+    with overlap_grad_chunks=2 and clip_norm=1.0 against the same trainer
+    on the plain attention and plain AdamW (LOSS_TOL a step).  (b)
+    ``base`` with 8 experts, top-2, capacity 1.25 through the one-device
+    SpmdTrainer with AdamW(fused=True), against the plain run routed
+    freely (step 1's loss within LOSS_TOL; each step's top-k flips and
+    loss gap reported) and routed as the kernels' run routed (step 1's
+    gradients within GRAD_REL_TOL a leaf, every step's loss within
+    LOSS_TOL), the aux term in the loss, the step time, tokens/s and peak
+    memory.
+    ``device="cpu", small=True`` rehearses both at ``tiny`` over gloo."""
+    t0 = time.monotonic()
+    cfg = PIPE_SMALL if small else PIPE_FULL
+    fails = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        pipe = _pipeline_leg(cfg, device, fails)
+        legs_s = {"a": time.monotonic() - t0}
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        t = time.monotonic()
+        moe = _moe_leg(cfg, device, fails)
+        legs_s["b"] = time.monotonic() - t
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    out = {"pipeline": pipe, "moe": moe, "legs_s": legs_s,
+           "launches": {"pipeline": pipe["main"]["launches"],
+                        "moe": moe["launches"]},
+           "phase_s": time.monotonic() - t0}
+    if fails:
+        raise AssertionError(f"pipeline_moe: {fails}")
+    log(f"pipeline_moe phase: {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -7297,6 +7747,7 @@ def main() -> int:
     lm_long = timed(phase_lm_long, card)
     predictor = timed(phase_predictor, card)
     spmd = timed(phase_spmd, card)
+    pipe_moe = timed(phase_pipeline_moe, card)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
@@ -7312,7 +7763,9 @@ def main() -> int:
                "lm_long_eval": lm_long["eval_launches"],
                "lm_durable": lm_long["durable"]["launches"],
                "predictor": predictor["launches"],
-               "spmd": spmd["launches"]}
+               "spmd": spmd["launches"],
+               "pipeline": pipe_moe["launches"]["pipeline"],
+               "moe": pipe_moe["launches"]["moe"]}
     kernels = [k1, *k23, k4, k5, k6]
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
@@ -7339,6 +7792,7 @@ def main() -> int:
     print(json.dumps({"host_sync": host_sync}), flush=True)
     print(json.dumps({"predictor": predictor}), flush=True)
     print(json.dumps({"spmd": spmd}), flush=True)
+    print(json.dumps({"pipeline_moe": pipe_moe}), flush=True)
     print(json.dumps({"phase_s": phase_s,
                       "total_s": time.monotonic() - t0}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

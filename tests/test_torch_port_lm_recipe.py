@@ -225,7 +225,8 @@ def test_dropout_draws_from_the_generator_and_keeps_the_rate():
 
 def test_long8k_builds_and_moe_still_raises():
     """long8k's flags (remat, ring attention on one device, bf16) build;
-    one block at a small vocab keeps the draw small here."""
+    one block at a small vocab keeps the draw small here.  An MoE model
+    (``moe_experts``) builds and runs, its aux loss in the side losses."""
     m = TT.build("long8k", device="cpu", n_layers=1, vocab_size=64)
     assert m.cfg.remat and m.cfg.use_ring_attention
     assert m.cfg.dtype == "bfloat16" and m.cfg.max_len == 8192
@@ -233,8 +234,15 @@ def test_long8k_builds_and_moe_still_raises():
     with torch.no_grad():
         out = m.apply(m.param_dict(), tok, Ctx())
     assert out.shape == (1, 16, 64) and out.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="item 5"):
-        TT.build("tiny", device="cpu", moe_experts=4)
+    moe = TT.build("tiny", device="cpu", n_layers=1, moe_experts=4,
+                   moe_top_k=2)
+    assert sorted(moe.param_dict()[moe.blocks[0].name + ".moe"]) == \
+        ["router", "w1", "w2", "w3"]
+    ctx = Ctx(training=True)
+    with torch.no_grad():
+        out = moe.apply(moe.param_dict(), tok % 64, ctx)
+    assert out.shape == (1, 16, 256) and torch.isfinite(out).all()
+    assert len(ctx.side_losses) == 1 and float(ctx.side_losses[0]) > 0
 
 
 # --------------------------------------------------------------------- #

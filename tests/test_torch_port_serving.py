@@ -120,12 +120,20 @@ def test_from_jax_params_refuses_missing_extra_and_misshaped(narrow):
 
 def test_unported_options_raise():
     # long8k's remat and ring-attention flag build on one device (its full
-    # depth and vocab are the card's: a short, narrow-vocab one here);
-    # MoE still raises
+    # depth and vocab are the card's: a short, narrow-vocab one here); an
+    # MoE model builds and serves (its forward routes the batch's tokens)
     m = TT.build("long8k", device="cpu", n_layers=1, vocab_size=64)
     assert m.cfg.remat and m.cfg.use_ring_attention
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.build("tiny", device="cpu", moe_experts=2)
+    moe = TT.build("tiny", device="cpu", moe_experts=2)
+    reg = ModelRegistry()
+    reg.register("moe", moe, input_shape=(S,), dtype=np.int32)
+    eng = ServingEngine(reg, max_batch=2, max_delay_ms=2.0).warmup()
+    try:
+        x = np.random.RandomState(0).randint(0, 256, (2, S)).astype(np.int32)
+        out = np.asarray(eng.predict("moe", x))
+    finally:
+        eng.shutdown()
+    assert out.shape == (2, S, 256) and np.isfinite(out).all()
 
 
 def test_default_device_needs_cuda():

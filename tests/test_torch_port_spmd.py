@@ -421,8 +421,11 @@ def test_zero1_needs_dp_and_pp_ep_raise():
     with pytest.raises(ValueError, match="dp > 1"):
         SpmdTrainer(tm, Adam(1e-3), mesh={"tp": 2}, zero1=True,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="PipelineLMTrainer"):
         SpmdTrainer(tm, Adam(1e-3), mesh={"dp": 2, "pp": 2}, device="cpu")
+    # ep is SpmdTrainer's now: past the refusals, it needs the group
+    with pytest.raises(RuntimeError, match="process group"):
+        SpmdTrainer(tm, Adam(1e-3), mesh={"dp": 2, "ep": 2}, device="cpu")
     with pytest.raises(RuntimeError, match="process group"):
         SpmdTrainer(tm, Adam(1e-3), mesh={"dp": 2}, device="cpu")
 
@@ -445,9 +448,18 @@ def test_build_trainer_picks_the_engine_and_rejects_bad_knobs():
     with pytest.raises(RuntimeError, match="process group"):
         build_trainer(model(), SGD(learning_rate=0.1),
                       ComposedConfig("dp2,tp2"), device="cpu")
+    # a pp axis picks the pipeline engine, an ep axis SpmdTrainer: each
+    # needs the process group here (test_torch_port_pipeline.py and
+    # test_torch_port_moe.py build and train them on gloo ranks)
     for cfg, err, match in (
-            (ComposedConfig("dp2,pp2"), NotImplementedError, "item 5"),
-            (ComposedConfig("ep2"), NotImplementedError, "item 5"),
+            (ComposedConfig("dp2,pp2"), RuntimeError,
+             "PipelineLMTrainer: .* process group"),
+            (ComposedConfig("ep2"), RuntimeError,
+             "SpmdTrainer: .* process group"),
+            (ComposedConfig("fsdp2,pp2"), ValueError,
+             "fsdp does not compose"),
+            (ComposedConfig("dp2,pp2", grad_accum=8, n_microbatches=2),
+             ValueError, "grad_accum"),
             (ComposedConfig("dp2,tp2", bucket_bytes=4), ValueError,
              "compiler-owned"),
             (ComposedConfig("dp2", compress="fp16"), ValueError,
