@@ -21,7 +21,7 @@ with part-manifests from several writers through ``process_index`` /
 checkpoint and a ``latest`` pointer holding its path).
 
 The writer's time by part lands on counters: ``checkpoint/encode_seconds``
-(serialize and deflate), ``checkpoint/crc_seconds``,
+(serialize), ``checkpoint/crc_seconds``,
 ``checkpoint/io_seconds`` (write and fsync), ``checkpoint/commit_seconds``
 (manifest, pointer and GC); a restore's on ``checkpoint/restore_scan_seconds``,
 ``checkpoint/restore_verify_seconds`` and

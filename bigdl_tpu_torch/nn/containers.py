@@ -27,6 +27,12 @@ class Container(Module):
         self.add_module(str(len(self._modules)), module)
         return self
 
+    def _serde_restore_children(self, children):
+        self._modules.clear()
+        for c in children:
+            if c is not None:
+                self.add(c)
+
     def __getitem__(self, i):
         return list(self._modules.values())[i]
 

@@ -45,6 +45,8 @@ class Dropout(Module):
         self.p = init_p
         self.scale = scale
 
+    _serde_extra_attrs = ("p",)
+
     def set_p(self, p):
         self.p = p
         return self

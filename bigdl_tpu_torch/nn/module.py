@@ -65,7 +65,10 @@ its draws by name instead (the seam the parity tests feed the reference's
 """
 from __future__ import annotations
 
+import functools
+import inspect
 import itertools
+import re
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -74,6 +77,91 @@ import torch
 _uid_counter = itertools.count()
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+def _capture_config(cls):
+    """Wrap ``cls.__init__`` so that constructing an instance records the
+    bound constructor arguments on ``self._serde`` (the outermost class
+    wins): a saved model is "class + config + children", rebuilt by
+    calling the constructor (``utils/serializer.py``), never a pickle.
+
+    The port's ``gen`` argument (the ``torch.Generator`` a constructor
+    draws its weights from; the reference's constructors have no such
+    argument), or any other generator, is left out of the config: a
+    loaded module takes its weights from the file."""
+    orig = cls.__init__
+    if getattr(orig, "_captures_config", False):
+        return
+    try:
+        sig = inspect.signature(orig)
+    except (ValueError, TypeError):     # C-level or exotic signature
+        return
+    varargs = next((p.name for p in sig.parameters.values()
+                    if p.kind is p.VAR_POSITIONAL), None)
+
+    @functools.wraps(orig)
+    def __init__(self, *args, **kwargs):
+        if "_serde" not in self.__dict__:
+            rec = {"class": type(self), "varargs": varargs, "config": None}
+            object.__setattr__(self, "_serde", rec)
+            try:
+                bound = sig.bind(self, *args, **kwargs)
+                bound.apply_defaults()
+                cfg = {}
+                for pname, p in sig.parameters.items():
+                    if pname == "self" or pname not in bound.arguments:
+                        continue
+                    v = bound.arguments[pname]
+                    if p.kind is p.VAR_POSITIONAL:
+                        cfg[pname] = list(v)
+                    elif p.kind is p.VAR_KEYWORD:
+                        cfg.update(v)
+                    elif pname != "gen" and not isinstance(
+                            v, torch.Generator):
+                        cfg[pname] = v
+                rec["config"] = cfg
+            except TypeError:
+                pass
+        orig(self, *args, **kwargs)
+
+    __init__._captures_config = True
+    cls.__init__ = __init__
+
+
+def migrate_legacy_names(tree, module):
+    """Rename dict keys written before auto names were zero-padded
+    (``Linear_12`` -> ``Linear_00000012``) wherever the padded form is
+    one of ``module``'s parameter or state names; the tree as it is when
+    every key is already in the current format."""
+    def has_legacy(t):
+        if isinstance(t, dict):
+            return any(re.fullmatch(r".*_\d{1,7}", k) or has_legacy(v)
+                       for k, v in t.items())
+        if isinstance(t, (list, tuple)):
+            return any(has_legacy(v) for v in t)
+        return False
+
+    if not has_legacy(tree):
+        return tree
+    expected = set()
+    for flat in (module.param_dict(), module.initial_state()):
+        expected.update(flat)
+        for sub in flat.values():
+            expected.update(sub)
+
+    def pad(k):
+        m = re.fullmatch(r"(.*_)(\d{1,7})", k)
+        return f"{m.group(1)}{int(m.group(2)):08d}" if m else k
+
+    def migrate(t):
+        if isinstance(t, dict):
+            return {k if k in expected or pad(k) not in expected
+                    else pad(k): migrate(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(migrate(v) for v in t)
+        return t
+
+    return migrate(tree)
 
 
 class Ctx:
@@ -168,6 +256,11 @@ class Module(torch.nn.Module):
     w_regularizer = None
     b_regularizer = None
     _frozen = False
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        if "__init__" in cls.__dict__:
+            _capture_config(cls)
 
     def __init__(self, name: Optional[str] = None):
         super().__init__()
@@ -338,6 +431,75 @@ class Module(torch.nn.Module):
         _copy_into([mine[n][k] for n in mine for k in sorted(mine[n])],
                    [state[n][k] for n in mine for k in sorted(mine[n])],
                    "set_state")
+        return self
+
+    # -- serde hooks (utils/serializer.py) -------------------------------- #
+    # extra instance attributes to persist beside the constructor config
+    _serde_extra_attrs = ()
+
+    def _ref_children(self) -> List["Module"]:
+        """The reference's ``children()``: the direct child modules of the
+        port, with a torch container that is not a port module (the
+        ``ModuleList`` of a model's blocks) replaced by its children."""
+        out = []
+        # _modules, not children(): a child registered twice (a shared
+        # submodule) is listed twice, as the reference lists it
+        for c in self._modules.values():
+            if c is not None:
+                out.extend([c] if isinstance(c, Module) else
+                           Module._ref_children(c))
+        return out
+
+    def _serde_children(self):
+        """Children to persist (None entries allowed as placeholders)."""
+        return self._ref_children()
+
+    def _serde_restore_children(self, children):
+        """Re-attach decoded children after the constructor replay.  The
+        default does nothing: right for leaves and for modules whose
+        constructor rebuilds their children from the config.  A class
+        that takes children after construction overrides it."""
+
+    def _serde_config(self):
+        """The constructor config to persist; None when the module cannot
+        be rebuilt from it (the class then overrides ``_serde_build``)."""
+        serde = self.__dict__.get("_serde")
+        return dict(serde["config"]) if serde and serde.get("config") \
+            is not None else None
+
+    @classmethod
+    def _serde_build(cls, config, children):
+        """Build from a decoded config and children where a constructor
+        replay cannot; None replays the constructor (the default)."""
+        return None
+
+    # -- persistence (≙ AbstractModule.save / Module.load) -------------- #
+    def save(self, path, overwrite=True):
+        from ..utils import serializer
+        serializer.save_module(self, path, overwrite=overwrite)
+        return self
+
+    @staticmethod
+    def load(path, device=None):
+        from ..utils import serializer
+        return serializer.load_module(path, device=device)
+
+    def save_weights(self, path, overwrite=True):
+        import os
+        from ..utils import serializer
+        if os.path.exists(path) and not overwrite:
+            raise FileExistsError(path)
+        serializer.save_weights_file(self, path)
+        return self
+
+    def load_weights(self, path):
+        """Copy the parameters and state of a weights file into this
+        module's tensors (names as :meth:`param_dict` gives them, after
+        :func:`migrate_legacy_names`)."""
+        from ..utils import serializer
+        params, state = serializer.load_weights_file(path)
+        params, state = migrate_legacy_names((params, state or {}), self)
+        serializer.place_weights(self, params, state)
         return self
 
     # -- graph API (nn/graph.py) ----------------------------------------- #
@@ -547,12 +709,22 @@ def _copy_into(dst: List[torch.Tensor], src: Sequence, what: str) -> None:
                 else torch.from_numpy(np.array(s, copy=True)))
 
 
+# classes that define no __init__ of their own fall through to the base
+# constructor: wrap it too, so that every instance has its config
+_capture_config(Module)
+
+
 class Criterion:
     """Base of the losses (≙ the reference's ``Criterion``):
     ``loss(output, target) -> scalar``.  The Torch shell: ``forward``
     (and ``__call__``) keeps the value in ``self.output``, ``backward``
     returns d loss / d output by autograd and keeps it in
     ``self.grad_input``."""
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        if "__init__" in cls.__dict__:
+            _capture_config(cls)
 
     def __init__(self, name: Optional[str] = None):
         self._uid = next(_uid_counter)
@@ -582,3 +754,6 @@ class Criterion:
 
     def __repr__(self):
         return f"{type(self).__name__}()"
+
+
+_capture_config(Criterion)

@@ -48,6 +48,8 @@ class SpatialMaxPooling(Module):
         self.format = format
         self.ceil_mode = ceil_mode
 
+    _serde_extra_attrs = ("ceil_mode",)
+
     def ceil(self):
         self.ceil_mode = True
         return self
@@ -82,6 +84,8 @@ class SpatialAveragePooling(Module):
         self.count_include_pad = count_include_pad
         self.divide = divide
         self.format = format
+
+    _serde_extra_attrs = ("ceil_mode",)
 
     def ceil(self):
         self.ceil_mode = True

@@ -42,6 +42,8 @@ class View(Module):
         self.sizes = tuple(sizes)
         self.num_input_dims = 0
 
+    _serde_extra_attrs = ("num_input_dims",)
+
     def set_num_input_dims(self, n):
         """Kept as the reference keeps it (its ``apply`` reads the batch
         dim from the element count, not from this)."""

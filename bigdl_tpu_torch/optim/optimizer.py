@@ -673,6 +673,9 @@ class Optimizer(TelemetryHealth):
         self._preemption = None
         self.max_retries = 0
         self._resume_skip = 0
+        # a restored data cursor positions the dataset itself; an empty
+        # first epoch then means "resumed at the boundary", not "no data"
+        self._cursor_resumed = False
         self._loop_gen: Optional[torch.Generator] = None
         self._with_health = False
         self._restored_mesh = (None, None)   # (saved, target) of a restore
@@ -697,7 +700,11 @@ class Optimizer(TelemetryHealth):
         (:class:`~bigdl_tpu_torch.data.device_loader.DeviceLoader`): on a
         CUDA device through pinned buffers and a side stream, the step's
         stream waiting on each batch's copy event.  0 places each batch
-        inline, as without this setter."""
+        inline, as without this setter.  A self-staging dataset
+        (:class:`~bigdl_tpu_torch.data.sharded.ShardedRecordDataSet`)
+        already reads ahead and places on its own staging thread and is
+        never wrapped: a loader reading ahead of training would move its
+        exactly-once cursor past what training consumed."""
         if depth < 0:
             raise ValueError("depth must be >= 0")
         self.prefetch_depth = int(depth)
@@ -972,6 +979,11 @@ class Optimizer(TelemetryHealth):
         meta = {"epoch": self.state.epoch, "iteration": self.state.iteration,
                 "batch_in_epoch": self.state.batch_in_epoch,
                 "epoch_boundary": bool(epoch_boundary), "layout": layout}
+        # a cursor-capable dataset (data/sharded.py): the read position of
+        # the last batch consumed, so that a resume re-positions the
+        # stream instead of replaying the epoch's head
+        if callable(getattr(self.dataset, "state", None)):
+            meta["data_cursor"] = self.dataset.state()
         blocked = rec.span_value("checkpoint.blocking")
         with self._wd_suspended():
             self._ckpt_mgr.save(
@@ -1020,6 +1032,14 @@ class Optimizer(TelemetryHealth):
         st.iteration = int(meta["iteration"])
         st.batch_in_epoch = int(meta.get("batch_in_epoch", 0))
         self._resume_skip = st.batch_in_epoch
+        cursor = meta.get("data_cursor")
+        if cursor is not None and callable(getattr(self.dataset, "restore",
+                                                   None)):
+            # the dataset re-positions itself: skipping batches on top of
+            # the restored cursor would skip them twice
+            self.dataset.restore(cursor)
+            self._resume_skip = 0
+            self._cursor_resumed = True
         gen = trees.get(f"loop_rng/{self._rank()}")
         if same and gen is not None:
             self._loop_gen.set_state(torch.as_tensor(np.asarray(
@@ -1255,6 +1275,9 @@ class Optimizer(TelemetryHealth):
         staged ahead by a :class:`DeviceLoader` and taken on the step's
         stream."""
         rec = self.recorder
+        if getattr(self.dataset, "self_staging", False):
+            yield from self._pipeline_batches(epoch, skip)
+            return
 
         def host():
             it = self.dataset.data(train=True, epoch=epoch)
@@ -1278,11 +1301,27 @@ class Optimizer(TelemetryHealth):
         for size, staged in loader:
             yield (size,) + staged.take()
 
-    def _stager(self):
+    def _pipeline_batches(self, epoch, skip):
+        """``(size, x, y)`` of a self-staging dataset: its staging thread
+        places each batch (``HostToDevice``) ``staging_depth`` ahead, and
+        its stream hands the batch over taken on this thread."""
+        self.dataset.set_place_fn(self._stager(self.dataset.staging_depth))
+        it = self.dataset.data(train=True, epoch=epoch)
+        try:
+            for _ in range(skip):       # a resume without a cursor
+                if next(it, None) is None:
+                    return
+            for x, y in it:
+                yield (int(x.shape[0]), x, y)
+        finally:
+            it.close()
+
+    def _stager(self, depth=None):
         """The prefetch placement: one :class:`HostToDevice` (and so one
         ring of pinned buffers) per optimizer."""
         if self._h2d is None:
-            self._h2d = HostToDevice(self.device, self.prefetch_depth)
+            self._h2d = HostToDevice(self.device, depth or
+                                     self.prefetch_depth)
         return self._h2d
 
     def _fetch(self, batches):
@@ -1310,6 +1349,7 @@ class Optimizer(TelemetryHealth):
         st = self.state
         st.epoch_finished = False
         skip, self._resume_skip = self._resume_skip, 0
+        cursor_resumed, self._cursor_resumed = self._cursor_resumed, False
         st.batch_in_epoch = skip
         epoch_start = time.time()
         n_seen = 0
@@ -1349,7 +1389,7 @@ class Optimizer(TelemetryHealth):
         if not st.epoch_finished:
             return params, opt_state, model_state, stop
         if n_seen == 0:
-            if skip == 0:
+            if skip == 0 and not cursor_resumed:
                 raise ValueError(
                     "dataset produced no batches (batch_size larger "
                     "than the dataset with drop_last, or empty data)")

@@ -83,9 +83,9 @@ needs the pipeline engine (:class:`~bigdl_tpu_torch.parallel.pipeline.
 PipelineLMTrainer`) and raises here, as the reference's trainer has no
 pipeline.
 
-Not ported: the orbax layout and ``set_data_pipeline`` (ROADMAP queue A,
-item 7), ``serve_metrics`` and ``account_collectives`` (item 8) and a
-weight stream from a mesh of several ranks; each raises.
+Not ported: the orbax layout (ROADMAP queue A, item 7), ``serve_metrics``
+and ``account_collectives`` (item 8) and a weight stream from a mesh of
+several ranks; each raises.
 """
 from __future__ import annotations
 
@@ -443,6 +443,7 @@ class SpmdTrainer(TelemetryHealth):
         self._step_count = 0
         self._weight_stream = None
         self._input_transform = None
+        self._data_pipeline = None
         self._init_telemetry()
         self._ckpt = None               # (path, every_steps, keep)
         self._ckpt_mgr = None
@@ -623,8 +624,14 @@ class SpmdTrainer(TelemetryHealth):
         return self
 
     def set_data_pipeline(self, dataset):
-        _unported("set_data_pipeline (data/sharded.py's cursor in the "
-                  "checkpoint)", "item 7")
+        """Attach a cursor-capable streaming dataset
+        (:class:`~bigdl_tpu_torch.data.sharded.ShardedRecordDataSet`):
+        every manifest checkpoint then records ``dataset.state()`` — the
+        read position of the last batch consumed — and a restore
+        re-positions the stream, so that a preempted run neither re-sees
+        nor skips a sample.  Feed :meth:`fit` from ``dataset.stream()``."""
+        self._data_pipeline = dataset
+        return self
 
     def serve_metrics(self, port: int = 0, host: str = "127.0.0.1",
                       watchdog: bool = True):
@@ -1033,6 +1040,10 @@ class SpmdTrainer(TelemetryHealth):
                         shards[name] = host[name]
         meta = {"step": self._step_count, "seed": self.seed,
                 "root": self.model.name}
+        if self._data_pipeline is not None:
+            # the cursor does not depend on the mesh (the pipeline feeds
+            # the global batch), so it survives a reshard unchanged
+            meta["data_cursor"] = self._data_pipeline.state()
         mgr.save(shards, meta, tag=tag or f"step_{self._step_count}",
                  sync=sync, mesh=dict(self._mesh_info), owned=owned,
                  trace_ctx=None if self._trace_ctx is None
@@ -1118,6 +1129,13 @@ class SpmdTrainer(TelemetryHealth):
             for t, v in blocks:
                 t.copy_(torch.as_tensor(np.array(v)))
         if resharding:
+            n_leaves = len(blocks)
+            rec.inc("elastic/reshards")
+            rec.inc("elastic/resharded_leaves", n_leaves)
+            rec.emit_record("elastic_event", kind="reshard",
+                            step=meta.get("step"), saved_mesh=saved_mesh,
+                            target_mesh=dict(self._mesh_info),
+                            leaves=n_leaves)
             onto = "one device" if self._m is None else \
                 f"rank {self._m.rank} of the mesh"
             print(f"[elastic] restored onto {onto}: "
@@ -1125,6 +1143,9 @@ class SpmdTrainer(TelemetryHealth):
                   flush=True)
         self._step_count = int(meta["step"])
         self.seed = int(meta.get("seed", self.seed))
+        cursor = meta.get("data_cursor")
+        if cursor is not None and self._data_pipeline is not None:
+            self._data_pipeline.restore(cursor)
         return self
 
     def set_checkpoint(self, path: str, every_steps: int = 1000,
@@ -1218,10 +1239,12 @@ class SpmdTrainer(TelemetryHealth):
         t0 = time.time()
         if self._watchdog is not None:
             self._watchdog.start()      # re-arms after a previous fit()
+        if steps is not None:
+            # never pull a batch past the last step: a data pipeline's
+            # cursor counts every batch taken
+            batches = itertools.islice(batches, steps)
         try:
             for i, (tokens, targets) in enumerate(batches):
-                if steps is not None and i >= steps:
-                    break
                 try:
                     loss = self.step(tokens, targets)
                 except DivergenceError as e:

@@ -11,8 +11,12 @@ nowhere, as they do on the reference's default (disabled) process
 recorder.  Every caller of the port (the registry's swap, the canary's
 staging) uses the same budget, so it is a constant here.
 
-The reference's wall-clock deadline, injectable classifier, RNG and
-hooks come back when a port caller needs them.
+``jitter=False`` gives the deterministic ``min(BASE * 2**(n-1),
+MAX_DELAY)`` schedule (the elastic supervisor's), and ``rng`` a seeded
+``random.Random`` for the jitter (the data plane's workers, so that a
+resumed run schedules its retries as the first did).  The reference's
+wall-clock deadline, injectable classifier and hooks come back when a
+port caller needs them.
 """
 from __future__ import annotations
 
@@ -62,9 +66,14 @@ class RetryPolicy:
                  recorder_fn: Optional[Callable] = None,
                  max_attempts: Optional[int] = None,
                  base: Optional[float] = None,
-                 max_delay: Optional[float] = None):
+                 max_delay: Optional[float] = None,
+                 jitter: bool = True, rng=None):
         self.name = name
         self._rec_fn = recorder_fn
+        self.jitter = bool(jitter)
+        # without one, the draws come from the random module's stream
+        self._rng = random if rng is None else (
+            random.Random(rng) if isinstance(rng, int) else rng)
         if max_attempts is not None:
             self.MAX_ATTEMPTS = max(1, int(max_attempts))
         if base is not None:
@@ -73,10 +82,10 @@ class RetryPolicy:
             self.MAX_DELAY = float(max_delay)
 
     def delay_for(self, attempt: int) -> float:
-        """Backoff before retry ``attempt`` (1-based), drawn from the
-        ``random`` module."""
+        """Backoff before retry ``attempt`` (1-based): drawn from
+        ``rng``, or with ``jitter=False`` the cap itself."""
         cap = min(self.BASE * (2 ** (max(attempt, 1) - 1)), self.MAX_DELAY)
-        return random.uniform(0.0, cap)
+        return self._rng.uniform(0.0, cap) if self.jitter else cap
 
     def run(self, fn: Callable, *args, **kwargs):
         """Call ``fn`` until it returns, a fatal error raises, or the
@@ -96,6 +105,15 @@ class RetryPolicy:
                 delay = self.delay_for(attempt)
                 self._count("retry/attempts")
                 time.sleep(delay)
+
+    def count_attempt(self):
+        """One ``retry/attempts`` count, for a caller that drives its own
+        retry loop off :meth:`delay_for` (the elastic supervisor)."""
+        self._count("retry/attempts")
+
+    def count_giveup(self):
+        """One ``retry/giveups`` count; see :meth:`count_attempt`."""
+        self._count("retry/giveups")
 
     def _count(self, counter: str):
         try:

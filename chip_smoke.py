@@ -367,6 +367,37 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 kernels' run routed (step 1's gradients a leaf, every
                 step's loss); the aux term in the loss, the step time,
                 tokens/s and peak memory.
+ 16. data_elastic — the sharded data plane, module files and the
+                elastic supervisor.  (a) ``base`` through ``SpmdTrainer``
+                with ``AdamW(3e-4, fused=True)``, fed by
+                ``ShardedRecordDataSet`` over 16 TFRecord shards x 512
+                records of 513 int32 tokens written from a numpy seed (4
+                workers, staging 2, ``HostToDevice`` on the staging
+                thread), 12 steps at batch 8 x 512 with a manifest
+                checkpoint every 4 and the data cursor in it; each run
+                in a process of its own
+                (``chip_smoke.py --data-elastic-child``): uninterrupted,
+                SIGTERM as batch 6 is pulled (``preempt_step_6``), and a
+                resume: losses and parameters bitwise, record ids
+                exactly once, K1 = K2 = K3 = 12 and K4 = 1 a step.
+                Readings: step ms fed by the pipeline beside the same
+                trainer fed from memory, ``data/input_stall_seconds`` a
+                step, the pipeline's records/s alone, the device's busy
+                share over 4 pipeline-fed steps (torch.profiler).
+                (b) The trained model's module file (``save_module``),
+                loaded in a fresh process (``load_module``) and served
+                through ``ServingEngine`` (8 one-row requests): logits
+                bitwise the trained model's served the same way, equal
+                ``topology_dict``; MB, save s, load s.  (c)
+                ``ElasticSupervisor`` at world size 1 over NCCL (``base``
+                widths, 4 layers): uninterrupted, then SIGTERM after step
+                5, a final checkpoint, replan ``{"dp": 1}``, resume:
+                losses bitwise, ``elastic/*`` counters as the
+                reference's, the ranks' launches K1 = K2 = K3 = 4 and K4
+                = 1 a step.  (d) LeNet-5 through ``LocalOptimizer`` with
+                ``SGD(0.05)`` (K6) on ``ShardedRecordDataSet(fmt=
+                "fixed")``, SIGTERM as batch 6 is pulled and a resume:
+                parameters bitwise, records exactly once.
 
 Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"training": {...}}`` line, a ``{"stream": {...}}`` line, a
@@ -375,7 +406,7 @@ Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"durable": {...}}`` line, a ``{"lm_long": {...}}`` line, a
 ``{"host_sync": {...}}`` line, a ``{"predictor": {...}}`` line, a
 ``{"spmd": {...}}`` line, a ``{"pipeline_moe": {...}}`` line, a
-``{"phase_s": ...}`` line, a
+``{"data_elastic": {...}}`` line, a ``{"phase_s": ...}`` line, a
 ``{"kernels": [...]}`` line (all six kernels; K1-K4 also with their
 ``long8k`` readings, K4-K6 with their ``bf16_leaves`` readings), the
 card's name and power limit as nvidia-smi gives them, and
@@ -5133,9 +5164,9 @@ def phase_stream(card: str, train_alone_ms: float):
 # phase 11: durable training                                            #
 # --------------------------------------------------------------------- #
 DURABLE_IMAGES, DURABLE_BATCH, DURABLE_EPOCHS = 2048, 256, 2  # 8 steps/epoch
-# checkpoint trigger and retention; every 8 iterations, not 4: the
-# writer needs ~10.7 s a ResNet-50 checkpoint on this host (deflate at
-# ~19 MB/s), and at 4 the runs (a) and (b) alone took ~165 s of the
+# checkpoint trigger and retention; every 8 iterations, not 4: when the
+# writer deflated its entries it needed ~10.7 s a ResNet-50 checkpoint
+# (~19 MB/s), and at 4 the runs (a) and (b) alone took ~165 s of the
 # phase's ~150 s budget
 DURABLE_EVERY, DURABLE_KEEP = 8, 2
 DURABLE_PREEMPT_AT = 6          # SIGTERM once the child prints this iteration
@@ -5406,17 +5437,19 @@ def durable_child(spec: dict) -> None:
     print("CHILD DONE", flush=True)
 
 
-def _spawn_child(spec, fault=None, sigterm_at=None, flag="--durable-child"):
+def _spawn_child(spec, fault=None, sigterm_at=None, flag="--durable-child",
+                 on_line=None):
     """Run ``durable_child(spec)`` (``flag="--lm-durable-child"``:
     ``lm_durable_child``) in a new process of this script; with
-    ``sigterm_at``, send it SIGTERM once it prints ``iter <n>``.  Returns
-    ``(exit code, output)``."""
+    ``sigterm_at``, send it SIGTERM once it prints ``iter <n>``;
+    ``on_line(line)`` sees each line it prints.  Returns ``(exit code,
+    output)``."""
     import signal
     env = dict(os.environ)
     env.pop("BIGDL_CKPT_FAULT", None)
     if fault:
         env["BIGDL_CKPT_FAULT"] = fault
-    if flag == "--lm-durable-child":
+    if flag in ("--lm-durable-child", "--data-elastic-child"):
         # cuBLAS's deterministic workspace: the LM child asks for
         # deterministic algorithms (set before its first CUDA call)
         env.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -5429,6 +5462,8 @@ def _spawn_child(spec, fault=None, sigterm_at=None, flag="--durable-child"):
         deadline = time.monotonic() + DURABLE_CHILD_TIMEOUT
         for line in p.stdout:
             lines.append(line)
+            if on_line is not None:
+                on_line(line)
             if (sigterm_at is not None
                     and line.strip() == f"iter {sigterm_at}"):
                 p.send_signal(signal.SIGTERM)
@@ -5564,7 +5599,7 @@ def _per_save(counters, saves):
     """ms a checkpoint of each writer part, from the child's counters."""
     return {part: counters.get(f"checkpoint/{key}_seconds", 0.0) * 1e3
             / max(saves, 1)
-            for part, key in (("encode_deflate", "encode"),
+            for part, key in (("encode", "encode"),
                               ("crc32c", "crc"), ("write_fsync", "io"),
                               ("commit_gc", "commit"),
                               ("writer_total", "write"),
@@ -6152,10 +6187,13 @@ def lm_durable_child(spec: dict) -> None:
                 print(f"iter {tr._step_count}", flush=True)
             yield batches[i]
     _build.reset_launch_counts()
+    if cuda and kind == "a":
+        # switched on before the recording starts: the switch reports
+        # itself as a synchronizing call (torch.cuda.set_sync_debug_mode;
+        # the 14th sync of ROADMAP C2c), which is not the loop's
+        torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        if cuda and kind == "a":
-            torch.cuda.set_sync_debug_mode("warn")
         try:
             got = tr.fit(feed())
         finally:
@@ -6164,6 +6202,12 @@ def lm_durable_child(spec: dict) -> None:
     if cuda:
         torch.cuda.synchronize()
     syncs = sum("synchroniz" in str(w.message) for w in caught)
+    # where each sync came from (file:line of the call that made it)
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[key] = sites.get(key, 0) + 1
     tr.recorder.flush()
     with open(os.path.join(work, f"{kind}.jsonl")) as f:
         recs = [json.loads(line) for line in f]
@@ -6173,6 +6217,7 @@ def lm_durable_child(spec: dict) -> None:
            "losses": got, "records": steps_seen,
            "launches": _build.launch_counts(),
            "host_syncs": syncs if cuda and kind == "a" else None,
+           "host_sync_sites": sites if cuda and kind == "a" else None,
            "rollbacks": None if mon is None else mon.rollbacks}
     arrays = {}
     for n, sub in tr.params.items():
@@ -6270,6 +6315,7 @@ def _lm_durable_leg(device, fails):
             "a_finite": bool(np.all(np.isfinite(a["losses"]))),
             "a_records": a["records"] == list(range(r["steps"])),
             "a_host_syncs": a["host_syncs"],
+            "a_host_sync_sites": a.get("host_sync_sites"),
             "preempted_at": cut, "b1_tags": b1["tags"], **same,
             "c_rollbacks": c["rollbacks"], "c_losses": c["losses"],
             "c_records": c["records"], "c_step_count": c["step_count"]}
@@ -7693,6 +7739,650 @@ def phase_pipeline_moe(card: str, device: str = "cuda", small: bool = False):
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase_data_elastic: the sharded data plane, module files, the elastic  #
+# supervisor                                                            #
+# --------------------------------------------------------------------- #
+# (a)/(b)/(c) at TransformerLM base: 16 TFRecord shards x 512 records of
+# 513 int32 tokens (an int32 record id in front), 4 workers, staging 2;
+# (d) LeNet-5 over fixed-length records.
+DE = dict(preset="base", batch=8, seq=512, shards=16, per_shard=512,
+          workers=4, staging=2, steps=12, every=4, preempt_after=6,
+          lr=3e-4, requests=8, lenet_files=4, lenet_per_file=256,
+          lenet_batch=32, lenet_steps=16, lenet_every=4, lenet_preempt=6,
+          pipeline_batches=64)
+DE_SMALL = dict(DE, preset="tiny", seq=64, shards=4, per_shard=24,
+                workers=2, lenet_per_file=64, lenet_batch=8,
+                pipeline_batches=16)
+LENET_IMG = 28 * 28
+
+
+def _de_cfg(small):
+    return DE_SMALL if small else DE
+
+
+def _de_shards(work, cfg, vocab):
+    """The phase's TFRecord shards, from a numpy seed."""
+    from bigdl_tpu_torch.utils.tfrecord import write_tfrecords
+    rs = np.random.RandomState(19)
+    paths, gid = [], 0
+    for f in range(cfg["shards"]):
+        toks = rs.randint(0, vocab, (cfg["per_shard"], cfg["seq"] + 1)) \
+            .astype(np.int32)
+        recs = []
+        for row in toks:
+            recs.append(np.int32(gid).tobytes() + row.tobytes())
+            gid += 1
+        p = os.path.join(work, f"shard{f:02d}.tfr")
+        write_tfrecords(p, recs)
+        paths.append(p)
+    return paths
+
+
+def _de_decode(b):
+    t = np.frombuffer(b, np.int32)
+    return t[1:-1], t[2:], int(t[0])
+
+
+def _de_collate(samples):
+    xs, ys, ids = zip(*samples)
+    return np.stack(xs), np.stack(ys), np.array(ids)
+
+
+def _de_dataset(paths, cfg, device, recorder=None):
+    """The pipeline: workers decode, the stager copies each batch to the
+    card (``HostToDevice``: pinned buffers, a side stream, one event a
+    batch); the record ids ride beside, on the host."""
+    from bigdl_tpu_torch.data.device_loader import HostToDevice
+    from bigdl_tpu_torch.data.sharded import ShardedRecordDataSet
+    h2d = HostToDevice(device, cfg["staging"] + 1)
+
+    def place(batch):
+        x, y, ids = batch
+        return h2d((x, y)), ids
+    return ShardedRecordDataSet(
+        paths, "tfrecord", _de_decode, batch_size=cfg["batch"],
+        n_workers=cfg["workers"], staging_depth=cfg["staging"], seed=7,
+        collate=_de_collate, place_fn=place, recorder=recorder)
+
+
+def _de_feed(ds, ids_log, events, sigterm_after=None):
+    """``fit``'s feed: each batch taken on this thread (the stream waits
+    on its copy), its record ids logged and an event recorded as the
+    trainer pulls it; with ``sigterm_after``, SIGTERM to this process as
+    that batch is pulled (the step still runs, then fit stops)."""
+    import signal
+    for staged, ids in ds.stream():
+        x, y = staged.take()
+        ids_log.append([int(i) for i in ids])
+        if events is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        if sigterm_after is not None and len(ids_log) == sigterm_after:
+            signal.raise_signal(signal.SIGTERM)
+        yield x, y
+
+
+def _de_trainer(cfg, device, n_layers=None, mesh=None):
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.optim import AdamW
+    from bigdl_tpu_torch.parallel import SpmdTrainer
+    kw = {} if n_layers is None else {"n_layers": n_layers}
+    model = T.build(cfg["preset"], device=device, seed=0, **kw)
+    return SpmdTrainer(model, AdamW(learning_rate=cfg["lr"],
+                                    fused=str(device) != "cpu"),
+                       mesh=mesh, device=device)
+
+
+def _params_digest(model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _digest(arr) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _de_serve(model, cfg, vocab, device):
+    """8 requests of one row each through ServingEngine, one at a time
+    (the same batches in any run): the logits, the K1 launches and the
+    wall time."""
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.serving import ModelRegistry, ServingEngine
+    rs = np.random.RandomState(23)
+    xs = [rs.randint(0, vocab, (1, cfg["seq"])).astype(np.int32)
+          for _ in range(cfg["requests"])]
+    reg = ModelRegistry()
+    reg.register("lm", model, input_shape=(cfg["seq"],), dtype=np.int32)
+    eng = ServingEngine(reg, max_batch=8)
+    try:
+        eng.warmup()
+        _build.reset_launch_counts()
+        t = time.monotonic()
+        out = [np.asarray(eng.submit("lm", x).result(timeout=300))
+               for x in xs]
+        wall = time.monotonic() - t
+        launches = _build.launch_counts()
+    finally:
+        eng.shutdown(drain=True)
+    return np.stack(out), launches, wall
+
+
+def _de_step_ms(events):
+    """Device ms between consecutive pulls (each is one step on the
+    card's timeline, a wait for the host included); the first step
+    (warm-up) is left out."""
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(events[1:-1], events[2:])]
+    return float(np.median(ms)) if ms else float("nan"), ms
+
+
+def data_elastic_child(spec: dict) -> None:
+    """One run of ``phase_data_elastic`` in a process of its own: the
+    uninterrupted run (a), the run preempted after step 6 (b1), its
+    resume (b2), or the module file loaded and served (load)."""
+    from bigdl_tpu_torch.observability import Recorder
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.utils import serializer
+    device, kind, work = spec["device"], spec["kind"], spec["work"]
+    cfg = _de_cfg(spec["small"])
+    cuda = device != "cpu"
+    _durable_setup(device)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {"kind": kind}
+    vocab = spec["vocab"]
+    if kind == "load":
+        t = time.monotonic()
+        model = serializer.load_module(spec["module"], device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        out["load_s"] = time.monotonic() - t
+        logits, launches, wall = _de_serve(model, cfg, vocab, device)
+        out.update(logits=_digest(logits), logits_shape=logits.shape,
+                   topology=serializer.topology_dict(model),
+                   serve_launches=launches, serve_s=wall)
+    else:
+        rec = Recorder()
+        tr = _de_trainer(cfg, device)
+        ds = _de_dataset(spec["paths"], cfg, device, rec)
+        tr.set_data_pipeline(ds)
+        tr.set_checkpoint(spec["ckpt"], every_steps=cfg["every"], keep=2,
+                          handle_preemption=kind == "b1")
+        if kind == "b2":
+            tr.load_checkpoint(spec["ckpt"])
+        start = tr._step_count
+        ids, events = [], [] if cuda else None
+        _build.reset_launch_counts()
+        t = time.monotonic()
+        losses = tr.fit(_de_feed(ds, ids, events,
+                                 cfg["preempt_after"] if kind == "b1"
+                                 else None), steps=cfg["steps"] - start)
+        if cuda:
+            torch.cuda.synchronize()
+        out.update(start=start, step_count=tr._step_count, losses=losses,
+                   ids=ids, fit_s=time.monotonic() - t,
+                   launches=_build.launch_counts(),
+                   stall_s=rec.counter_value("data/input_stall_seconds"),
+                   digest=_params_digest(tr.model))
+        if cuda:
+            out["step_ms_median"], out["step_ms"] = _de_step_ms(events)
+        if kind == "a":
+            if cuda:
+                out["memory"] = _de_memory_run(cfg, device, spec["paths"])
+                out["profile"] = _de_pipeline_profile(cfg, device,
+                                                      spec["paths"])
+            # the timed part is over: the parent starts b1 beside the rest
+            print("A TRAINED", flush=True)
+            logits, launches, wall = _de_serve(tr.model, cfg, vocab, device)
+            out.update(logits=_digest(logits), logits_shape=logits.shape,
+                       logits_finite=bool(np.isfinite(logits).all()))
+            t = time.monotonic()
+            serializer.save_module(tr.model, spec["module"])
+            out.update(save_s=time.monotonic() - t,
+                       module_mb=os.path.getsize(spec["module"]) / 1e6,
+                       topology=serializer.topology_dict(tr.model),
+                       serve_launches=launches, serve_s=wall)
+    with open(os.path.join(work, f"{kind}.json"), "w") as f:
+        json.dump(out, f)
+    print("CHILD DONE", flush=True)
+
+
+def _de_memory_run(cfg, device, paths):
+    """The same trainer fed from memory: the first ``steps`` batches of
+    the same stream, already on the card; device ms a step as above."""
+    from bigdl_tpu_torch.data.sharded import ShardedRecordDataSet
+    host = ShardedRecordDataSet(paths, "tfrecord", _de_decode,
+                                batch_size=cfg["batch"],
+                                n_workers=cfg["workers"], seed=7,
+                                collate=_de_collate)
+    batches = []
+    for x, y, _ in host.stream():
+        batches.append((torch.as_tensor(x, device=device),
+                        torch.as_tensor(y, device=device)))
+        if len(batches) == cfg["steps"]:
+            break
+    tr = _de_trainer(cfg, device)
+    events = []
+
+    def feed():
+        for b in batches:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            yield b
+    tr.fit(feed())
+    med, ms = _de_step_ms(events)
+    return {"step_ms_median": med, "step_ms": ms}
+
+
+def _de_pipeline_profile(cfg, device, paths, warm=2, steps=4):
+    """The device's busy share (torch.profiler) over ``steps`` steps of a
+    fresh trainer fed by the pipeline, after ``warm`` steps."""
+    import itertools
+    tr = _de_trainer(cfg, device)
+    feed = _de_feed(_de_dataset(paths, cfg, device), [], None)
+    try:
+        tr.fit(itertools.islice(feed, warm))
+        return profile_steps(lambda: tr.fit(itertools.islice(feed, steps)),
+                             steps=steps)
+    finally:
+        feed.close()
+
+
+def _de_pipeline_alone(paths, cfg, device):
+    """The pipeline's records/s with nothing consuming but the drain."""
+    ds = _de_dataset(paths, cfg, device)
+    n, t = 0, time.monotonic()
+    for staged, ids in ds.stream():
+        staged.take()
+        n += len(ids)
+        if n >= cfg["pipeline_batches"] * cfg["batch"]:
+            break
+    if str(device) != "cpu":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    return {"records": n, "wall_s": wall, "records_per_s": n / wall}
+
+
+def _de_elastic_factory(mesh):
+    """(c)'s trainer on the supervisor's mesh: ``base`` widths, depth
+    ``DE_ELASTIC_LAYERS`` (module-level: each rank imports it)."""
+    cfg = _de_cfg(mesh.device.type == "cpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    if mesh.device.type == "cpu":
+        torch.set_num_threads(1)
+    return _de_trainer(cfg, mesh.device, n_layers=DE_ELASTIC_LAYERS,
+                       mesh=mesh)
+
+
+DE_ELASTIC_LAYERS = 4
+
+
+def _de_elastic(work, cfg, vocab, device, fails):
+    """(c) ``ElasticSupervisor`` at world size 1, SIGTERM after step 5 (a
+    final checkpoint, replan ``{"dp": 1}``, resume): losses bitwise the
+    same trainer run uninterrupted here on one device (a mesh of one
+    rank over NCCL is bitwise one device, as ``phase_spmd`` holds), the
+    ``elastic/*`` counters as the reference's, and on the card the
+    ranks' launches K1 = K2 = K3 = layers x steps and K4 = 1 a step."""
+    import signal
+
+    from bigdl_tpu_torch.elastic import ElasticSupervisor
+    from bigdl_tpu_torch.observability import InMemorySink, Recorder
+    rs = np.random.RandomState(31)
+    data = [rs.randint(0, vocab, (cfg["batch"], cfg["seq"] + 1))
+            .astype(np.int32) for _ in range(cfg["steps"])]
+
+    def batch(s):
+        return data[s][:, :-1], data[s][:, 1:]
+
+    def run(name, sigterm_at=None):
+        rec = Recorder(sinks=[InMemorySink()])
+        fired = []
+
+        def batch_fn(s):
+            if s == sigterm_at and not fired:
+                fired.append(s)
+                signal.raise_signal(signal.SIGTERM)
+            return batch(s)
+        sup = ElasticSupervisor(
+            _de_elastic_factory, os.path.join(work, f"elastic_{name}"),
+            {"dp": 1}, capacity_fn=lambda: 1, recorder=rec,
+            ckpt_every=cfg["every"], replan_every=0, handle_sigterm=True,
+            device=device)
+        t = time.monotonic()
+        losses = sup.run(batch_fn, steps=cfg["steps"])
+        return losses, rec, time.monotonic() - t, sup.kernel_launches
+
+    t = time.monotonic()
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        tr = _de_trainer(cfg, device, n_layers=DE_ELASTIC_LAYERS)
+        base = tr.fit(batch(s) for s in range(cfg["steps"]))
+        del tr
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    base_s = time.monotonic() - t
+    got, rec, got_s, launches = run("preempted",
+                                    sigterm_at=cfg["preempt_after"] - 1)
+    kinds = [r["kind"] for r in rec.recent_records()
+             if r.get("type") == "elastic_event"]
+    counters = {k: rec.counter_value(k) for k in (
+        "elastic/preemptions", "elastic/resumes", "elastic/shrinks",
+        "elastic/regrows", "elastic/failures", "elastic/reshards")}
+    out = {"layers": DE_ELASTIC_LAYERS, "uninterrupted_s": base_s,
+           "preempted_s": got_s, "losses_bitwise": got == base,
+           "events": kinds, "counters": counters, "losses": got,
+           "launches": launches}
+    if device != "cpu":
+        # the ranks' launches: every step of both segments on K1–K4
+        per_layer = DE_ELASTIC_LAYERS * cfg["steps"]
+        want = {"flash_fwd": per_layer, "flash_bwd_dkv": per_layer,
+                "flash_bwd_dq": per_layer, "fused_adam": cfg["steps"]}
+        out["launches_ok"] = all(launches.get(n) == c
+                                 for n, c in want.items())
+    log(f"data_elastic (c) elastic: {json.dumps(out)}")
+    if not (got == base and len(got) == cfg["steps"]
+            and kinds == ["preemption", "resume"]
+            and counters["elastic/preemptions"] == 1
+            and counters["elastic/resumes"] == 1
+            and counters["elastic/shrinks"] == 0
+            and counters["elastic/failures"] == 0
+            and counters["elastic/reshards"] == 0
+            and out.get("launches_ok", True)):
+        fails.append(f"(c) elastic: {out}")
+    return out
+
+
+def _lenet_shards(work, cfg):
+    rs = np.random.RandomState(37)
+    paths, gid = [], 0
+    for f in range(cfg["lenet_files"]):
+        p = os.path.join(work, f"lenet{f}.bin")
+        with open(p, "wb") as fh:
+            for _ in range(cfg["lenet_per_file"]):
+                fh.write(rs.randint(0, 256, LENET_IMG).astype(np.uint8)
+                         .tobytes())
+                fh.write(np.array([gid, gid % 10 + 1], np.int32).tobytes())
+                gid += 1
+        paths.append(p)
+    return paths
+
+
+def _lenet_decode(b):
+    x = np.frombuffer(b[:LENET_IMG], np.uint8).reshape(28, 28)
+    return (x / np.float32(255)).astype(np.float32), \
+        np.float32(np.frombuffer(b[-4:], np.int32)[0])
+
+
+def _de_lenet(work, cfg, device, fails):
+    """(d) LeNet-5 through LocalOptimizer with plain SGD (K6), fed by
+    ``ShardedRecordDataSet(fmt="fixed")``: uninterrupted, then SIGTERM as
+    batch ``lenet_preempt`` is pulled (a final checkpoint) and a resume
+    by a fresh optimizer; parameters bitwise, records exactly once."""
+    import signal
+
+    from bigdl_tpu_torch.checkpoint import scan
+    from bigdl_tpu_torch.data.sharded import ShardedRecordDataSet
+    from bigdl_tpu_torch.models import lenet
+    from bigdl_tpu_torch.nn import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import SGD, LocalOptimizer, Trigger
+    paths = _lenet_shards(work, cfg)
+    rec_bytes = LENET_IMG + 8
+
+    class Preempting(ShardedRecordDataSet):
+        """SIGTERM to this process as the ``at``-th batch is pulled."""
+        at = None
+
+        def data(self, train=True, epoch=None):
+            it = super().data(train, epoch)
+            if not train or self.at is None:
+                return it
+            return _PullCounter(it, self)
+
+    class _PullCounter:
+        def __init__(self, it, ds):
+            self.it, self.ds = it, ds
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            b = next(self.it)
+            self.ds.pulled = getattr(self.ds, "pulled", 0) + 1
+            if self.ds.pulled == self.ds.at:
+                signal.raise_signal(signal.SIGTERM)
+            return b
+
+        def close(self):
+            self.it.close()
+
+    def optimizer(ckpt, at=None):
+        model = lenet.build(10, device=device, seed=0)
+        ds = Preempting(paths, "fixed", _lenet_decode,
+                        batch_size=cfg["lenet_batch"], record_bytes=rec_bytes,
+                        n_workers=2, seed=1)
+        ds.at = at
+        opt = LocalOptimizer(model, ds, ClassNLLCriterion(), device=device)
+        opt.set_optim_method(SGD(learning_rate=0.05, fused=True)) \
+            .set_end_when(Trigger.max_iteration(cfg["lenet_steps"]))
+        if ckpt is not None:
+            opt.set_checkpoint(ckpt, Trigger.several_iteration(
+                cfg["lenet_every"]), handle_preemption=True)
+        return model, opt
+
+    ck = os.path.join(work, "lenet_ck")
+    # deterministic cuDNN convolutions: three runs compared bit for bit
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    t = time.monotonic()
+    _build.reset_launch_counts()
+    ma, oa = optimizer(None)
+    oa.optimize()
+    launches = _build.launch_counts()
+    _, ob1 = optimizer(ck, at=cfg["lenet_preempt"])
+    ob1.optimize()
+    ob1._preemption.uninstall()
+    tags = [m.tag for _, m in scan(ck)]
+    cursor = scan(ck)[-1][1].meta["data_cursor"]
+    mb, ob2 = optimizer(ck)
+    ob2.optimize()
+    ob2._preemption.uninstall()
+    same = all(torch.equal(a, b) for a, b in zip(
+        [v for _, v in sorted(ma.state_dict().items())],
+        [v for _, v in sorted(mb.state_dict().items())]))
+
+    def drain(ds, n, epoch):
+        out = []
+        while len(out) < n:
+            for x, _ in ds.data(train=True, epoch=epoch):
+                out.append(x.reshape(len(x), -1)[:, 0].tolist())
+                if len(out) == n:
+                    break
+            epoch += 1
+        return out
+
+    def ids_ds():
+        return ShardedRecordDataSet(
+            paths, "fixed", lambda b: (np.frombuffer(
+                b[LENET_IMG:LENET_IMG + 4], np.int32).copy(), None),
+            batch_size=cfg["lenet_batch"], record_bytes=rec_bytes,
+            n_workers=2, seed=1)
+    k = cfg["lenet_preempt"]
+    want = drain(ids_ds(), cfg["lenet_steps"], 1)
+    rest = drain(ids_ds().restore(cursor), cfg["lenet_steps"] - k,
+                 cursor["epoch"])
+    n = cfg["lenet_files"] * cfg["lenet_per_file"]
+    first = [i for b in want[:n // cfg["lenet_batch"]] for i in b]
+    out = {"preempt_tag": tags[-1], "params_bitwise": same,
+           "exactly_once": want[:k] + rest == want
+           and len(set(first)) == len(first),
+           "iterations": ob2.state.iteration, "launches": launches,
+           "s": time.monotonic() - t}
+    log(f"data_elastic (d) lenet: {json.dumps(out)}")
+    if not (same and out["exactly_once"]
+            and tags[-1] == f"preempt_iter_{k}"
+            and ob2.state.iteration == cfg["lenet_steps"]
+            and (device == "cpu" or launches.get("fused_sgd_plain")
+                 == cfg["lenet_steps"])):
+        fails.append(f"(d) lenet: {out}")
+    return out
+
+
+def phase_data_elastic(card: str, device: str = "cuda", small: bool = False):
+    """The sharded data plane, module files and the elastic supervisor on
+    the card: (a) TransformerLM ``base`` trained 12 steps through
+    SpmdTrainer fed by ShardedRecordDataSet, uninterrupted, preempted
+    after step 6 and resumed (each in a process of its own; bitwise,
+    exactly once, K1–K4 counted); (b) its module file loaded in a fresh
+    process and served (bitwise logits, equal topology); (c)
+    ElasticSupervisor at world size 1 over NCCL; (d) LeNet-5 through
+    LocalOptimizer on fixed-length records (K6).  ``device="cpu",
+    small=True`` rehearses it on the CPU (``tiny``, no launch counts or
+    device times)."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.ops import _build
+    t0 = time.monotonic()
+    cfg = _de_cfg(small)
+    fails = []
+    cuda = device != "cpu"
+    threads = torch.get_num_threads()
+    if cuda:
+        torch.cuda.empty_cache()    # the children need the card's memory
+    else:
+        # (c) and (d) compare runs of this process with the children's
+        # and each other bit for bit: one thread, as the children run
+        torch.set_num_threads(1)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="data_elastic_",
+                            dir=str(_build.BUILD_DIR))
+    vocab = T.PRESETS[cfg["preset"]]["vocab_size"]
+    legs_s = {}
+    try:
+        paths = _de_shards(work, cfg, vocab)
+        alone = _de_pipeline_alone(paths, cfg, device)
+        legs_s["shards_and_pipeline"] = time.monotonic() - t0
+        module = os.path.join(work, "base.bigdl")
+        spec = {"device": device, "work": work, "small": small,
+                "paths": paths, "vocab": vocab, "module": module,
+                "ckpt": os.path.join(work, "ck_b")}
+
+        def child(kind, on_line=None):
+            rc, _ = _spawn_child({**spec, "name": kind, "kind": kind,
+                                  "ckpt": os.path.join(
+                                      work, "ck_a" if kind == "a"
+                                      else "ck_b")},
+                                 flag="--data-elastic-child", on_line=on_line)
+            if rc != 0:
+                raise AssertionError(f"data_elastic child {kind} exited {rc}")
+            with open(os.path.join(work, f"{kind}.json")) as f:
+                return json.load(f)
+        # b1 starts once a's timed runs are over (a then serves and writes
+        # its module file, on the host mostly); b2, the module file's load
+        # and (c) here run side by side: nothing timed among them is read
+        # against another run
+        pool = ThreadPoolExecutor(3)
+        started = {}
+
+        def a_line(line):
+            if line.strip() == "A TRAINED" and "b1" not in started:
+                started["b1"] = pool.submit(child, "b1")
+        runs = {"a": child("a", on_line=a_line)}
+        runs["b1"] = started["b1"].result()
+        legs_s["a_b1"] = time.monotonic() - t0 - sum(legs_s.values())
+        later = {k: pool.submit(child, k) for k in ("b2", "load")}
+        t = time.monotonic()
+        try:
+            elastic = _de_elastic(work, cfg, vocab, device, fails)
+        finally:
+            legs_s["c"] = time.monotonic() - t
+            runs.update({k: f.result() for k, f in later.items()})
+            pool.shutdown()
+        legs_s["b2_load_c"] = time.monotonic() - t
+        a, b1, b2, ld = (runs[k] for k in ("a", "b1", "b2", "load"))
+        steps, k = cfg["steps"], cfg["preempt_after"]
+        flat = [i for b in a["ids"] for i in b]
+        per_epoch = cfg["shards"] * cfg["per_shard"] // cfg["batch"]
+        checks = {
+            "b1_stopped_at": b1["step_count"], "b2_start": b2["start"],
+            "losses_bitwise": b1["losses"] == a["losses"][:k]
+            and b2["losses"] == a["losses"][k:],
+            "params_bitwise": b2["digest"] == a["digest"],
+            "ids_exactly_once": b1["ids"][:k] + b2["ids"] == a["ids"]
+            and len(a["ids"]) == steps
+            and len(set(flat[:per_epoch * cfg["batch"]]))
+            == min(steps, per_epoch) * cfg["batch"],
+            "module_logits_bitwise": a["logits"] == ld["logits"]
+            and a["logits_finite"]
+            and a["logits_shape"] == [cfg["requests"], 1, cfg["seq"], vocab],
+            "topology_equal": a["topology"] == ld["topology"]}
+        n_layers = T.PRESETS[cfg["preset"]]["n_layers"]
+        launches = a["launches"]
+        if cuda:
+            want = {"flash_fwd": n_layers * steps,
+                    "flash_bwd_dkv": n_layers * steps,
+                    "flash_bwd_dq": n_layers * steps, "fused_adam": steps}
+            checks["launches"] = launches
+            checks["launches_ok"] = all(launches.get(n) == c
+                                        for n, c in want.items())
+            checks["serve_launches_ok"] = (
+                a["serve_launches"].get("flash_fwd")
+                == ld["serve_launches"].get("flash_fwd")
+                == n_layers * cfg["requests"])
+        log(f"data_elastic (a)(b): {json.dumps(checks)}")
+        if not (b1["step_count"] == k and b2["start"] == k
+                and all(v for n, v in checks.items()
+                        if n.endswith(("bitwise", "once", "equal", "_ok")))):
+            fails.append(f"(a)/(b): {checks}")
+        readings = {
+            "pipeline_alone": alone, "fit_s": a["fit_s"],
+            "stall_s_per_step": a["stall_s"] / steps,
+            "module_mb": a["module_mb"], "save_s": a["save_s"],
+            "load_s": ld["load_s"], "serve_s": ld["serve_s"]}
+        if cuda:
+            mem, prof = a["memory"], a["profile"] or {}
+            readings.update(
+                step_ms_median=a["step_ms_median"],
+                memory_step_ms_median=mem["step_ms_median"],
+                memory_over_pipeline_step=mem["step_ms_median"]
+                / a["step_ms_median"],
+                device_busy_share=prof.get("device_busy_share"),
+                profile=a["profile"],
+                step_ms=a["step_ms"], memory_step_ms=mem["step_ms"])
+        log(f"data_elastic readings: {json.dumps(readings)}; {card}")
+        t = time.monotonic()
+        lenet_out = _de_lenet(work, cfg, device, fails)
+        legs_s["d"] = time.monotonic() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.set_num_threads(threads)
+    log(f"data_elastic legs: {json.dumps(legs_s)}")
+    if fails:
+        raise AssertionError(f"data_elastic: {fails}")
+    out = {"checks": checks, "readings": readings, "elastic": elastic,
+           "lenet": lenet_out, "legs_s": legs_s,
+           "launches": {"data_elastic": launches,
+                        "data_elastic_supervisor": elastic["launches"],
+                        "data_elastic_serve": ld["serve_launches"],
+                        "data_elastic_lenet": lenet_out["launches"]},
+           "phase_s": time.monotonic() - t0}
+    log(f"data_elastic phase: {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a "
@@ -7748,6 +8438,7 @@ def main() -> int:
     predictor = timed(phase_predictor, card)
     spmd = timed(phase_spmd, card)
     pipe_moe = timed(phase_pipeline_moe, card)
+    data_elastic = timed(phase_data_elastic, card)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
@@ -7765,7 +8456,8 @@ def main() -> int:
                "predictor": predictor["launches"],
                "spmd": spmd["launches"],
                "pipeline": pipe_moe["launches"]["pipeline"],
-               "moe": pipe_moe["launches"]["moe"]}
+               "moe": pipe_moe["launches"]["moe"],
+               **data_elastic["launches"]}
     kernels = [k1, *k23, k4, k5, k6]
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
@@ -7793,6 +8485,7 @@ def main() -> int:
     print(json.dumps({"predictor": predictor}), flush=True)
     print(json.dumps({"spmd": spmd}), flush=True)
     print(json.dumps({"pipeline_moe": pipe_moe}), flush=True)
+    print(json.dumps({"data_elastic": data_elastic}), flush=True)
     print(json.dumps({"phase_s": phase_s,
                       "total_s": time.monotonic() - t0}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -7809,5 +8502,8 @@ if __name__ == "__main__":
         sys.exit(0)
     if len(sys.argv) == 3 and sys.argv[1] == "--lm-durable-child":
         lm_durable_child(json.loads(sys.argv[2]))
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--data-elastic-child":
+        data_elastic_child(json.loads(sys.argv[2]))
         sys.exit(0)
     sys.exit(main())

@@ -428,7 +428,7 @@ def test_health_raises_on_a_nan_step():
 @pytest.mark.parametrize("call", [
     lambda tr: tr.set_checkpoint("/nonexistent", layout="orbax"),
     lambda tr: tr.save_checkpoint("/nonexistent", layout="orbax"),
-    lambda tr: tr.set_data_pipeline(None),
+    lambda tr: tr.set_checkpoint("/nonexistent", layout="tensorstore"),
     lambda tr: tr.serve_metrics(),
     lambda tr: tr.account_collectives(None, None)])
 def test_unported_features_raise_and_name_their_item(call):
