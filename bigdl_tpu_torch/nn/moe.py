@@ -38,9 +38,9 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..observability import collectives as comm
 from .module import Module
 
 
@@ -79,7 +79,7 @@ class TokenGroup:
         e = sel.shape[-1]
         src = sel.reshape(1, k, sl, e).to(torch.int32).contiguous()
         every = src.new_empty((self.size, k, sl, e))
-        dist.all_gather_into_tensor(every, src, group=self.group)
+        comm.all_gather_into_tensor(every, src, group=self.group)
         glob = sel.new_zeros((self.rows[1], self.seq[1], e),
                              dtype=torch.int32)
         for j in range(self.size):
@@ -106,13 +106,13 @@ class _SumOverGroup(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
+        comm.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         out = g.contiguous().clone()
-        dist.all_reduce(out, group=ctx.group)
+        comm.all_reduce(out, group=ctx.group)
         return out, None
 
 
@@ -225,7 +225,7 @@ class SwitchFFN(Module):
                 frac_probs = torch.mean(probs, dim=0)
             else:
                 counts = sel.float().sum(dim=0)
-                dist.all_reduce(counts, group=tokens.group)
+                comm.all_reduce(counts, group=tokens.group)
                 frac_tokens = counts / n_all
                 frac_probs = _SumOverGroup.apply(probs.sum(dim=0),
                                                  tokens.group) / n_all

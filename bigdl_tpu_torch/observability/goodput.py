@@ -25,10 +25,10 @@ Wiring::
     with ledger_phase(rec, "probe_readmission"):
         ...
 
-Not ported: the pool side (``OwnershipLedger``, ``rollup``) and the
-elastic supervisor's state buckets; nothing of the port owns a device pool
-yet.  The Recorder's step records (``end_step``, which calls
-``fold_step``) are ROADMAP queue A, item 8.
+The Recorder's ``end_step`` folds each step (``fold_step``), and the
+introspection server's ``/goodput`` serves :meth:`GoodputLedger.snapshot`.
+Not ported (ROADMAP queue A, A8b): the pool side (``OwnershipLedger``,
+``rollup``) and the elastic supervisor's state buckets.
 """
 from __future__ import annotations
 

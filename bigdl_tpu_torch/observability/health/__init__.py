@@ -9,8 +9,8 @@
     of recent records on divergence, unhandled exception or SIGTERM;
     :func:`read_flight` reads a dump back.
 
-The live HTTP view (``serve_metrics``) is not ported yet (ROADMAP queue
-A, item 8).
+``/healthz`` of the introspection server (``observability.http``,
+``serve_metrics``) reads the watchdog's and the monitor's verdicts.
 """
 from __future__ import annotations
 

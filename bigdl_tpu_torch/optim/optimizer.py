@@ -32,19 +32,22 @@ snapshot on the loop, the write on a background thread; an exact resume
 in the middle of an epoch, the skip taken at the dataset before anything
 is staged; a final checkpoint on SIGTERM), ``set_telemetry`` (a step
 record a step, with :func:`health_scalars` computed in the step, read in
-one host sync), ``set_health`` (the sentinels, a ``rollback`` policy
-restoring the last committed checkpoint, the flight recorder, the stall
-watchdog), ``set_auto_retry`` and ``set_trace_context``.
+one host sync; the first step's cost captured for ``perf/mfu`` and live
+device-memory gauges), ``set_health`` (the sentinels, a ``rollback``
+policy restoring the last committed checkpoint, the flight recorder, the
+stall watchdog), ``set_trace_every`` (a ``torch.profiler`` Chrome trace
+of every n-th step), ``serve_metrics`` (the live ``/metrics``,
+``/healthz`` and ``/records`` server), ``set_auto_retry`` and
+``set_trace_context``.
 ``set_train_summary`` writes Loss and LearningRate an iteration (under
 each tag's trigger), Throughput an epoch and, behind their trigger,
 Parameters histograms; ``set_val_summary`` each validation method's
 result (``bigdl_tpu_torch.visualization``, real tfevents files).
-Profiler traces and the metrics server are not ported yet (ROADMAP queue
-A, item 8); their ``set_*`` raise.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from dataclasses import dataclass
@@ -470,13 +473,6 @@ def to_device(a, device):
         torch.as_tensor(np.asarray(a)).to(device)
 
 
-# set_* of the reference that are not ported: name -> (what, queue item)
-_UNPORTED_SETTERS = {
-    "set_trace_every": ("profiler traces", 8),
-    "serve_metrics": ("the live metrics server", 8),
-}
-
-
 def _host_tree(tree, device):
     """Host arrays (numpy) of a restored tree as new tensors on
     ``device``."""
@@ -501,10 +497,11 @@ def _shapes(tree):
 class TelemetryHealth:
     """The telemetry, tracing and health wiring that :class:`Optimizer`
     and :class:`~bigdl_tpu_torch.parallel.SpmdTrainer` share: the
-    recorder and its goodput ledger, the trace context, the health
-    monitor with its flight recorder and stall watchdog, and the rollback
-    policy.  Each trainer emits its own step records and restores its own
-    checkpoints."""
+    recorder and its goodput ledger, the step cost capture and the memory
+    poller, profiler traces, the introspection server, the trace context,
+    the health monitor with its flight recorder and stall watchdog, and
+    the rollback policy.  Each trainer emits its own step records,
+    captures its own step's cost and restores its own checkpoints."""
 
     def _init_telemetry(self):
         # spans and counters; step records under set_telemetry
@@ -517,22 +514,103 @@ class TelemetryHealth:
         self._flight = None
         self._watchdog = None
         self._max_rollbacks = 2
+        self._capture_cost = True
+        self._cost_pending = False      # set_telemetry arms the capture
+        self._trace_only = False        # telemetry on for set_trace_every
+        self._http_server = None
 
-    def set_telemetry(self, recorder: Recorder, health: bool = True):
+    def set_telemetry(self, recorder: Recorder, health: bool = True,
+                      capture_cost: bool = True):
         """Attach ``recorder``: every step emits one step record (spans
         such as ``h2d`` and ``train_step``; scalars ``loss``,
         ``records``, and with ``health`` the device-side
         :func:`health_scalars`), read with one host sync a step.  The
         recorder also takes the trainer's counters (``checkpoint/*``,
         and the optimizer's ``dataloader/*`` and ``collective/*``), and
-        a goodput ledger is attached when it has none."""
+        a goodput ledger is attached when it has none.
+
+        ``capture_cost`` counts the first step's work (one forward and
+        backward under the FLOP counter, the attention kernels' work by
+        formula: ``observability.profile.capture_step``; no update, no
+        draw from the trainer's generators, no hand-kernel launch) so
+        that every step record carries ``perf/mfu``,
+        ``perf/hbm_bw_util`` and ``mem/peak_hbm_bytes``, and installs the
+        live ``mem/device.*`` gauge poller.  ``capture_cost=False`` and
+        ``BIGDL_PROFILE_CAPTURE=0`` turn both off."""
+        from ..observability.profile import (capture_enabled,
+                                             install_device_memory_poller)
         self.recorder = recorder
         self._telemetry = True
         self._telemetry_health = bool(health)
+        self._trace_only = False
+        self._capture_cost = bool(capture_cost) and capture_enabled()
+        self._cost_pending = self._capture_cost
+        if self._capture_cost:
+            install_device_memory_poller(recorder)
         if recorder.get_ledger() is None:
             from ..observability.goodput import GoodputLedger
             recorder.set_ledger(GoodputLedger(name="train", devices=1))
         return self
+
+    def set_trace_every(self, n_steps: int, log_dir: str):
+        """Capture a ``torch.profiler`` trace of every ``n_steps``-th step
+        (the first step is 0) into ``log_dir`` as ``trace_step<k>.json``
+        Chrome traces (Perfetto): host ops, the recorder's spans as
+        ranges and, on a CUDA device, every kernel and copy.  Without
+        :meth:`set_telemetry` first, telemetry comes on trace-only: no
+        health scalars, no scalars read to the host, no cost capture and
+        no memory poller."""
+        if not self._telemetry:
+            self.set_telemetry(self.recorder, health=False,
+                               capture_cost=False)
+            self._trace_only = True
+        self.recorder.trace_every(n_steps, log_dir)
+        return self
+
+    def serve_metrics(self, port: int = 0, host: str = "127.0.0.1",
+                      watchdog: bool = True):
+        """Start the live introspection server of this trainer's recorder
+        (``/metrics`` Prometheus, ``/healthz``, ``/records``,
+        ``/goodput``) on a daemon thread.  ``port=0`` binds an ephemeral
+        port (the returned server's ``.port``).  ``watchdog`` starts a
+        stall watchdog (when none runs) so that ``/healthz`` reads 503
+        when the step loop wedges.  A second call replaces the server;
+        :meth:`stop_metrics` stops it and the watchdog.  Returns the
+        :class:`~bigdl_tpu_torch.observability.http.IntrospectionServer`."""
+        from ..observability.health import StallWatchdog
+        from ..observability.http import IntrospectionServer
+        if not self._telemetry:
+            self.set_telemetry(self.recorder)
+        if watchdog and self._watchdog is None:
+            self._watchdog = StallWatchdog(self.recorder).start()
+        return IntrospectionServer(
+            self.recorder, port=port, host=host, watchdog=self._watchdog,
+            monitor=self._health_monitor).swap_into(self)
+
+    def stop_metrics(self):
+        """Stop the introspection server and the stall watchdog, and join
+        their threads."""
+        server, self._http_server = self._http_server, None
+        if server is not None:
+            server.stop()
+        if self._watchdog is not None:
+            self._watchdog.stop()
+        return self
+
+    def _attach_step_cost(self, run, sharded: bool = False):
+        """Capture the first step's cost with ``run()`` (a forward and
+        backward that updates nothing) and attach it to the recorder;
+        a sharded step records that it was not captured."""
+        from ..observability import profile as _profile
+        self._cost_pending = False
+        rec = self.recorder
+        if not (self._capture_cost and rec.enabled):
+            return
+        if sharded:
+            _profile.attach_cost(rec, {"unavailable": ["capture_sharded"]},
+                                 spec=_profile.device_spec(self.device))
+            return
+        _profile.capture_and_attach(rec, run, self.model, self.device)
 
     def set_trace_context(self, ctx, tracer=None):
         """Adopt a causal :class:`~bigdl_tpu_torch.observability.context
@@ -581,6 +659,10 @@ class TelemetryHealth:
                 self._watchdog.stop()
             self._watchdog = StallWatchdog(rec,
                                            factor=float(stall_factor)).start()
+        if self._http_server is not None:   # set_health after serve_metrics
+            self._http_server.monitor = self._health_monitor
+            self._http_server.watchdog = self._watchdog \
+                or self._http_server.watchdog
         return self
 
     def _rec(self) -> Recorder:
@@ -1324,23 +1406,33 @@ class Optimizer(TelemetryHealth):
                                      self.prefetch_depth)
         return self._h2d
 
-    def _fetch(self, batches):
+    def _fetch(self, batches, capture=None):
         """The next batch, with the step record opened before the fetch
         under telemetry (the fetch's wait is the ``data_fetch`` span);
-        None at the epoch's end."""
+        None at the epoch's end.  While the first step's cost is pending,
+        ``capture(x, y)`` counts it on the fetched batch before the
+        record (and the step's trace) opens: that record starts after
+        the fetch, whose wait is still its ``data_fetch`` span."""
         if not self._telemetry:
             return next(batches, None)
         rec = self.recorder
-        rec.start_step(self.state.iteration + 1)
+        pending = capture is not None and self._cost_pending
+        if not pending:
+            rec.start_step(self.state.iteration + 1)
         h2d0 = rec.span_value("h2d")
         t0 = time.perf_counter()
         item = next(batches, None)
         if item is None:
-            rec.abort_step()
+            if not pending:
+                rec.abort_step()
             return None
         # inline placement ran inside the fetch: keep the spans disjoint
-        rec.add_span("data_fetch", max(0.0, time.perf_counter() - t0
-                                       - (rec.span_value("h2d") - h2d0)))
+        fetch = max(0.0, time.perf_counter() - t0
+                    - (rec.span_value("h2d") - h2d0))
+        if pending:
+            capture(item[1], item[2])
+            rec.start_step(self.state.iteration + 1)
+        rec.add_span("data_fetch", fetch)
         return item
 
     def _run_epoch(self, params, opt_state, model_state, step_fn):
@@ -1357,13 +1449,20 @@ class Optimizer(TelemetryHealth):
         batches = self._batches(st.epoch, skip)
         try:
             while True:
-                item = self._fetch(batches)
+                item = self._fetch(batches, functools.partial(
+                    self._capture_cost_of, params, model_state)
+                    if self._cost_pending else None)
                 if item is None:
                     st.epoch_finished = True
                     break
                 size, x, y = item
-                with rec.span("train_step"):
-                    out = step_fn(params, opt_state, model_state, x, y)
+                try:
+                    with rec.span("train_step"):
+                        out = step_fn(params, opt_state, model_state, x, y)
+                except BaseException:
+                    if self._telemetry:
+                        rec.abort_step()    # and a trace it opened
+                    raise
                 params, opt_state, model_state, loss = out[:4]
                 st.iteration += 1
                 st.batch_in_epoch += 1
@@ -1426,11 +1525,44 @@ class Optimizer(TelemetryHealth):
             stop = True
         return params, opt_state, model_state, stop
 
+    def _capture_cost_of(self, params, model_state, x, y):
+        """The first step's cost: its loss's forward and backward on this
+        batch, with a generator of its own, updating nothing."""
+        mesh = getattr(self, "mesh", None)
+        sharded = mesh is not None and getattr(mesh, "size", 1) > 1
+        model, criterion = self.model, self.criterion
+
+        def run():
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            xx = x
+            if self._device_augment is not None:
+                xx = self._device_augment(xx, gen)
+            if self.mixed_precision:
+                xx = to_bf16(xx)
+            loss, _ = make_loss_fn(model, criterion, generator=gen)(
+                params, model_state, xx, y)
+            torch.autograd.grad(loss, [p for (p,) in zip_leaves(params)])
+        self._attach_step_cost(run, sharded)
+
     def _emit_step_record(self, size, loss, opt_state, health):
         """Fold the iteration into one step record: the loss, the rate
         and the health scalars come to the host in one copy (the step's
-        one sync), then the health monitor checks the record."""
+        one sync), then the health monitor checks the record.  A
+        trace-only recorder (``set_trace_every`` alone) keeps the step
+        cadence without reading anything to the host."""
         rec = self.recorder
+        if self._trace_only:
+            rec.end_step(self.state.iteration)
+            return
+        # the step's collective volume, accumulated over the run (the
+        # per-step gauges were reset at the step's start)
+        for gauge, counter in (("collective/bytes_per_step",
+                                "collective/bytes_total"),
+                               ("collective/wire_bytes_per_step",
+                                "collective/wire_bytes_total")):
+            v = rec.gauge_value(gauge)
+            if v:
+                rec.inc(counter, v)
         names, vals = ["loss"], [loss]
         lr = self.optim_method.get_learning_rate(opt_state)
         if isinstance(lr, torch.Tensor):
@@ -1487,19 +1619,6 @@ class Optimizer(TelemetryHealth):
             self._weight_stream.maybe_publish(params, state=st)
         return (not isinstance(self.end_when, _MaxEpoch)
                 and self.end_when(st))
-
-
-def _unported_setter(name, what, item):
-    def setter(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__}.{name}: {what} is not ported yet "
-            f"(ROADMAP queue A, item {item})")
-    setter.__name__ = name
-    return setter
-
-
-for _name, (_what, _item) in _UNPORTED_SETTERS.items():
-    setattr(Optimizer, _name, _unported_setter(_name, _what, _item))
 
 
 class LocalOptimizer(Optimizer):

@@ -27,7 +27,6 @@ import logging
 from typing import List, Optional
 
 import torch
-import torch.distributed as dist
 
 from ..observability import collectives as _acct
 
@@ -37,13 +36,6 @@ GROUP = "dp"        # the parallelism group the collectives account to
 
 _CAST = {"fp16": torch.float16, "float16": torch.float16,
          "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
-
-# the names of torch 2.13 where they exist (their predecessors warn
-# there), else those of earlier releases; the arguments are the same
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
-_all_gather = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
 
 
 def _is_node(x) -> bool:
@@ -108,10 +100,10 @@ def mean_leaf(g, n: int, group, compress: Optional[str] = None):
     cast_to = _CAST.get(compress)
     if cast_to is None:
         t = _contiguous(g)
-        dist.all_reduce(t, group=group)
+        _acct.all_reduce(t, group=group)
         return t / n
     t = (g.float() / n).to(cast_to)
-    dist.all_reduce(t, group=group)
+    _acct.all_reduce(t, group=group)
     return t.to(g.dtype)
 
 
@@ -149,7 +141,7 @@ def reduce_scatter_leaf(g, n: int, group):
     g = _contiguous(g)
     out = torch.empty((g.shape[0] // n,) + tuple(g.shape[1:]),
                       dtype=g.dtype, device=g.device)
-    _reduce_scatter(out, g, group=group)
+    _acct.reduce_scatter_tensor(out, g, group=group)
     return out
 
 
@@ -159,7 +151,7 @@ def all_gather_leaf(shard, n: int, group, out=None):
     if out is None:
         out = torch.empty((shard.shape[0] * n,) + tuple(shard.shape[1:]),
                           dtype=shard.dtype, device=shard.device)
-    _all_gather(out, _contiguous(shard), group=group)
+    _acct.all_gather_into_tensor(out, _contiguous(shard), group=group)
     return out
 
 

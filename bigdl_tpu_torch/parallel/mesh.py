@@ -125,6 +125,16 @@ class Mesh:
                     if self.rank in row:
                         self._groups[subset] = g
 
+    def group_labels(self) -> Dict[object, str]:
+        """``{process group: label}`` for this rank's groups: the axes a
+        group spans joined by ``×`` (``"dp"``, ``"dp×tp"``), ``"all"`` for
+        the whole mesh over more than one axis (the reference's
+        ``replica_group_label``)."""
+        big = tuple(a for a in self.axis_names if self.shape[a] > 1)
+        return {g: ("all" if axes == big and len(big) > 1
+                    else "×".join(axes))
+                for axes, g in self._groups.items()}
+
     def group_of(self, axes: Sequence[str]) -> Tuple[object, int, int]:
         """``(group, size, index)`` over ``axes`` (those of the mesh): the
         process group of the ranks that differ from this one only on those

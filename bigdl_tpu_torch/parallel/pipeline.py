@@ -60,9 +60,6 @@ from .spmd import (Shard, _entry_axes, _mesh_axes, big, block, param_shardings,
                    token_group)
 from .zero import Zero1Layout
 
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
-
 
 # --------------------------------------------------------------------- #
 # the schedule                                                            #
@@ -509,7 +506,7 @@ class PipelineLMTrainer(TelemetryHealth):
                 by_dt.setdefault(grads[i].dtype, []).append(i)
             for idx in by_dt.values():
                 flat = torch.cat([grads[i].reshape(-1) for i in idx])
-                dist.all_reduce(flat, group=grp[0])
+                _acct.all_reduce(flat, group=grp[0])
                 raw = _acct.leaf_bytes(flat)
                 v = _acct.ring_allreduce_bytes(raw, grp[1])
                 _acct.account_collective("allreduce", v, v, rec, name)
@@ -544,12 +541,12 @@ class PipelineLMTrainer(TelemetryHealth):
             if scatter:
                 out = src.new_empty((src.shape[0] // n,)
                                     + tuple(src.shape[1:]))
-                works.append(_reduce_scatter(out, src, group=group,
-                                             async_op=True))
+                works.append(_acct.reduce_scatter_tensor(
+                    out, src, group=group, async_op=True))
             else:
                 out = src
-                works.append(dist.all_reduce(out, group=group,
-                                             async_op=True))
+                works.append(_acct.all_reduce(out, group=group,
+                                              async_op=True))
             return lambda: (out / n if cast is None else out.to(t.dtype))
 
         if self.zero1:

@@ -30,6 +30,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from ..observability import collectives as comm
+
 from ..ops.flash_attention import (DEFAULT_MASK_VALUE, _mask,
                                    chunk_merge_blockwise, finalize)
 
@@ -46,7 +48,7 @@ def _rotate(tensors, group, size: int, index: int, step: int):
     for tag, (t, o) in enumerate(zip(tensors, outs)):
         ops.append(dist.P2POp(dist.isend, t, to, group, tag))
         ops.append(dist.P2POp(dist.irecv, o, frm, group, tag))
-    for req in dist.batch_isend_irecv(ops):
+    for req in comm.batch_isend_irecv(ops):
         req.wait()
     return outs
 

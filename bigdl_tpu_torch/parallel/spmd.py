@@ -83,9 +83,13 @@ needs the pipeline engine (:class:`~bigdl_tpu_torch.parallel.pipeline.
 PipelineLMTrainer`) and raises here, as the reference's trainer has no
 pipeline.
 
-Not ported: the orbax layout (ROADMAP queue A, item 7), ``serve_metrics``
-and ``account_collectives`` (item 8) and a weight stream from a mesh of
-several ranks; each raises.
+Telemetry (shared with ``Optimizer``): step records, the first step's
+cost capture (``perf/mfu``), ``set_trace_every``, ``serve_metrics`` and
+the health layer.  :meth:`SpmdTrainer.account_collectives` measures the
+collectives one step issues.
+
+Not ported: the orbax layout (ROADMAP queue A, item 7) and a weight
+stream from a mesh of several ranks; each raises.
 """
 from __future__ import annotations
 
@@ -103,6 +107,7 @@ import torch
 import torch.distributed as dist
 
 from .._device import DeviceLike, resolve_device
+from ..observability import collectives as comm
 from ..nn.module import Ctx
 from ..optim.optimizer import (TelemetryHealth, _HealthProbe, _flat_f32,
                                make_accum_grads, mask_frozen_grads)
@@ -132,6 +137,15 @@ def _step_generator(device, seed: int, step: int) -> torch.Generator:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & m
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & m
     return torch.Generator(device=device).manual_seed(z ^ (z >> 31))
+
+
+def _clone_tree(tree):
+    """A copy of a state tree: its tensors cloned, the rest as is."""
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
 
 
 def _unported(what: str, item: str):
@@ -633,12 +647,42 @@ class SpmdTrainer(TelemetryHealth):
         self._data_pipeline = dataset
         return self
 
-    def serve_metrics(self, port: int = 0, host: str = "127.0.0.1",
-                      watchdog: bool = True):
-        _unported("serve_metrics (the live metrics server)", "item 8")
-
     def account_collectives(self, tokens, targets):
-        _unported("account_collectives (the mesh's collectives)", "item 8")
+        """The collectives one step on this batch issues, measured: the
+        step runs under a :class:`~bigdl_tpu_torch.observability
+        .collectives.CollectiveTap` (op, bytes on the wire, mesh axes of
+        the group; a backward's collectives too, on whatever thread the
+        autograd engine runs it) and its effects are undone after:
+        parameters, optimizer state and the step count are restored, no
+        step record is cut.  Sets the ``collective/*`` and ``comm/group.<axes>.*``
+        gauges (reset first) and returns ``{"ops": {op: wire bytes},
+        "groups": {axes: {op: wire bytes, "wire_bytes": total}},
+        "wire_bytes_per_step": total, "bytes_per_step": result bytes}``.
+
+        Where the reference reads the ops GSPMD chose out of the compiled
+        HLO, these are the port's own: Megatron's f/g all-reduces in each
+        block's forward and backward, fsdp's all-gathers (forward and the
+        backward's re-gather) and reduce-scatters, one flat all-reduce of
+        the gradients a group of axes and dtype, the ring's P2P sends."""
+        from ..observability.collectives import CollectiveTap
+        if self.params is None:
+            self.init()
+        labels = self._m.group_labels() if self._m is not None else {}
+        saved = [t.detach().clone() for t in tree_leaves(self.params)]
+        saved_opt = _clone_tree(self.opt_state)
+        count, telemetry = self._step_count, self._telemetry
+        self._telemetry = False         # no step record, no cost capture
+        try:
+            with CollectiveTap(labels) as tap:
+                self.step(tokens, targets)
+        finally:
+            self._telemetry = telemetry
+            self._step_count = count
+            with torch.no_grad():
+                for t, v in zip(tree_leaves(self.params), saved):
+                    t.copy_(v)
+            self.opt_state = saved_opt
+        return tap.publish(self.recorder)
 
     # -- telemetry and health -------------------------------------------- #
     def _trace_spine(self):
@@ -661,12 +705,27 @@ class SpmdTrainer(TelemetryHealth):
             self.init()
         telemetry = self._telemetry
         rec = self.recorder
+        if telemetry and self._cost_pending:
+            # the first step's cost, counted before its record and trace
+            # open: neither its time nor its trace holds the pass
+            tokens, targets = self._to_device(tokens), \
+                self._to_device(targets)
+            self._capture_cost_of(tokens, targets)
         step_span = None
         if self._trace_ctx is not None:
             step_span = self._trace_spine().begin(
                 "train.step", self._trace_ctx, subsystem="train")
         if telemetry:
             rec.start_step(self._step_count)
+        try:
+            return self._step(tokens, targets, telemetry, step_span)
+        except BaseException:
+            if telemetry and rec.step_in_flight():
+                rec.abort_step()        # and the trace it opened
+            raise
+
+    def _step(self, tokens, targets, telemetry, step_span):
+        rec = self.recorder
         with rec.span("h2d"):
             tokens, targets = self._to_device(tokens), \
                 self._to_device(targets)
@@ -788,7 +847,7 @@ class SpmdTrainer(TelemetryHealth):
                 buckets.setdefault((axes, out[i].dtype), []).append(i)
         for (axes, _), idx in buckets.items():
             flat = torch.cat([out[i].reshape(-1) for i in idx])
-            dist.all_reduce(flat, group=self._group(axes)[0])
+            comm.all_reduce(flat, group=self._group(axes)[0])
             for i, part in zip(idx, flat.split([out[i].numel()
                                                 for i in idx])):
                 out[i] = part.view_as(out[i])
@@ -833,7 +892,7 @@ class SpmdTrainer(TelemetryHealth):
                 / self._replicas(mod, k))
         tot = torch.stack(rows).sum(dim=0)
         if self._m.size > 1:
-            dist.all_reduce(tot, group=self._m.group)
+            comm.all_reduce(tot, group=self._m.group)
         gn, pn, un = torch.sqrt(tot[:3]).unbind()
         return {"grad_norm": gn, "param_norm": pn, "update_norm": un,
                 "update_ratio": un / torch.clamp(pn, min=1e-12),
@@ -858,12 +917,36 @@ class SpmdTrainer(TelemetryHealth):
                     out[mod][k] = t
         return out
 
+    def _capture_cost_of(self, tokens, targets):
+        """The first step's cost: the loss's forward and backward on this
+        batch with a generator of its own, updating nothing (a sharded
+        step records that it was not captured)."""
+        model, loss_chunk = self.model, self.loss_chunk
+        params = self.params
+
+        def run():
+            gen = torch.Generator(device=self.device).manual_seed(0)
+            tok = tokens if self._input_transform is None \
+                else self._input_transform(tokens, gen)
+            ctx = Ctx(state={}, training=True, generator=gen)
+            loss = model.loss(params, tok, targets, loss_chunk=loss_chunk,
+                              ctx=ctx)
+            for sl in ctx.side_losses:
+                loss = loss + sl
+            torch.autograd.grad(loss, [p for p in tree_leaves(params)
+                                       if p.requires_grad])
+        self._attach_step_cost(run, sharded=self._m is not None)
+
     def _emit_step_record(self, n_tok, loss, health):
         """The step record: the loss and the health scalars come to the
         host in one copy (the step's one sync), then the monitor checks
         the record (a diverged step raises here, before ``fit``'s
-        checkpoint trigger can commit it)."""
+        checkpoint trigger can commit it).  A trace-only recorder keeps
+        the cadence without reading anything to the host."""
         rec = self.recorder
+        if self._trace_only:
+            rec.end_step(self._step_count - 1)
+            return
         names = ["loss"] + list(health or {})
         vals = [loss] + list((health or {}).values())
         host = torch.stack([v.detach().reshape(()).float()

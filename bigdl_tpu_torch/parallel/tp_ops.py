@@ -28,11 +28,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..observability import collectives as comm
+
 
 def _all_reduce(t, group, op=dist.ReduceOp.SUM):
     out = t.contiguous().clone()
     if group is not None:
-        dist.all_reduce(out, op=op, group=group)
+        comm.all_reduce(out, op=op, group=group)
     return out
 
 
@@ -43,7 +45,7 @@ def all_gather_dim(t, group, size: int, dim: int = 0):
         return t
     src = t.movedim(dim, 0).contiguous()
     out = src.new_empty((size * src.shape[0],) + tuple(src.shape[1:]))
-    dist.all_gather_into_tensor(out, src, group=group)
+    comm.all_gather_into_tensor(out, src, group=group)
     return out.movedim(0, dim)
 
 
@@ -54,7 +56,7 @@ def reduce_scatter_dim(t, group, size: int, dim: int = 0):
         return t
     src = t.movedim(dim, 0).contiguous()
     out = src.new_empty((src.shape[0] // size,) + tuple(src.shape[1:]))
-    dist.reduce_scatter_tensor(out, src, group=group)
+    comm.reduce_scatter_tensor(out, src, group=group)
     return out.movedim(0, dim)
 
 

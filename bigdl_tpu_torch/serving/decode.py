@@ -72,7 +72,9 @@ The ``serving.decode_step`` fault site fires before each step: ``delay``
 is a wedged step (the replica set's wedge verdict), ``err`` fails the
 live requests (a replica set fails them over).
 
-Not ported yet (ROADMAP queue A, item 8): ``serve_metrics``.
+``serve_metrics`` starts the live introspection server of the engine's
+recorder (``decode/*`` and ``kv/*`` on ``/metrics``, ``/healthz``,
+``/records``, ``/trace``); ``shutdown`` stops it.
 """
 from __future__ import annotations
 
@@ -261,6 +263,7 @@ class DecodeEngine:
         self._closed = False
         self._drain = True
         self._thread: Optional[threading.Thread] = None
+        self._http_server = None
 
     # -- lifecycle -------------------------------------------------------- #
     def warmup(self, name: Optional[str] = None):
@@ -287,7 +290,10 @@ class DecodeEngine:
             self._closed = True
             self._drain = bool(drain)
             t = self._thread
+            server, self._http_server = self._http_server, None
             self._lock.notify_all()
+        if server is not None:
+            server.stop()
         if t is not None:
             t.join(timeout)
         return self
@@ -296,6 +302,20 @@ class DecodeEngine:
         """``[(model_name, recorder)]``: the ``decode/*`` and ``kv/*``
         families of this engine."""
         return [(self.model_name, self.recorder)]
+
+    def serve_metrics(self, port: int = 0, host: str = "127.0.0.1"):
+        """Live introspection of this engine's recorder: ``/metrics``
+        (the ``decode/*`` and ``kv/*`` families), ``/healthz``,
+        ``/records`` and ``/trace``, the routes of
+        :meth:`ServingEngine.serve_metrics`.  ``shutdown()`` stops it."""
+        from ..observability.http import IntrospectionServer
+        trace_source = self.dump_chrome_trace \
+            if self.trace_ring is not None else None
+        return IntrospectionServer(
+            self.recorder, port=port, host=host,
+            trace_source=trace_source).swap_into(
+                self, self._lock, EngineClosedError(
+                    "engine shut down while serve_metrics was binding"))
 
     def dump_chrome_trace(self) -> str:
         """Chrome-trace/Perfetto JSON of the recent request traces."""

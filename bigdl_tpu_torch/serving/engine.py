@@ -50,8 +50,10 @@ The engine speaks the replica protocol (``submit`` / ``predict`` /
 ``stats`` / ``registry`` / ``recorder``) that
 :class:`~bigdl_tpu_torch.serving.ReplicaSet` calls.
 
-Not ported yet (ROADMAP queue A, item 8): the HTTP introspection server
-(``serve_metrics``); the per-bucket XLA cost capture has no counterpart.
+``serve_metrics`` starts the live introspection server of the engine's
+recorder (``/metrics``, ``/healthz``, ``/records``, and ``/trace`` from
+its trace ring); ``shutdown`` stops it.  The reference's per-bucket XLA
+cost capture has no counterpart.
 """
 from __future__ import annotations
 
@@ -118,6 +120,7 @@ class ServingEngine:
         self._threads: Dict[str, threading.Thread] = {}
         self._lock = threading.Lock()
         self._closed = False
+        self._http_server = None
         # if the engine is dropped without shutdown(), closing its
         # queues unparks the (weakly-bound) worker threads so they exit
         self._finalizer = weakref.finalize(self, _close_queues,
@@ -151,6 +154,9 @@ class ServingEngine:
             self._closed = True
             queues = dict(self._queues)
             threads = dict(self._threads)
+            server, self._http_server = self._http_server, None
+        if server is not None:
+            server.stop()
         for q in queues.values():
             q.close()
         if not drain:
@@ -162,6 +168,21 @@ class ServingEngine:
         for t in threads.values():
             t.join(timeout)
         return self
+
+    def serve_metrics(self, port: int = 0, host: str = "127.0.0.1"):
+        """Start the live introspection server of this engine's recorder:
+        ``/metrics`` (request, shed and recompile counters, per-model
+        queue depths, latency and batch-fill summaries), ``/healthz``
+        (with the shed rate), ``/records`` and ``/trace`` (Chrome-trace
+        JSON of recent per-request timelines).  ``port=0`` binds an
+        ephemeral port (the returned server's ``.port``); a second call
+        replaces the server; ``shutdown()`` stops it."""
+        from ..observability.http import IntrospectionServer
+        return IntrospectionServer(
+            self.recorder, port=port, host=host,
+            trace_source=self.dump_chrome_trace).swap_into(
+                self, self._lock, EngineClosedError(
+                    "engine shut down while serve_metrics was binding"))
 
     # -- request path ----------------------------------------------------- #
     def submit(self, name: str, x, deadline_ms: Optional[float] = None,

@@ -54,7 +54,10 @@ validation is fatal and rolls back).
 promotion quantizes it anew from the promoted snapshot on every replica
 (``serving/degrade_refreshed``, ``serving/degrade_refresh_failures``).
 
-Not ported yet: ``serve_metrics`` (ROADMAP queue A, item 8); it raises.
+``serve_metrics`` starts one aggregated introspection server for the
+set: its own recorder as the base source, each replica's under a
+``job="replica<i>"`` label (``render_prometheus_multi``), and a 503 on
+total outage; ``shutdown`` stops it.
 """
 from __future__ import annotations
 
@@ -332,6 +335,7 @@ class ReplicaSet:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._closed = False
+        self._http_server = None
 
     # -- lifecycle --------------------------------------------------------- #
     def warmup(self) -> "ReplicaSet":
@@ -359,9 +363,12 @@ class ReplicaSet:
             self._closed = True
             stop = self._stop
             t, self._thread = self._thread, None
+            server, self._http_server = self._http_server, None
         stop.set()
         if t is not None:
             t.join(timeout)
+        if server is not None:
+            server.stop()
         for rep in self.replicas:
             rep.engine.shutdown(drain=drain, timeout=timeout)
         return self
@@ -379,11 +386,19 @@ class ReplicaSet:
              for rep in live]
 
     def serve_metrics(self, port: int = 0, host: str = "127.0.0.1"):
-        """The aggregated introspection server needs the port's
-        ``observability/http.py``, which is not ported yet."""
-        raise NotImplementedError(
-            "ReplicaSet.serve_metrics: the HTTP introspection server is not "
-            "ported yet (ROADMAP queue A, item 8)")
+        """One aggregated introspection server for the whole set: the
+        set's own recorder is the base source (``replica/*`` health
+        gauges land in ``/healthz``), each replica's recorder is a
+        ``job="replica<i>"``-labeled source on ``/metrics``, and the
+        worst-of verdict is 503 on total outage (no healthy replica —
+        the set registers itself as the health monitor)."""
+        from ..observability.http import IntrospectionServer
+        server = IntrospectionServer(self.recorder, port=port, host=host,
+                                     monitor=self)
+        for rep in self.replicas:
+            server.add_job(f"replica{rep.index}", rep.engine.recorder)
+        return server.swap_into(self, self._lock, EngineClosedError(
+            "replica set shut down while serve_metrics was binding"))
 
     @property
     def healthy(self) -> bool:

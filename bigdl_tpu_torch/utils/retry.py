@@ -14,9 +14,10 @@ staging) uses the same budget, so it is a constant here.
 ``jitter=False`` gives the deterministic ``min(BASE * 2**(n-1),
 MAX_DELAY)`` schedule (the elastic supervisor's), and ``rng`` a seeded
 ``random.Random`` for the jitter (the data plane's workers, so that a
-resumed run schedules its retries as the first did).  The reference's
-wall-clock deadline, injectable classifier and hooks come back when a
-port caller needs them.
+resumed run schedules its retries as the first did).  ``classify``
+replaces the transient test (the introspection server's bind retries
+EADDRINUSE alone).  The reference's wall-clock deadline and hooks come
+back when a port caller needs them.
 """
 from __future__ import annotations
 
@@ -56,6 +57,7 @@ class RetryPolicy:
                       returning ``None``) drops the counters
     ``max_attempts``, ``base``, ``max_delay``
                       the budget (the class constants by default)
+    ``classify``      ``exc -> bool`` transient test (default above)
     """
 
     MAX_ATTEMPTS = 3
@@ -67,8 +69,10 @@ class RetryPolicy:
                  max_attempts: Optional[int] = None,
                  base: Optional[float] = None,
                  max_delay: Optional[float] = None,
-                 jitter: bool = True, rng=None):
+                 jitter: bool = True, rng=None,
+                 classify: Optional[Callable[[BaseException], bool]] = None):
         self.name = name
+        self.classify = classify or default_classify
         self._rec_fn = recorder_fn
         self.jitter = bool(jitter)
         # without one, the draws come from the random module's stream
@@ -97,7 +101,7 @@ class RetryPolicy:
                 return fn(*args, **kwargs)
             except BaseException as e:      # noqa: BLE001 — classified below
                 attempt += 1
-                if not default_classify(e):
+                if not self.classify(e):
                     raise               # fatal: no sleep, no counter
                 if attempt >= self.MAX_ATTEMPTS:
                     self._count("retry/giveups")

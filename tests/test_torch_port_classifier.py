@@ -591,16 +591,32 @@ def test_local_optimizer_cifar_resnet8_matches_the_reference():
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-5, atol=1e-6)
 
 
-def test_local_optimizer_unported_setters_raise():
+def test_local_optimizer_unported_setters_raise(tmp_path):
+    """The reference's setters on ``LocalOptimizer``, each ported now:
+    ``set_trace_every`` and ``serve_metrics`` (driven below) among them."""
+    import threading
+    import urllib.request
+    before = set(threading.enumerate())
     tm = TL.build(10, device="cpu")
     opt = LocalOptimizer(tm, (np.zeros((2, 784), np.float32),
                               np.ones(2, np.float32)),
                          tnn.ClassNLLCriterion(), batch_size=1,
                          device="cpu")
-    for name in ("set_trace_every", "serve_metrics"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            getattr(opt, name)(None)
-    # ported since: each returns the optimizer
+    assert opt.set_trace_every(1, str(tmp_path)) is opt
+    srv = opt.serve_metrics()
+    try:
+        opt.optimize()
+        with urllib.request.urlopen(srv.url("/metrics"), timeout=30) as r:
+            assert r.status == 200
+            assert "bigdl_records_total" not in r.read().decode()
+    finally:
+        opt.stop_metrics()
+    # trace-only telemetry: a trace a step, no scalars read
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "trace_step1.json", "trace_step2.json"]
+    assert not [t for t in set(threading.enumerate()) - before
+                if t.name.startswith(("introspection:", "health-watchdog"))]
+    # each returns the optimizer
     assert opt.set_train_summary(None) is opt
     assert opt.set_val_summary(None) is opt
     assert opt.set_gradient_accumulation(2) is opt and opt._grad_accum == 2

@@ -425,13 +425,55 @@ def test_health_raises_on_a_nan_step():
         tr.fit([(bad, tgt)])
 
 
+def _serves_metrics(tr):
+    """``serve_metrics`` (ported since): /metrics and /healthz answer, the
+    step records reach /records, ``stop_metrics`` leaves no thread."""
+    import json
+    import threading
+    import urllib.request
+    before = set(threading.enumerate())
+    srv = tr.serve_metrics()
+    try:
+        tr.step(*_batch(3))
+        got = {}
+        for path in ("/metrics", "/healthz", "/records?type=step"):
+            with urllib.request.urlopen(srv.url(path), timeout=30) as r:
+                got[path] = (r.status, r.read().decode())
+    finally:
+        tr.stop_metrics()
+    assert all(code == 200 for code, _ in got.values())
+    assert "bigdl_tokens_total" in got["/metrics"][1]
+    assert [r["step"] for r in json.loads(got["/records?type=step"][1])] \
+        == [0]
+    assert not [t for t in set(threading.enumerate()) - before
+                if t.name.startswith(("introspection:", "health-watchdog"))]
+
+
+def _accounts_collectives(tr):
+    """``account_collectives`` (ported since): on one device no collective
+    runs, and the accounting step changes nothing."""
+    before = [t.clone() for t in tr.model.get_weights()]
+    got = tr.account_collectives(*_batch(3))
+    assert got["ops"] == {} and got["wire_bytes_per_step"] == 0.0
+    assert tr._step_count == 0
+    assert all(torch.equal(a, b)
+               for a, b in zip(before, tr.model.get_weights()))
+
+
 @pytest.mark.parametrize("call", [
     lambda tr: tr.set_checkpoint("/nonexistent", layout="orbax"),
     lambda tr: tr.save_checkpoint("/nonexistent", layout="orbax"),
     lambda tr: tr.set_checkpoint("/nonexistent", layout="tensorstore"),
-    lambda tr: tr.serve_metrics(),
-    lambda tr: tr.account_collectives(None, None)])
+    _serves_metrics, _accounts_collectives],
+    ids=[f"<lambda>{i}" for i in range(5)])     # the ids it always had
 def test_unported_features_raise_and_name_their_item(call):
+    """The orbax layouts (ROADMAP queue A, item 7) raise and name their
+    item; ``serve_metrics`` and ``account_collectives`` are ported and are
+    driven instead."""
+    if call in (_serves_metrics, _accounts_collectives):
+        model = TT.build("tiny", device="cpu", seed=0, **SMALL)
+        call(SpmdTrainer(model, AdamW(), device="cpu"))
+        return
     tr = SpmdTrainer(None, AdamW(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP queue A, item"):
         call(tr)

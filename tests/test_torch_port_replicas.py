@@ -609,13 +609,51 @@ def test_canary_promotion_refreshes_int8_degrade_entry():
 
 
 # --------------------------------------------------------------------- #
-# what the port does not have yet                                       #
+# the aggregated introspection server                                   #
 # --------------------------------------------------------------------- #
-def test_unported_control_plane_options_raise():
-    api = _side("port")
-    rs = _rs(api, n=1)
+def _get(url):
+    import urllib.error
+    import urllib.request
     try:
-        with pytest.raises(NotImplementedError, match="queue A, item 8"):
-            rs.serve_metrics()
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _served(api):
+    """``serve_metrics`` of a 2-replica set: the replicas' recorders as
+    ``job`` sources on /metrics, /healthz 200 while one replica serves
+    and 503 once both are out; shutdown stops the server."""
+    import json
+    import threading
+    before = set(threading.enumerate())
+    rs = _rs(api, n=2)
+    try:
+        srv = rs.serve_metrics()
+        for x in np.random.RandomState(3).randn(4, 4).astype(np.float32):
+            rs.predict("m", x[None], timeout=30)
+        code, text = _get(srv.url("/metrics"))
+        jobs = sorted({line.split('job="')[1].split('"')[0]
+                       for line in text.splitlines()
+                       if 'job="' in line})
+        healthy = _get(srv.url("/healthz"))[0]
+        rs.kill(0)
+        rs.kill(1)
+        out_code, body = _get(srv.url("/healthz"))
+        verdict = json.loads(body)
     finally:
         rs.shutdown(drain=True)
+    left = [t.name for t in set(threading.enumerate()) - before
+            if t.name.startswith("introspection:")]
+    return dict(metrics=code, jobs=jobs, healthy=healthy, outage=out_code,
+                diverged=verdict["diverged"], left=left)
+
+
+def test_unported_control_plane_options_raise():
+    """``ReplicaSet.serve_metrics`` (ported since): the reference's
+    aggregated server, the same outcome on both sides."""
+    out = both(_served)
+    assert out["metrics"] == 200 and out["jobs"] == ["replica0", "replica1"]
+    assert out["healthy"] == 200 and out["outage"] == 503
+    assert out["diverged"] and out["left"] == []
