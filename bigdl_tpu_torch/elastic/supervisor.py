@@ -92,7 +92,8 @@ def _async_raise(thread_ident: int, exc_type) -> bool:
 # --------------------------------------------------------------------- #
 # one rank of a segment (runs in its own process)                       #
 # --------------------------------------------------------------------- #
-def _rank_main(conn, rank, world, store, axes, device, factory, ckpt):
+def _rank_main(conn, rank, world, store, axes, device, factory, ckpt,
+               build_dir):
     """Build the trainer of one rank on the planned mesh, restore the
     newest checkpoint, then serve the supervisor's commands until it says
     ``finish`` (or the pipe closes)."""
@@ -100,8 +101,12 @@ def _rank_main(conn, rank, world, store, axes, device, factory, ckpt):
     signal.signal(signal.SIGTERM, signal.SIG_IGN)
     import torch
     import torch.distributed as dist
+    from pathlib import Path
     from ..ops import _build
     from ..parallel import mesh as mesh_lib
+    # the supervisor's build directory (a fleet's shared compile cache):
+    # the kernels built there load without another nvcc
+    _build.BUILD_DIR = Path(build_dir)
     trainer = None
     try:
         dev = device
@@ -168,6 +173,17 @@ def _rank_main(conn, rank, world, store, axes, device, factory, ckpt):
         conn.close()
 
 
+def _slot_index(slot, position: int) -> int:
+    """The card index of a slot: an int as it is, ``"cuda:<i>"`` as i,
+    anything else its position in the plan's slots."""
+    if isinstance(slot, int):
+        return slot
+    if isinstance(slot, str) and slot.startswith("cuda:") \
+            and slot[5:].isdigit():
+        return int(slot[5:])
+    return position
+
+
 class _Segment:
     """The rank processes of one mesh and the pipes to them."""
 
@@ -185,14 +201,16 @@ class _Segment:
         os.close(fd)
         os.remove(path)         # the file store creates it
         self.store_path = path
-        shape = dict(axes, _slots=[u if isinstance(u, int) else i
+        shape = dict(axes, _slots=[_slot_index(u, i)
                                    for i, u in enumerate(used)])
+        from ..ops import _build
         self.conns, self.procs = [], []
         for r in range(world):
             mine, theirs = ctx.Pipe()
             p = ctx.Process(target=_rank_main, daemon=True,
                             args=(theirs, r, world, f"file://{path}",
-                                  shape, device, factory, ckpt),
+                                  shape, device, factory, ckpt,
+                                  str(_build.BUILD_DIR)),
                             name=f"bigdl-elastic-rank{r}")
             p.start()
             theirs.close()
@@ -310,6 +328,10 @@ class ElasticSupervisor:
         self._loop_ident: Optional[int] = None
         self._in_segment = False
         self.kernel_launches: Dict[str, int] = {}
+        #: the slots the live segment's ranks run on (empty between
+        #: segments): a fleet hands a slot to its next owner only after
+        #: this job's segment has left it
+        self.slots_in_use: list = []
 
     # ------------------------------------------------------------------ #
     def _capacity(self) -> list:
@@ -332,7 +354,19 @@ class ElasticSupervisor:
 
     def _set_state(self, state: str):
         self.state = state
-        self.recorder.gauge("elastic/state_" + state, time.time())
+        rec = self.recorder
+        rec.gauge("elastic/state_" + state, time.time())
+        led = rec.get_ledger()
+        if led is not None:
+            # the goodput ledger's background phase follows the state
+            # machine: draining -> preemption_drain, planning/resuming
+            # -> preemption_replan, running/idle -> idle (steps fold
+            # their own interval; only inter-step gaps land there)
+            from ..observability.goodput import STATE_BUCKETS
+            try:
+                led.declare(STATE_BUCKETS.get(state, "idle"))
+            except Exception:
+                pass    # attribution must never block a transition
 
     def stop(self):
         """Ask :meth:`run` to commit a checkpoint and return at the next
@@ -381,6 +415,7 @@ class ElasticSupervisor:
         ckpt = {"dir": self.ckpt_dir, "every": max(self.ckpt_every, 1),
                 "keep": self.keep, "shard_arrays": self.shard_arrays}
         os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.slots_in_use = list(used)
         seg = _Segment(axes, used, self.device, self.trainer_factory, ckpt,
                        self.ckpt_dir)
         self._segment = seg
@@ -398,6 +433,7 @@ class ElasticSupervisor:
         seg, self._segment = self._segment, None
         if seg is not None:
             seg.close(kill=kill)
+        self.slots_in_use = []
 
     def _round_trip(self, msg, want):
         self._segment.send(msg)

@@ -27,8 +27,14 @@ Wiring::
 
 The Recorder's ``end_step`` folds each step (``fold_step``), and the
 introspection server's ``/goodput`` serves :meth:`GoodputLedger.snapshot`.
-Not ported (ROADMAP queue A, A8b): the pool side (``OwnershipLedger``,
-``rollup``) and the elastic supervisor's state buckets.
+The elastic supervisor declares its background bucket from
+:data:`STATE_BUCKETS` as its state machine moves.
+
+Pool-level roll-up: each job's ledger snapshots on its own; a device
+(a slot of a :class:`~bigdl_tpu_torch.fleet.DevicePool`) claimed by
+nobody is **pool idle** (the pool's :class:`OwnershipLedger`), not any
+job's badput, and :func:`rollup` keeps the two apart and computes the
+fleet's goodput fraction over their union.
 """
 from __future__ import annotations
 
@@ -68,6 +74,19 @@ SPAN_BUCKETS = {
     "checkpoint.blocking": "checkpoint_blocking",
     "elastic.reshard": "preemption_reshard",
 }
+
+#: ElasticSupervisor lifecycle state -> the background bucket wall time
+#: flows into while that state holds (steps re-attribute their own
+#: interval through fold_step, so "running" parks the background on
+#: idle — only the gaps BETWEEN steps land there).
+STATE_BUCKETS = {
+    "planning": "preemption_replan",
+    "resuming": "preemption_replan",
+    "draining": "preemption_drain",
+    "running": "idle",
+    "idle": "idle",
+}
+
 
 class _Phase:
     """Context manager for one declared badput phase; time elapsing
@@ -324,3 +343,86 @@ class GoodputLedger:
 
 
 __all__ = ["BUCKETS", "SPAN_BUCKETS", "GoodputLedger", "ledger_phase"]
+
+
+class OwnershipLedger:
+    """Pool-side accounting: of the slots a :class:`DevicePool`
+    holds, how many device-seconds were claimed by SOME job vs idle in
+    the pool.  A device claimed by nobody is **pool idle** — a
+    scheduling/capacity question — and must never be booked as any
+    job's badput; this ledger is how :func:`rollup` keeps the two
+    attributions disjoint."""
+
+    def __init__(self, total: int, clock=None):
+        self._clock = clock if clock is not None else _trace_clock.trace_now
+        self._lock = threading.Lock()
+        self._total = max(0, int(total))
+        self._claimed = 0
+        self._cursor = float(self._clock())
+        self._claimed_s = 0.0
+        self._idle_s = 0.0
+
+    def note(self, claimed: int, total: Optional[int] = None,
+             now: Optional[float] = None):
+        """Advance at the OLD occupancy, then adopt the new one — call
+        after every claim/transfer/release/reassign mutation."""
+        now = float(now) if now is not None else float(self._clock())
+        with self._lock:
+            dt = now - self._cursor
+            if dt > 0.0:
+                self._cursor = now
+                c = min(self._claimed, self._total)
+                self._claimed_s += dt * c
+                self._idle_s += dt * (self._total - c)
+            else:
+                self._cursor = max(self._cursor, now)
+            self._claimed = max(0, int(claimed))
+            if total is not None:
+                self._total = max(0, int(total))
+        return self
+
+    def snapshot(self, now: Optional[float] = None) -> Dict[str, Any]:
+        now = float(now) if now is not None else float(self._clock())
+        with self._lock:
+            dt = now - self._cursor
+            if dt > 0.0:
+                self._cursor = now
+                c = min(self._claimed, self._total)
+                self._claimed_s += dt * c
+                self._idle_s += dt * (self._total - c)
+            return {"devices": self._total,
+                    "claimed": self._claimed,
+                    "claimed_s": self._claimed_s,
+                    "pool_idle_s": self._idle_s,
+                    "owned_s": self._claimed_s + self._idle_s}
+
+
+def rollup(jobs: Dict[str, Dict[str, Any]],
+           pool: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Fold per-job ledger snapshots (+ an optional pool ownership
+    snapshot) into one fleet-level attribution: summed buckets, pool
+    idle kept as its own row, and the goodput fraction over everything
+    the fleet owned.  This is what ``/goodput`` serves and
+    ``trace_summary goodput`` renders."""
+    buckets = {b: 0.0 for b in BUCKETS}
+    owned = 0.0
+    for snap in jobs.values():
+        for b, v in snap.get("buckets", {}).items():
+            buckets[b] = buckets.get(b, 0.0) + float(v)
+        owned += float(snap.get("owned_s", 0.0))
+    pool_idle = float(pool.get("pool_idle_s", 0.0)) if pool else 0.0
+    total_owned = owned + pool_idle
+    out = {
+        "jobs": jobs,
+        "buckets": buckets,
+        "pool_idle_s": pool_idle,
+        "owned_s": total_owned,
+        "goodput_fraction": (buckets["goodput"] / total_owned)
+        if total_owned else 0.0,
+        "conservation_error": (
+            abs(sum(buckets.values()) + pool_idle - total_owned)
+            / total_owned) if total_owned else 0.0,
+    }
+    if pool:
+        out["pool"] = pool
+    return out

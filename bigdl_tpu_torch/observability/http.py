@@ -15,6 +15,10 @@ scraper can poll while the job runs:
   ``/trace``     Chrome-trace JSON of recent per-request span timelines
                  (the serving engines attach their trace ring as
                  ``trace_source``; ``?trace_id=`` keeps one request's)
+  ``/series``    windowed time-series points (``?name=&window=``) of
+                 the Recorder's ``keep_series=`` store or an
+                 aggregator's (``series_source``); no name lists the
+                 series, no store is a 404
   ``/goodput``   the device-second attribution document of the
                  recorder's attached
                  :class:`~bigdl_tpu_torch.observability.goodput
@@ -31,8 +35,7 @@ Attach with ``serve_metrics(port)`` on ``Optimizer`` / ``SpmdTrainer`` /
 ``add_job`` aggregates further recorders under a ``job`` label (a replica
 set's replicas).  Handlers only read snapshots under the Recorder's lock;
 ``ThreadingHTTPServer`` keeps one slow scraper from starving the next
-probe.  ``stop()`` shuts the serving thread down and joins it.  The
-reference's ``/series`` (time series) belongs to ROADMAP queue A, A8b.
+probe.  ``stop()`` shuts the serving thread down and joins it.
 """
 from __future__ import annotations
 
@@ -112,7 +115,8 @@ class IntrospectionServer:
                  watchdog=None, monitor=None, namespace: str = "bigdl",
                  records_default: int = 50, trace_source=None,
                  bind_retries: int = 4, metrics_source=None,
-                 healthz_source=None, goodput_source=None):
+                 healthz_source=None, goodput_source=None,
+                 series_source=None):
         self.recorder = recorder
         self.host = host
         self.port = int(port)           # 0 -> ephemeral, bound in start()
@@ -133,6 +137,9 @@ class IntrospectionServer:
         # (MetricsAggregator.goodput_doc, or a ledger's snapshot);
         # defaults to the recorder's own attached ledger
         self.goodput_source = goodput_source
+        # a SeriesStore served at /series; defaults to the recorder's own
+        # (Recorder(keep_series=N)), resolved per request
+        self.series_source = series_source
         self._server: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         # fleet mode: named (recorder, watchdog, monitor) jobs this
@@ -284,6 +291,27 @@ class IntrospectionServer:
                 payload = led.snapshot()
             self._reply(h, 200, _finite_json(payload),
                         "application/json")
+        elif parsed.path == "/series":
+            store = self.series_source
+            if store is None:
+                store = getattr(self.recorder, "series", None)
+            if store is None:
+                h.send_error(404, "no series store attached "
+                                  "(Recorder(keep_series=N) or an "
+                                  "aggregator expose one)")
+                return
+            q = parse_qs(parsed.query)
+            name = q["name"][0] if q.get("name") else None
+            window = float(q["window"][0]) if q.get("window") else None
+            if name is None:
+                payload = {"names": store.names()}
+            else:
+                payload = {"name": name, "window": window,
+                           "points": [[t, v] for t, v in
+                                      store.points(name, window)],
+                           "summary": store.summary(name, window)}
+            self._reply(h, 200, _finite_json(payload),
+                        "application/json")
         elif parsed.path == "/records":
             q = parse_qs(parsed.query)
             n = int(q["n"][0]) if q.get("n") else self.records_default
@@ -305,7 +333,7 @@ class IntrospectionServer:
                 self._reply(h, 200, body, "application/json")
         else:
             h.send_error(404, "try /metrics, /healthz, /records, "
-                              "/goodput or /trace")
+                              "/series, /goodput or /trace")
 
     @staticmethod
     def _reply(h: BaseHTTPRequestHandler, code: int, body: str,

@@ -27,8 +27,17 @@ and record; opted-in histograms count Prometheus buckets
 the recorder's spans as ranges on its timeline.  A disabled recorder
 (``enable(False)``) drops everything.
 
-Not ported yet (ROADMAP queue A, A8b): time series (``keep_series``,
-``series_tick``) and the process-active recorder.
+``keep_series=N`` attaches a
+:class:`~bigdl_tpu_torch.observability.timeseries.SeriesStore` (N points
+a metric) that ``end_step`` feeds with every numeric scalar, counter,
+gauge and histogram quantile, and ``series_tick()`` with a snapshot
+outside any step (serving engines); ``series_clock`` injects virtual
+time.
+
+The reference's process-active recorder (``get_recorder`` /
+``set_recorder``) is not ported: the port's library code is handed its
+recorder (``recorder=``, ``recorder_fn=``) and never falls back to a
+process-wide one.
 """
 from __future__ import annotations
 
@@ -90,7 +99,8 @@ class Recorder:
     KEEP_RECORDS = 256
 
     def __init__(self, sinks=(), keep_records: Optional[int] = None,
-                 enabled: bool = True):
+                 enabled: bool = True, keep_series: int = 0,
+                 series_clock=None):
         self._lock = threading.Lock()
         self.sinks = list(sinks)
         self._enabled = bool(enabled)
@@ -127,6 +137,13 @@ class Recorder:
         self._step_started_wall: Optional[float] = None
         self._last_step_end: Optional[float] = None
         self._last_step_index: Optional[int] = None
+        # opt-in time series (keep_series points a metric), fed by
+        # end_step and series_tick
+        self.series = None
+        if keep_series:
+            from .timeseries import SeriesStore
+            self.series = SeriesStore(capacity=int(keep_series),
+                                      clock=series_clock)
 
     @property
     def enabled(self) -> bool:
@@ -199,6 +216,13 @@ class Recorder:
             for name in self._gauges:
                 if name.startswith(prefix):
                     self._gauges[name] = 0.0
+
+    def drop_gauges(self, prefix: str):
+        """Remove every gauge whose name starts with ``prefix`` (a member
+        the fleet aggregator deregistered leaves no ghost gauge)."""
+        with self._lock:
+            for name in [n for n in self._gauges if n.startswith(prefix)]:
+                del self._gauges[name]
 
     def counter_value(self, name: str, default: float = 0.0) -> float:
         with self._lock:
@@ -437,8 +461,45 @@ class Recorder:
                 rec["goodput"] = self._ledger.publish(self)
             except Exception:
                 pass        # attribution must never kill a record
+        if self.series is not None:
+            self._feed_series(rec)
         for s in sinks:
             s.emit(rec)
+        return rec
+
+    def _feed_series(self, rec: Dict[str, object]):
+        """Append one point per numeric scalar, counter and gauge (and
+        per histogram p50/p95/p99, as ``<name>/pXX``) to the attached
+        series store at its clock's current time."""
+        store = self.series
+        t = store.now()
+        for k, v in rec.get("scalars", {}).items():
+            if isinstance(v, (int, float)):
+                store.observe(k, v, t)
+        for k, v in rec.get("counters", {}).items():
+            store.observe(k, v, t)
+        for k, v in rec.get("gauges", {}).items():
+            store.observe(k, v, t)
+        for k, entry in rec.get("hist", {}).items():
+            for q in ("p50", "p95", "p99"):
+                if q in entry:
+                    store.observe(f"{k}/{q}", entry[q], t)
+
+    def series_tick(self):
+        """Snapshot counters, gauges and pending-histogram quantiles into
+        the attached series store WITHOUT cutting a step record: how
+        sources with no step loop (serving engines) or a periodic poller
+        grow a time dimension.  A no-op without ``keep_series``."""
+        if self.series is None or not self._enabled:
+            return None
+        snap = self.snapshot()
+        rec = {"counters": snap["counters"], "gauges": snap["gauges"],
+               "hist": {}}
+        for name in self.hist_names():
+            qs = self.hist_quantiles(name)
+            if qs:
+                rec["hist"][name] = qs
+        self._feed_series(rec)
         return rec
 
     def abort_step(self):
@@ -586,4 +647,3 @@ def _quantile(sorted_samples: List[float], q: float) -> float:
     hi = min(lo + 1, n - 1)
     frac = pos - lo
     return sorted_samples[lo] * (1.0 - frac) + sorted_samples[hi] * frac
-

@@ -567,6 +567,14 @@ class TelemetryHealth:
         self.recorder.trace_every(n_steps, log_dir)
         return self
 
+    def telemetry_sources(self):
+        """``[("trainer", recorder)]``: the fleet aggregator's attachment
+        hook (``aggregator.add(opt, name="train")``); telemetry comes on
+        as :meth:`serve_metrics` turns it on."""
+        if not self._telemetry:
+            self.set_telemetry(self.recorder)
+        return [("trainer", self.recorder)]
+
     def serve_metrics(self, port: int = 0, host: str = "127.0.0.1",
                       watchdog: bool = True):
         """Start the live introspection server of this trainer's recorder

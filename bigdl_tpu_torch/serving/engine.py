@@ -169,6 +169,12 @@ class ServingEngine:
             t.join(timeout)
         return self
 
+    def telemetry_sources(self):
+        """``[("serving", recorder)]``: the aggregator's attachment hook
+        (``aggregator.add(engine, name=...)`` scrapes the ``serving.*``
+        request, shed and latency families)."""
+        return [("serving", self.recorder)]
+
     def serve_metrics(self, port: int = 0, host: str = "127.0.0.1"):
         """Start the live introspection server of this engine's recorder:
         ``/metrics`` (request, shed and recompile counters, per-model

@@ -418,6 +418,21 @@ Phases (each raises on failure; the script exits 0 only if all pass):
                 requests: its /metrics request counter equals the
                 engine's own, /trace parses as Chrome JSON.  Every server
                 and watchdog stopped; no ``introspection:*`` thread left.
+ 18. fleet    — the operate plane's fleet side at world size 1: a
+                ``FleetScheduler`` over the card's one slot runs (c)'s
+                supervisor job (``base`` at 4 layers, 8 steps; losses
+                bitwise (c)'s, K1 = K2 = K3 = 32 and K4 = 8 from its
+                rank) and rejects a priority-1 ``{"dp": 1}`` arrival; a
+                ``ReplicaSet`` of ``ServingEngine(max_batch=8)`` on
+                ``base`` takes open-loop arrivals at twice ``slice``'s
+                rows/s, a ``MetricsAggregator`` scrapes the fleet's and
+                the set's /metrics over HTTP, an ``SLOEngine`` reads its
+                store, and an ``AutoscaleController`` is blocked while
+                the job holds the slot, scales up onto the freed slot
+                (K1 12 a batch) and down once the traffic stops; /healthz
+                worst-of, /series, /metrics re-parsed, the SLO burn
+                against a hand count, the goodput roll-up within 1e-9
+                and ``regress`` on its own and a planted baseline.
 
 Before its last lines ``main()`` lists what still runs (threads other
 than the main one that are not daemons, the servers' and watchdogs'
@@ -432,7 +447,7 @@ Output: a ``{"slice": {...}}`` line, a ``{"decode": {...}}`` line, a
 ``{"host_sync": {...}}`` line, a ``{"predictor": {...}}`` line, a
 ``{"spmd": {...}}`` line, a ``{"pipeline_moe": {...}}`` line, a
 ``{"data_elastic": {...}}`` line, an ``{"operate": {...}}`` line, a
-``{"phase_s": ...}`` line (each phase's seconds, ``total_s`` from after
+``{"fleet": {...}}`` line, a ``{"phase_s": ...}`` line (each phase's seconds, ``total_s`` from after
 CUDA's init and ``process_s`` from the process's start), a
 ``{"kernels": [...]}`` line (all six kernels; K1-K4 also with their
 ``long8k`` readings, K4-K6 with their ``bf16_leaves`` readings), the
@@ -3132,20 +3147,13 @@ def phase_distri(card: str):
                 f"{distri[name]['launches']}; bitwise to Local "
                 f"{distri[name]['bitwise']}")
         distri["main"]["bitwise"] = main_bits
-        # where the bf16 b256 step's time goes, with and without prefetch,
-        # over the first DISTRI_PROFILE_STEPS steps
+        # where the main path's bf16 b256 step's time goes (with
+        # prefetch), over the first DISTRI_PROFILE_STEPS steps
         d_prof = (x[:256 * DISTRI_PROFILE_STEPS],
                   y[:256 * DISTRI_PROFILE_STEPS])
         profiles = {
-            "local": profile_steps(lambda: _train_run(
-                model, w0, s0, d_prof, 256), steps=DISTRI_PROFILE_STEPS,
-                classes=DISTRI_CLASSES, top=12,
-                ranges=("_BNTrain", "_BNTrainBackward")),
             "dp1_prefetch": profile_steps(lambda: _train_run(
                 model, w0, s0, d_prof, 256, mesh=mesh, prefetch=2),
-                steps=DISTRI_PROFILE_STEPS, classes=DISTRI_CLASSES),
-            "dp1": profile_steps(lambda: _train_run(
-                model, w0, s0, d_prof, 256, mesh=mesh),
                 steps=DISTRI_PROFILE_STEPS, classes=DISTRI_CLASSES)}
     finally:
         torch.distributed.destroy_process_group()
@@ -3190,8 +3198,7 @@ def phase_distri(card: str):
         "dp1_b256_prefetch": _steady(distri["main"], 256),
         "fsdp1_b256": _steady(distri["fsdp"], 256),
         "zero1_b256": _steady(distri["zero1"], 256),
-        "h2d_ms_per_step": {"no_prefetch": h2d(profiles["dp1"]),
-                            "prefetch": h2d(profiles["dp1_prefetch"])},
+        "h2d_ms_per_step": {"prefetch": h2d(profiles["dp1_prefetch"])},
         "peak_mem_gb": {"main_path": main_peak, "one_step": peaks},
         "profile": profiles}
     out = {"config": "resnet.build(class_num=1000, depth=50, dataset="
@@ -4203,14 +4210,13 @@ def _resnet_leg(card, fails):
     y = (rng.integers(0, 1000, len(x)) + 1).astype(np.float32)
     d256 = (x[:RES_IMAGES], y[:RES_IMAGES])
     d512 = (x[:RES_BIG_IMAGES], y[:RES_BIG_IMAGES])
-    d_prof = (x[:2 * RES_BATCH], y[:2 * RES_BATCH])   # profiled: 2 steps
     variants = {"A": dict(), "B": dict(remat=True),
                 "C": dict(stem="s2d", remat=True, sync_bn_axis="dp")}
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     store = tempfile.mkdtemp(prefix="vgg_", dir=str(_build.BUILD_DIR))
     mesh_lib.init_distributed(f"file://{store}/store", 0, 1)
     mesh = mesh_lib.create_mesh({"dp": 1})
-    runs, finals, launches, peaks, profiles = {}, {}, {}, {}, {}
+    runs, finals, launches, peaks = {}, {}, {}, {}
     steps = DISTRI_EPOCHS * RES_IMAGES // RES_BATCH
     try:
         sync_bn = _sync_bn_check(fails)
@@ -4234,11 +4240,6 @@ def _resnet_leg(card, fails):
                             model.get_weights() + model.state_list()]
             log(f"ResNet-50 {name} {kw}: losses {runs[name]['losses']}; "
                 f"peak {peaks[name]:.2f} GB; launches {launches[name]}")
-            if name == "C":
-                profiles[name] = profile_steps(
-                    lambda: _train_run(model, w0, s0, d_prof, RES_BATCH,
-                                       mesh=mesh),
-                    steps=DISTRI_EPOCHS * 2, classes=DISTRI_CLASSES)
             if name == "B":
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()
@@ -4292,7 +4293,7 @@ def _resnet_leg(card, fails):
             "losses": {k: v["losses"] for k, v in runs.items()},
             "remat_bitwise": b_bits, "s2d_sync_vs_conv_max_rel": band,
             "band": RES_BAND_REL, "launches_by_run": launches,
-            "launches": total, "readings": readings, "profiles": profiles}
+            "launches": total, "readings": readings}
 
 
 def phase_vgg(card: str):
@@ -8856,6 +8857,462 @@ def phase_operate(card: str, device: str = "cuda", small: bool = False):
 
 
 
+
+# --------------------------------------------------------------------- #
+# 18. fleet: the pool, the aggregator, SLOs and the autoscaler          #
+# --------------------------------------------------------------------- #
+# the rate outruns one replica, so the queue, which holds every row the
+# phase offers, is what presses the autoscaler: nothing is shed
+FLEET = dict(preset="base", seq=SEQ, max_batch=8, rate_mult=1.5,
+             max_queue_rows=4096, queue_high=8.0, cooldown=1.0, idle_ticks=2,
+             traffic_max_s=120.0, wait_s=300.0, scrape_s=0.25)
+FLEET_SMALL = dict(FLEET, preset="tiny", seq=64, wait_s=60.0)
+FLEET_GOODPUT_PLANT = 1.10       # the planted baseline's share over the read
+# the phase's own threads, which its teardown must have stopped
+_FLEET_THREADS = ("metrics-aggregator", "slo-engine", "autoscale", "fleet:",
+                  "introspection:", "health-watchdog")
+
+
+def _fleet_hand_burn(obj, store, now):
+    """``obj``'s slow and fast burn rates recomputed from the store's points
+    by hand: threshold mode counts the points at or under the threshold,
+    ratio mode sums each matched counter's increase over the window."""
+    def comp(window):
+        if obj.series is not None:
+            vals = [v for key in store.match(obj.series)
+                    for t, v in store.points(key) if t >= now - window]
+            good = sum(1 for v in vals if (v <= obj.threshold
+                                           if obj.good_below
+                                           else v >= obj.threshold))
+            return good / len(vals) if vals else None
+
+        def delta(patterns):
+            tot = None
+            for key in store.match(patterns):
+                pts = [p for p in store.points(key) if p[0] >= now - window]
+                if len(pts) >= 2:
+                    tot = (tot or 0.0) + max(pts[-1][1] - pts[0][1], 0.0)
+            return tot
+        bad, total = delta(obj.bad_series), delta(obj.total_series)
+        if total is None or total <= 0:
+            return None
+        return max(0.0, 1.0 - (bad or 0.0) / total)
+    out = []
+    for window in (obj.window, obj.fast_window):
+        c = comp(window)
+        out.append(None if c is None else (1.0 - c) / (1.0 - obj.target))
+    return tuple(out)
+
+
+def phase_fleet(card: str, device: str = "cuda", small: bool = False,
+                job_losses=None, slice_rows_per_s=None):
+    """A8b on the card at world size 1.  (1) A ``FleetScheduler`` over a
+    pool of the card's one slot admits ``train``: (c)'s supervisor job
+    (``base`` widths at 4 layers, ``{"dp": 1}``, floor ``{"dp": 1}``,
+    (c)'s batches and steps) over NCCL through the warm forkserver; its
+    losses bitwise (c)'s (``job_losses``; else the same trainer here),
+    K1 = K2 = K3 = 4 x steps and K4 = steps from its ranks.  (2) ``vip``
+    (``{"dp": 1}``, priority 1) is rejected while ``train`` runs, which
+    is neither shrunk nor displaced.  (3) A ``ReplicaSet`` of one
+    ``ServingEngine(max_batch=8)`` on ``base`` (12 layers, fp32) takes
+    open-loop arrivals at ``rate_mult`` x ``phase_slice``'s rows/s; a
+    ``MetricsAggregator`` scrapes the fleet's and the set's /metrics over
+    HTTP, an ``SLOEngine`` with ``default_objectives`` reads its store,
+    and an ``AutoscaleController`` (pool slot, donor ``train``, at most 2
+    replicas, cooldowns of 1 s) is blocked while ``train`` holds the slot
+    (its floor refuses the borrow), scales up onto the slot ``train``
+    frees (probe-gated; K1 12 a batch in serving) and, once traffic
+    stops, down again.  (4) The aggregator's /healthz is worst-of,
+    /series serves the set's queue gauge, its /metrics re-parses, and
+    the SLO burn rates equal the ones recomputed by hand from the store.
+    (5) ``rollup`` of the job's ledger and the pool's conserves within
+    1e-9, pool idle apart; ``regress`` passes a baseline made from this
+    run and fails one planted 10 % above it.  (6) Nothing it started is
+    left.  ``device="cpu", small=True`` rehearses it on the CPU (``tiny``,
+    gloo, no launch counts)."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.autoscale import AutoscaleController, AutoscalePolicy
+    from bigdl_tpu_torch.fleet import FleetAdmissionError, FleetScheduler
+    from bigdl_tpu_torch.models import transformer as T
+    from bigdl_tpu_torch.observability import (
+        GoodputLedger, InMemorySink, MetricsAggregator, Recorder, SLOEngine,
+        default_objectives, parse_prometheus, regress, rollup)
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.serving import (LoadShedError, ServingEngine,
+                                         ModelRegistry, arrivals,
+                                         build_replica_set)
+    t0 = time.monotonic()
+    cuda = device != "cpu"
+    cfg = FLEET_SMALL if small else FLEET
+    de = _de_cfg(small)
+    fails, checks, seconds = [], {}, {}
+    from multiprocessing import forkserver, resource_tracker
+    threads_before = set(threading.enumerate())
+    children_before = {pid for pid, _ in _child_pids()}
+    helpers = [h for h in (getattr(forkserver, "_forkserver", None),
+                           getattr(resource_tracker, "_resource_tracker",
+                                   None))
+               if h is not None and hasattr(h, "_stop")]
+    helpers_running = [getattr(h, "_forkserver_pid", None)
+                       or getattr(h, "_pid", None) for h in helpers]
+    n_threads = torch.get_num_threads()
+    if not cuda:
+        torch.set_num_threads(1)    # the job's rank runs on one thread
+    vocab = T.PRESETS[de["preset"]]["vocab_size"]
+    rs = np.random.RandomState(31)      # (c)'s batches
+    data = [rs.randint(0, vocab, (de["batch"], de["seq"] + 1))
+            .astype(np.int32) for _ in range(de["steps"])]
+
+    def batch(s):
+        return data[s][:, :-1], data[s][:, 1:]
+    if job_losses is None:
+        prev = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            tr = _de_trainer(de, device, n_layers=DE_ELASTIC_LAYERS)
+            job_losses = tr.fit(batch(s) for s in range(de["steps"]))
+            del tr
+        finally:
+            torch.use_deterministic_algorithms(prev)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="fleet_", dir=str(_build.BUILD_DIR))
+    fleet = rset = agg = slo = agg_srv = None
+    stop_traffic = threading.Event()
+    replay = None
+    events = []
+    try:
+        _warm_forkserver()
+        # (1) the pool of the card's one slot, and the training job
+        fleet = FleetScheduler([0], recorder=Recorder(sinks=[InMemorySink()]),
+                               handle_sigterm=True)
+        job_rec = Recorder(sinks=[InMemorySink()])
+        job_rec.set_ledger(GoodputLedger(name="train", devices=1))
+        job = fleet.admit(
+            "train", _de_elastic_factory, {"dp": 1}, min_axes={"dp": 1},
+            steps=de["steps"], batch_fn=batch,
+            ckpt_dir=os.path.join(work, "train"), ckpt_every=de["steps"],
+            recorder=job_rec, device=device)
+        fleet_srv = fleet.serve_metrics(0)
+        fleet.start()
+        t_job = time.monotonic()
+        # (2) an arrival whose floor cannot fit beside the standing job
+        try:
+            fleet.admit("vip", _de_elastic_factory, {"dp": 1}, priority=1,
+                        steps=1, batch_fn=batch,
+                        ckpt_dir=os.path.join(work, "vip"), device=device)
+            checks["vip_rejected"] = False
+        except FleetAdmissionError as e:
+            checks["vip_rejected"] = "floors need" in str(e)
+        frec = fleet._rec()
+        checks["fleet_rejected_1"] = frec.counter_value("fleet/rejected") == 1
+        checks["train_kept_its_slot"] = job.devices == [0] \
+            and fleet.pool.owned_by("train") == [0]
+
+        # (3) the serving set under open-loop traffic
+        model = T.build(cfg["preset"], device=device, seed=0)
+        engine_kw = dict(max_batch=cfg["max_batch"],
+                         max_queue_rows=cfg["max_queue_rows"])
+        rset = build_replica_set(
+            model, 1, name="lm", input_shape=(cfg["seq"],), dtype=np.int32,
+            engine_kw=engine_kw, recorder=Recorder(sinks=[InMemorySink()]),
+            health_interval=0.1, probe_interval=0.1,
+            probe_deadline_ms=60000.0, wedge_after=60.0,
+            p99_floor_ms=1e9).warmup()
+        rset.start()
+        set_srv = rset.serve_metrics(0)
+        engines = [rset.replicas[0].engine]
+
+        def engine_factory():
+            reg = ModelRegistry()
+            reg.register("lm", model, input_shape=(cfg["seq"],),
+                         dtype=np.int32)
+            eng = ServingEngine(reg, recorder=Recorder(), **engine_kw)
+            engines.append(eng)
+            return eng
+
+        agg = MetricsAggregator(stale_after=30.0, timeout=10.0)
+        agg.add_endpoint("fleet", fleet_srv.url(""))
+        agg.add_endpoint("serve", set_srv.url(""))
+        agg.start(interval=cfg["scrape_s"])
+        agg_srv = agg.serve(0)
+        slo = SLOEngine(agg.store, default_objectives(),
+                        recorder=agg.recorder).start(interval=0.5)
+        policy = AutoscalePolicy(
+            min_replicas=1, max_replicas=2, queue_high=cfg["queue_high"],
+            idle_ticks=cfg["idle_ticks"], cooldown_up=cfg["cooldown"],
+            cooldown_down=cfg["cooldown"])
+
+        ctl = AutoscaleController(
+            rset, engine_factory, policy, pool=fleet.pool, claimant="serve",
+            donor="train", slo_engine=slo, aggregator=agg,
+            member_name="serve")
+        counts0 = {"batches": 0, "warm": 0}
+        for e in engines:
+            counts0["batches"] += e.recorder.counter_value("serving.batches")
+            counts0["warm"] += e.recorder.counter_value(
+                "serving.warmup_compiles")
+        if slice_rows_per_s is None:
+            # no phase_slice reading (a rehearsal): full batches, timed
+            x8 = np.zeros((cfg["max_batch"], cfg["seq"]), np.int32)
+            t = time.monotonic()
+            for _ in range(4):
+                rset.predict("lm", x8, timeout=cfg["wait_s"])
+            slice_rows_per_s = 4 * cfg["max_batch"] / (time.monotonic() - t)
+        rate = cfg["rate_mult"] * slice_rows_per_s
+        arr = list(arrivals.virtual_arrivals(
+            np.random.RandomState(18), rate, arrivals.TRACES["steady"],
+            cfg["traffic_max_s"]))
+        xs = np.random.RandomState(19).randint(
+            0, model.cfg.vocab_size, (64, 1, cfg["seq"])).astype(np.int32)
+        futures, sheds, errors = [], [0], []
+
+        def traffic():
+            t_start = time.monotonic()
+            for i, t in enumerate(arr):
+                if stop_traffic.is_set():
+                    return
+                delay = t_start + t - time.monotonic()
+                if delay > 0 and stop_traffic.wait(delay):
+                    return
+                try:
+                    futures.append(rset.submit("lm", xs[i % len(xs)]))
+                except LoadShedError:
+                    sheds[0] += 1
+                except Exception as e:
+                    errors.append(repr(e))
+        log(f"fleet: open-loop traffic at {rate:.1f} rows/s "
+            f"({cfg['rate_mult']} x {slice_rows_per_s:.1f} rows/s)")
+        _build.reset_launch_counts()
+        replay = threading.Thread(target=traffic, name="fleet-traffic",
+                                  daemon=True)
+        replay.start()
+
+        def kinds():
+            return [r["kind"] for r in rset.recorder.recent_records(
+                rec_type="autoscale_event")]
+
+        def pressured_tick(want, deadline, while_=lambda: True):
+            while time.monotonic() < deadline and while_():
+                agg.scrape()
+                d = ctl.tick()
+                if want in kinds():
+                    return d
+                time.sleep(cfg["scrape_s"])
+            return None
+        # a tick under pressure while train holds the card: blocked
+        d = pressured_tick("blocked", time.monotonic() + cfg["wait_s"],
+                           job.alive)
+        checks["blocked_while_train_runs"] = d is not None \
+            and job.alive() and fleet.pool.owned_by("train") == [0]
+        res = fleet.wait(timeout=cfg["wait_s"])
+        seconds["job"] = time.monotonic() - t_job
+        checks["train_completed"] = job.state == "completed"
+        checks["slot_back_in_pool"] = fleet.pool.free() == [0]
+        # the freed slot: a scale-up, probe-gated into rotation
+        t = time.monotonic()
+        d = pressured_tick("scale_up", time.monotonic() + cfg["wait_s"])
+        checks["scaled_up_onto_the_slot"] = d is not None \
+            and fleet.pool.owned_by("serve") == [0]
+        if d is None:
+            raise AssertionError(f"no scale-up: events {kinds()}")
+        _wait_for(lambda: 1 in rset.health()
+                  and rset.health()[1]["state"] == "healthy",
+                  cfg["wait_s"], "the scaled-up replica in rotation")
+        _wait_for(lambda: len(engines) > 1 and engines[1].recorder
+                  .counter_value("serving.requests") > 2,
+                  cfg["wait_s"], "the scaled-up replica serving")
+        seconds["scale_up"] = time.monotonic() - t
+        stop_traffic.set()
+        replay.join(timeout=60)
+        for f in futures:
+            try:
+                f.result(timeout=cfg["wait_s"])
+            except Exception as e:      # a shed inside the set is no error
+                if not isinstance(e, LoadShedError):
+                    errors.append(repr(e))
+        launches = _build.launch_counts()
+        # calm ticks after the traffic: the replica scaled down
+        t = time.monotonic()
+        d = None
+        deadline = time.monotonic() + cfg["wait_s"]
+        while time.monotonic() < deadline and "scale_down" not in kinds():
+            agg.scrape()
+            d = ctl.tick()
+            time.sleep(cfg["scrape_s"])
+        seconds["scale_down"] = time.monotonic() - t
+        checks["scaled_down_and_slot_free"] = "scale_down" in kinds() \
+            and rset.health()[1]["reason"] == "scaled_down" \
+            and fleet.pool.free() == [0]
+        events = kinds()
+        order = [k for i, k in enumerate(events)
+                 if i == 0 or k != events[i - 1]]
+        checks["events_blocked_up_down"] = order == ["blocked", "scale_up",
+                                                     "scale_down"]
+        srec = rset.recorder
+        checks["scale_ups_1"] = srec.counter_value("autoscale/scale_ups") == 1
+        checks["serving_errors_none"] = not errors
+        checks["nothing_shed"] = sheds[0] == 0
+        served = {"batches": -counts0["batches"], "warm": -counts0["warm"]}
+        for e in engines:
+            served["batches"] += e.recorder.counter_value("serving.batches")
+            served["warm"] += e.recorder.counter_value(
+                "serving.warmup_compiles")
+        n_layers = model.cfg.n_layers
+        if cuda:
+            checks["serve_k1_12_a_batch"] = launches == {
+                "flash_fwd": n_layers * (served["batches"] + served["warm"])}
+        # the job: bitwise (c)'s losses, no shrink, its ranks' launches
+        checks["job_losses_bitwise"] = res.get("train") == job_losses
+        checks["job_not_shrunk"] = job_rec.counter_value(
+            "elastic/shrinks") == 0 and frec.counter_value(
+            "fleet/preempted") == 0 and frec.counter_value(
+            "fleet/displaced") == 0
+        job_launches = job.supervisor.kernel_launches
+        if cuda:
+            per = DE_ELASTIC_LAYERS * de["steps"]
+            checks["job_launches_ok"] = job_launches == {
+                "flash_fwd": per, "flash_bwd_dkv": per, "flash_bwd_dq": per,
+                "fused_adam": de["steps"]}
+
+        # (4) the read side of the fleet
+        agg.scrape()
+        code, body = _get(agg_srv.url("/healthz"))
+        hz = json.loads(body)
+        worst = all(v["ok"] for v in hz["sources"].values())
+        agg.add_source("planted", lambda: "", healthz=lambda: {"ok": False})
+        agg.scrape()
+        p_code, p_body = _get(agg_srv.url("/healthz"))
+        agg.remove_member("planted")
+        agg.scrape()
+        r_code, _ = _get(agg_srv.url("/healthz"))
+        checks["healthz_worst_of"] = hz["ok"] == worst \
+            and code == (200 if worst else 503) and p_code == 503 \
+            and json.loads(p_body)["sources"]["planted"]["ok"] is False \
+            and r_code == code
+        queue_key = "serve/bigdl_replica_queue_rows_0"
+        s_code, s_body = _get(agg_srv.url(f"/series?name={queue_key}"))
+        series = json.loads(s_body) if s_code == 200 else {}
+        checks["series_serves_the_set_gauge"] = s_code == 200 \
+            and len(series.get("points", ())) > 2 \
+            and max(v for _, v in series["points"]) >= cfg["queue_high"]
+        m_code, text = _get(agg_srv.url("/metrics"))
+        parsed = parse_prometheus(text)
+        sample_lines = [ln for ln in text.splitlines()
+                        if ln and not ln.startswith("#")]
+        checks["metrics_reparse"] = m_code == 200 \
+            and len(parsed["samples"]) == len(sample_lines) \
+            and any(lab.get("source") == "serve"
+                    for _, lab, _ in parsed["samples"])
+        slo.stop()
+        now = agg.store.now()
+        verdicts = slo.evaluate(now)
+        hand = {o.name: _fleet_hand_burn(o, agg.store, now)
+                for o in slo.objectives}
+        checks["slo_burn_by_hand"] = all(
+            (verdicts[n]["burn_slow"], verdicts[n]["burn_fast"]) == hand[n]
+            for n in hand) and any(v["burn_slow"] is not None
+                                   for v in verdicts.values())
+
+        # (5) goodput and the regression gate
+        snaps = {"train": job_rec.get_ledger().snapshot()}
+        pool = fleet.pool.goodput.snapshot()
+        doc = rollup(snaps, pool)
+        checks["conservation"] = doc["conservation_error"] <= 1e-9
+        checks["pool_idle_apart"] = pool["pool_idle_s"] > 0 \
+            and doc["buckets"] == {b: snaps["train"]["buckets"].get(b, 0.0)
+                                   for b in doc["buckets"]} \
+            and doc["owned_s"] == snaps["train"]["owned_s"] \
+            + pool["pool_idle_s"]
+        rows = [regress.ledger_row("train", snaps["train"]),
+                regress.ledger_row("fleet", doc)]
+        share = rows[1]["metrics"]["goodput_fraction"]
+        own = {"metrics": {
+            "ledger:fleet/goodput_fraction": {"min": share},
+            "ledger:fleet/conservation_error": {"max": 1e-9},
+            "ledger:train/conservation_error": {"max": 1e-9}},
+            "buckets": {k[len("buckets."):]: {"max_fraction": max(
+                row["metrics"][k] for row in rows)}
+                for k in rows[0]["metrics"] if k.startswith("buckets.")}}
+        planted = {"metrics": {"ledger:fleet/goodput_fraction": {
+            "min": share * FLEET_GOODPUT_PLANT}}}
+        own_f, planted_f = regress.check(rows, own), regress.check(
+            rows, planted)
+        checks["regress_own_baseline_passes"] = regress.gate(own_f)
+        checks["regress_planted_fails"] = not regress.gate(planted_f)
+        readings = {
+            "rate_rows_per_s": rate, "sheds": sheds[0],
+            "requests": len(futures), "served": served,
+            "events": events, "verdicts": {
+                n: {k: verdicts[n][k] for k in ("burn_slow", "burn_fast",
+                                                "breach", "no_data")}
+                for n in verdicts}, "hand_burn": hand,
+            "goodput": {"fraction": share, "pool_idle_s": doc["pool_idle_s"],
+                        "owned_s": doc["owned_s"],
+                        "conservation_error": doc["conservation_error"],
+                        "buckets": {b: v for b, v in doc["buckets"].items()
+                                    if v}},
+            "regress": {"own": [f.as_dict() for f in own_f],
+                        "planted": [f.as_dict() for f in planted_f]},
+            "job_losses": res.get("train"), "job_launches": job_launches,
+            "serve_launches": launches, "seconds": seconds}
+        log(f"fleet readings: {json.dumps(readings)}; {card}")
+    finally:
+        stop_traffic.set()
+        if replay is not None:
+            replay.join(timeout=60)
+        if slo is not None:
+            slo.stop()
+        if agg is not None:
+            agg.close()
+        if rset is not None:
+            rset.shutdown(drain=False, timeout=30)
+        if fleet is not None:
+            fleet.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.set_num_threads(n_threads)
+        # the forkserver (and its resource tracker) stays only if it ran
+        # before the phase, as (c)'s warm one does
+        for h, was in zip(helpers, helpers_running):
+            if was is None and (getattr(h, "_forkserver_pid", None)
+                                or getattr(h, "_pid", None)):
+                h._stop()
+    # (6) teardown: no thread, server or rank process of the phase left
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline and any(
+            t.is_alive() and t.name.startswith(_FLEET_THREADS)
+            for t in set(threading.enumerate()) - threads_before):
+        time.sleep(0.05)
+    left = [t.name for t in set(threading.enumerate()) - threads_before
+            if t.is_alive() and (t.name.startswith(_FLEET_THREADS)
+                                 or not t.daemon)]
+    left += [f"child {pid}: {cmd}" for pid, cmd in _child_pids()
+             if pid not in children_before]
+    checks["teardown"] = left or "nothing"
+    if left:
+        fails.append(f"left running: {left}")
+    bad = [k for k, v in checks.items() if isinstance(v, bool) and not v]
+    if bad:
+        fails.append(f"checks failed: {bad}")
+    log(f"fleet checks: {json.dumps(checks)}")
+    out = {"config": f"FleetScheduler([0]) over {device}; job train: (c)'s "
+                     f"supervisor ({de['preset']} at {DE_ELASTIC_LAYERS} "
+                     f"layers, {{'dp': 1}}, {de['steps']} steps); vip "
+                     f"{{'dp': 1}} priority 1; ReplicaSet of "
+                     f"ServingEngine(max_batch={cfg['max_batch']}) on "
+                     f"{cfg['preset']}, AutoscaleController(max_replicas=2, "
+                     f"cooldowns {cfg['cooldown']} s, donor train)",
+           "checks": checks, "readings": readings,
+           "launches": {"fleet": job_launches if cuda else {},
+                        "fleet_serve": launches if cuda else {}},
+           "phase_s": time.monotonic() - t0, "card": card}
+    log(f"fleet phase: {time.monotonic() - t0:.1f} s")
+    if fails:
+        raise AssertionError("fleet phase: " + "; ".join(fails))
+    return out
+
+
 # threads that a phase must stop before it returns, daemon or not
 _STOPPED_THREADS = ("introspection:", "health-watchdog")
 
@@ -8965,6 +9422,9 @@ def main() -> int:
     pipe_moe = timed(phase_pipeline_moe, card)
     data_elastic = timed(phase_data_elastic, card)
     operate = timed(phase_operate, card)
+    fleet = timed(phase_fleet, card, "cuda", False,
+                  data_elastic["elastic"]["losses"],
+                  slice_["tokens_per_s"] / SEQ)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
@@ -8983,7 +9443,8 @@ def main() -> int:
                "spmd": spmd["launches"],
                "pipeline": pipe_moe["launches"]["pipeline"],
                "moe": pipe_moe["launches"]["moe"],
-               **data_elastic["launches"], **operate["launches"]}
+               **data_elastic["launches"], **operate["launches"],
+               **fleet["launches"]}
     kernels = [k1, *k23, k4, k5, k6]
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
@@ -9020,6 +9481,7 @@ def main() -> int:
     print(json.dumps({"pipeline_moe": pipe_moe}), flush=True)
     print(json.dumps({"data_elastic": data_elastic}), flush=True)
     print(json.dumps({"operate": operate}), flush=True)
+    print(json.dumps({"fleet": fleet}), flush=True)
     print(json.dumps({"phase_s": phase_s, "total_s": total_s,
                       "process_s": process_s}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -60,6 +60,7 @@ def one_pass(model, x, y, world):
 def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     store, in_npz, out_pkl = sys.argv[3:6]
+    torch.set_num_threads(1)
     mesh_lib.init_distributed(f"file://{store}", rank, world, device="cpu")
     mesh = mesh_lib.create_mesh({"dp": world}, device="cpu")
     data = np.load(in_npz)

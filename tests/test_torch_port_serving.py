@@ -320,7 +320,12 @@ def test_import_leaves_jax_and_reference_out():
         "bigdl_tpu_torch.data.cifar, bigdl_tpu_torch.optim.lr_schedule, "
         "bigdl_tpu_torch.optim.regularizer, bigdl_tpu_torch.data.text, "
         "bigdl_tpu_torch.data.news20, bigdl_tpu_torch.serving.registry, "
-        "bigdl_tpu_torch.nn.linear, bigdl_tpu_torch.nn.shape_ops\n"
+        "bigdl_tpu_torch.nn.linear, bigdl_tpu_torch.nn.shape_ops, "
+        "bigdl_tpu_torch.observability.timeseries, "
+        "bigdl_tpu_torch.observability.slo, "
+        "bigdl_tpu_torch.observability.aggregate, "
+        "bigdl_tpu_torch.observability.regress, bigdl_tpu_torch.fleet, "
+        "bigdl_tpu_torch.autoscale\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
@@ -353,7 +358,12 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                 "data/cifar.py", "optim/lr_schedule.py",
                 "optim/regularizer.py", "data/text.py", "data/news20.py",
                 "serving/registry.py", "nn/linear.py", "nn/shape_ops.py",
-                "nn/module.py", "_device.py"):
+                "nn/module.py", "_device.py",
+                "observability/timeseries.py", "observability/slo.py",
+                "observability/aggregate.py", "observability/regress.py",
+                "fleet/__init__.py", "fleet/pool.py",
+                "autoscale/__init__.py", "autoscale/signals.py",
+                "autoscale/policy.py", "autoscale/controller.py"):
         assert f"bigdl_tpu_torch/{new}" in names
     assert len(files) > 10
     for f in files:
