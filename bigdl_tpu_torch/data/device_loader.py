@@ -103,18 +103,53 @@ class DeviceLoader:
             stop.set()
 
 
+def _flatten(arrays):
+    """``(spec, leaves)`` of a tuple whose items may be tuples or lists
+    of arrays (one level)."""
+    spec, leaves = [], []
+    for a in arrays:
+        if isinstance(a, (tuple, list)):
+            spec.append((type(a), len(a)))
+            leaves.extend(a)
+        else:
+            spec.append(None)
+            leaves.append(a)
+    return spec, leaves
+
+
+def _unflatten(spec, leaves) -> tuple:
+    out, i = [], 0
+    for s in spec:
+        if s is None:
+            out.append(leaves[i])
+            i += 1
+        else:
+            kind, n = s
+            out.append(kind(leaves[i:i + n]))
+            i += n
+    return tuple(out)
+
+
 class Staged:
     """A batch placed by :class:`HostToDevice`: its tensors and, on a
     CUDA device, the event recorded after their copies."""
 
-    __slots__ = ("tensors", "event", "_audit")
+    __slots__ = ("tensors", "event", "_audit", "_spec")
 
-    def __init__(self, tensors, event=None, audit=None):
+    def __init__(self, tensors, event=None, audit=None, spec=None):
         self.tensors = tensors
         self.event = event
         self._audit = audit
+        self._spec = spec
 
     def take(self) -> tuple:
+        """The batch, ready for the current stream (see
+        :meth:`_take_flat`), in the nesting it was placed with."""
+        flat = self._take_flat()
+        return _unflatten(self._spec, flat) if self._spec is not None \
+            else flat
+
+    def _take_flat(self) -> tuple:
         """The tensors, ready for the current stream: it waits on the
         copies' event, and each tensor is recorded on it.  With an audit
         list, an event recorded on the current stream right after the
@@ -151,11 +186,16 @@ class HostToDevice:
             self._next = 0
 
     def __call__(self, arrays: Sequence) -> Staged:
+        spec = None
+        if any(isinstance(a, (tuple, list)) for a in arrays):
+            # a nested input (a two-tower's (uids, mids)): placed flat,
+            # handed back in its nesting
+            spec, arrays = _flatten(arrays)
         hosts = [None if a is None else torch.from_numpy(
             np.ascontiguousarray(a)) for a in arrays]
         if not self.cuda:
             return Staged([None if h is None else h.to(self.device)
-                           for h in hosts])
+                           for h in hosts], spec=spec)
         slot = self._next
         self._next = (slot + 1) % len(self._bufs)
         if self._events[slot] is not None:
@@ -181,4 +221,4 @@ class HostToDevice:
             ev.record(self.stream)
         self._bufs[slot] = bufs
         self._events[slot] = ev
-        return Staged(out, ev, self.audit)
+        return Staged(out, ev, self.audit, spec)

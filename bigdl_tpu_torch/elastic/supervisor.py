@@ -49,6 +49,7 @@ schedule).
 """
 from __future__ import annotations
 
+import faulthandler
 import multiprocessing
 import os
 import signal
@@ -99,6 +100,9 @@ def _rank_main(conn, rank, world, store, axes, device, factory, ckpt,
     ``finish`` (or the pipe closes)."""
     # the supervisor forwards SIGTERM as a final checkpoint
     signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    # a fatal signal (an abort at exit included) leaves every thread's
+    # stack on the rank's stderr, the supervisor's own
+    faulthandler.enable(all_threads=True)
     import torch
     import torch.distributed as dist
     from pathlib import Path

@@ -1,2 +1,2 @@
-"""Model zoo of the port (≙ ``bigdl_tpu/models``); so far the
-TransformerLM forward."""
+"""Model zoo of the port (≙ ``bigdl_tpu/models``): ``lenet``, ``resnet``,
+``vgg``, ``transformer`` and ``two_tower``, each imported by name."""

@@ -6,8 +6,8 @@ from .containers import (Bottle, Concat, ConcatTable, Container, Echo,
                          Sequential)
 from .conv import (SpaceToDepthConvolution, SpatialConvolution,
                    SpatialDilatedConvolution, TemporalConvolution)
-from .criterion import (ClassNLLCriterion, CrossEntropyCriterion,
-                        MSECriterion)
+from .criterion import (BCECriterion, ClassNLLCriterion,
+                        CrossEntropyCriterion, MSECriterion)
 from .dropout import (Dropout, GaussianDropout, GaussianNoise,
                       GaussianSampler, SpatialDropout1D, SpatialDropout2D,
                       SpatialDropout3D)
@@ -26,6 +26,7 @@ from .pooling import (SpatialAveragePooling, SpatialMaxPooling,
                       TemporalMaxPooling)
 from .shape_ops import (Padding, Reshape, SpatialZeroPadding, Squeeze,
                         Transpose, View)
+from .sparse import LookupTableSparse, SparseJoinTable, SparseLinear
 from .table_ops import CAddTable
 
 # the reference's alias spellings of Graph (nn/StaticGraph.scala; pyspark's
@@ -34,18 +35,20 @@ StaticGraph = Graph
 Model = Graph
 
 __all__ = ["Abs", "ActivityRegularization", "AddConstant",
-           "BatchNormalization", "Bottle", "CAdd", "CAddTable",
+           "BatchNormalization", "BCECriterion", "Bottle", "CAdd", "CAddTable",
            "ClassNLLCriterion", "CMul", "Concat", "ConcatTable", "Container",
            "Criterion", "CrossEntropyCriterion", "Ctx", "Dropout",
            "DynamicGraph", "Echo", "Exp", "fold_batchnorm", "GaussianDropout",
            "GaussianNoise", "GaussianSampler", "Graph", "Highway", "Identity",
            "InitializationMethod", "Input", "L1Penalty", "Linear", "Log",
-           "Log1p", "LogSoftMax", "LookupTable", "MapTable", "Model",
+           "Log1p", "LogSoftMax", "LookupTable", "LookupTableSparse",
+           "MapTable", "Model",
            "Module", "MSECriterion", "MsraFiller", "MulConstant",
            "NegativeEntropyPenalty", "Node", "Ones", "Padding",
            "ParallelTable", "Power", "RandomNormal", "RandomUniform", "ReLU",
            "Remat", "Reshape", "RMSNorm", "Scale", "Sequential",
-           "SpaceToDepthConvolution", "SpatialAveragePooling",
+           "SpaceToDepthConvolution", "SparseJoinTable", "SparseLinear",
+           "SpatialAveragePooling",
            "SpatialBatchNormalization", "SpatialConvolution",
            "SpatialDilatedConvolution", "SpatialDropout1D",
            "SpatialDropout2D", "SpatialDropout3D", "SpatialMaxPooling",

@@ -1,5 +1,5 @@
 """Losses (≙ ``bigdl_tpu/nn/criterion.py``): ``ClassNLLCriterion``,
-``CrossEntropyCriterion`` and ``MSECriterion``.
+``CrossEntropyCriterion``, ``MSECriterion`` and ``BCECriterion``.
 
 Targets are 1-based class indices, given as floats and truncated to
 int32 as the reference does.  The gradient is autograd's through
@@ -75,3 +75,25 @@ class MSECriterion(Criterion):
 
     def loss(self, output, target):
         return _reduce((output - target) ** 2, self.size_average)
+
+
+class BCECriterion(Criterion):
+    """Binary cross entropy over probabilities (nn/BCECriterion.scala):
+    the output clamped to [1e-12, 1 - 1e-12] (1.0 in fp32), per-element
+    ``weights`` (broadcast), the mean with ``size_average``, else the
+    sum."""
+
+    def __init__(self, weights=None, size_average=True, name=None):
+        super().__init__(name=name)
+        self.weights = None if weights is None else torch.as_tensor(
+            weights, dtype=torch.float32)
+        self.size_average = size_average
+
+    def loss(self, output, target):
+        eps = 1e-12
+        o = torch.clamp(output, eps, 1 - eps)
+        t = torch.as_tensor(target, device=output.device).to(o.dtype)
+        per = -(t * torch.log(o) + (1 - t) * torch.log(1 - o))
+        if self.weights is not None:
+            per = per * self.weights.to(per.device)
+        return _reduce(per, self.size_average)

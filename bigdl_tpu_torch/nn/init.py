@@ -85,7 +85,8 @@ def init_tensor(module, gen, shape, fan_in, fan_out, default, kind="weight"):
     the module (``_init_plan[kind]``) for :func:`redraw`."""
     plan = module.__dict__.setdefault("_init_plan", {})
     plan[kind] = (tuple(shape), fan_in, fan_out, default)
-    override = module.weight_init if kind == "weight" else module.bias_init
+    override = module.weight_init if kind.startswith("weight") \
+        else module.bias_init
     method = override if override is not None else default
     return method(gen, shape, fan_in, fan_out)
 

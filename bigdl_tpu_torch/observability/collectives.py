@@ -10,7 +10,9 @@ collectives.py``): bytes on the interconnect per step.
     collectives by hand, and the SPMD path (``parallel.tp_ops``,
     ``allreduce``, ``ring_attention``, ``spmd``, ``nn.moe``) issues them
     through this module's :func:`all_reduce`, :func:`all_gather_into_tensor`,
-    :func:`reduce_scatter_tensor` and :func:`batch_isend_irecv`, which
+    :func:`reduce_scatter_tensor`, :func:`all_to_all_single` (the
+    embedding exchange, ``embedding.sharded``) and
+    :func:`batch_isend_irecv`, which
     record each call in every open tap, whatever thread issues it: op,
     bytes of the result, bytes on the wire, and the mesh axes of the
     group.  ``SpmdTrainer.account_collectives`` runs one step under it.
@@ -162,6 +164,16 @@ def reduce_scatter_tensor(out, src, group=None, **kw):
     return _reduce_scatter(out, src, group=group, **kw)
 
 
+def all_to_all_single(output, input, group=None, **kw):
+    """``dist.all_to_all_single`` (equal splits), recorded: ``S (n-1)/n``
+    on the wire, S the bytes of the result (the embedding exchange's two
+    legs)."""
+    if _open_taps:
+        s = _nbytes(output)
+        _note("all-to-all", s, s * _ring(group), group)
+    return dist.all_to_all_single(output, input, group=group, **kw)
+
+
 def batch_isend_irecv(p2p_ops):
     """``dist.batch_isend_irecv``, recorded: its sends as one
     ``collective-permute`` of their bytes."""
@@ -176,7 +188,8 @@ def batch_isend_irecv(p2p_ops):
 class CollectiveTap:
     """Records the collectives the port issues through this module's
     :func:`all_reduce`, :func:`all_gather_into_tensor`,
-    :func:`reduce_scatter_tensor` and :func:`batch_isend_irecv` while
+    :func:`reduce_scatter_tensor`, :func:`all_to_all_single` and
+    :func:`batch_isend_irecv` while
     open (``with CollectiveTap(labels) as tap:``), on any thread:
     ``tap.ops`` holds ``(op, result_bytes, wire_bytes, group label)`` in
     issue order.  ``labels`` maps a process group to its mesh axes' label

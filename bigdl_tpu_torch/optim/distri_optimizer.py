@@ -223,6 +223,21 @@ class DistriOptimizer(Optimizer):
         return (mesh_lib.shard_batch(self.mesh, x),
                 mesh_lib.shard_batch(self.mesh, y))
 
+    def _staged_batch(self, x, y):
+        """A self-staging dataset of one process (``process_count`` 1)
+        gives every rank the global batch, of which this rank takes its
+        block; one with a process per dp rank gives each rank its own
+        part already."""
+        count = getattr(self.dataset, "process_count", 1)
+        if count == 1:
+            return self._host_batch(x, y)
+        if count != self.n_dp:
+            raise ValueError(
+                f"a dataset of {count} processes cannot feed {self.n_dp} "
+                "dp ranks: give it process_count=1 (every rank the global "
+                "batch) or one process per dp rank")
+        return x, y
+
     def _params_for_eval(self, params):
         if not self.fsdp:
             return params

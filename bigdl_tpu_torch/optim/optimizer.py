@@ -468,9 +468,20 @@ def evaluate(step, params, model_state, dataset: DataSet, methods, device):
 
 
 def to_device(a, device):
-    """A host array (or a tensor) as a tensor on ``device``."""
+    """A host array (or a tensor) as a tensor on ``device``; a tuple or
+    list of them (a two-tower's ``(uids, mids)``) element by element."""
+    if isinstance(a, (tuple, list)):
+        return type(a)(to_device(e, device) for e in a)
     return a.to(device) if isinstance(a, torch.Tensor) else \
         torch.as_tensor(np.asarray(a)).to(device)
+
+
+def batch_rows(x) -> int:
+    """The leading size of a batch input (its first array's, for a tuple
+    or list of them)."""
+    while isinstance(x, (tuple, list)):
+        x = x[0]
+    return int(x.shape[0])
 
 
 def _host_tree(tree, device):
@@ -957,6 +968,11 @@ class Optimizer(TelemetryHealth):
         """The part of a host batch this process trains on."""
         return x, y
 
+    def _staged_batch(self, x, y):
+        """The part of a batch a self-staging dataset placed that this
+        process trains on."""
+        return x, y
+
     def _place_batch(self, x, y):
         """The host batch copied to the optimizer's device."""
         return tuple(None if a is None else to_device(a, self.device)
@@ -1402,7 +1418,7 @@ class Optimizer(TelemetryHealth):
                 if next(it, None) is None:
                     return
             for x, y in it:
-                yield (int(x.shape[0]), x, y)
+                yield (batch_rows(x),) + tuple(self._staged_batch(x, y))
         finally:
             it.close()
 

@@ -9313,6 +9313,389 @@ def phase_fleet(card: str, device: str = "cuda", small: bool = False,
     return out
 
 
+# A6 (recsys) on the card.  MovieLens-1M's id space (6040 users, 3952
+# movies, ``movielens.read_data_sets``'s table), ``build``'s width 16,
+# ``rec_smoke.py``'s batch and rate; the ratings cut from ML-1M's
+# 1,000,209 to 60,000 (one epoch, ~930 steps) to fit the phase's clock:
+# the loop is host-bound at ~17 ms a step on the card.  (c)'s table: width
+# 64 as docs/embedding.md's example, 10^7 rows, what one card holds with
+# SparseAdam's moments beside it.
+RECSYS = dict(n_users=6040, n_items=3952, dim=16, n_ratings=60_000,
+              shards=4, batch=64, eval_batch=1024, lr=0.5, epochs=1,
+              bag_batches=4,
+              table_rows=10_000_000, table_dim=64, bag_b=4096, bag_l=16,
+              zipf_a=1.1, sparse_nnz=4096, profile_steps=20)
+RECSYS_SMALL = dict(RECSYS, n_users=200, n_items=120, n_ratings=4000,
+                    epochs=3, table_rows=20_000, bag_b=256,
+                    sparse_nnz=256, profile_steps=0)
+# the int8 bag's limit (tests/test_embedding.py's row-quantization bound
+# for unit-scale tables, mean combiner); the dedup backward's float32
+# reassociation envelope (the reference's)
+RECSYS_INT8_TOL = 0.05
+RECSYS_DEDUP_TOL = dict(rtol=3e-6, atol=1e-6)
+
+
+def phase_recsys(card: str, device: str = "cuda", small: bool = False):
+    """A6 on the card.  (a) ``two_tower.build(6040, 3952, 16)`` trained
+    from 4 TFRecord shards of ``movielens._synthetic(6040, 3952,
+    n_ratings, seed=0)`` after leave-one-out, through ``Optimizer``,
+    ``BCECriterion`` and ``SGD(learning_rate=0.5, fused=True)`` (K6 over
+    both tables) at batch 64 for one epoch: the eval loss over the
+    training shards falls (``rec_smoke.py``'s gate; the held-out loss is
+    read), K6 launches equal the steps, and a mid-epoch cursor replays the
+    rest of the epoch bitwise; ms a step, samples/s and the host's share
+    of a profiled window.  (b) On a one-rank NCCL mesh, the trained towers'
+    tables in ``ShardedEmbeddingBag`` s (plain and dedup) on batches of the
+    same stream: forward and backward bitwise ``dense_bag``'s, two runs
+    bitwise equal, the dedup forward bitwise and its backward within the
+    reference's envelope, and a ``CollectiveTap`` reads two all-to-alls a
+    lookup whose bytes are ``_account_exchange``'s.  (c) A (10^7, 64) fp32
+    table: ``dense_bag`` against ``quantized_dense_bag`` at B 4096 x L 16
+    Zipf ids (times by events beside the bytes gathered over HBM), the
+    int8 scores within the row-quantization bound, ~4x fewer table bytes;
+    ``SparseSGD`` / ``SparseAdam`` on one batch's touched rows beside the
+    port's dense ``SGD`` / ``Adam`` (fused) over the whole table, and
+    SparseSGD bitwise dense SGD.  ``device="cpu", small=True`` rehearses
+    it on the CPU (gloo, no launch counts, no times)."""
+    import shutil
+    import tempfile
+
+    from bigdl_tpu_torch.data import movielens as ml
+    from bigdl_tpu_torch.embedding import (
+        ShardedEmbeddingBag, SparseAdam, SparseRowGrad, SparseSGD,
+        dedup_for_mesh, dense_bag, exchange_ids_without_dedup,
+        quantize_table, quantized_dense_bag, quantized_table_bytes,
+        reference_table, table_bytes)
+    from bigdl_tpu_torch.embedding.sharded import row_shard_spec
+    from bigdl_tpu_torch.models import two_tower
+    from bigdl_tpu_torch.nn import BCECriterion
+    from bigdl_tpu_torch.observability import Recorder
+    from bigdl_tpu_torch.observability.collectives import CollectiveTap
+    from bigdl_tpu_torch.ops import _build
+    from bigdl_tpu_torch.optim import SGD, Adam, Optimizer, Trigger
+    from bigdl_tpu_torch.parallel import mesh as mesh_lib
+    t0 = time.monotonic()
+    cuda = device != "cpu"
+    cfg = RECSYS_SMALL if small else RECSYS
+    fails, checks, readings, seconds = [], {}, {}, {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def check(name, ok, detail=""):
+        checks[name] = bool(ok)
+        if not ok:
+            fails.append(f"{name} {detail}".strip())
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="recsys_", dir=str(_build.BUILD_DIR))
+    try:
+        # (a) the two-tower from TFRecord shards ------------------------- #
+        t = time.monotonic()
+        ratings = ml._synthetic(cfg["n_users"], cfg["n_items"],
+                                cfg["n_ratings"], seed=0)
+        train, held = ml.leave_one_out(ratings)
+        paths = ml.write_rating_shards(os.path.join(work, "train"), train,
+                                       n_files=cfg["shards"])
+        eval_paths = ml.write_rating_shards(os.path.join(work, "eval"),
+                                            held, n_files=1)
+        seconds["data"] = time.monotonic() - t
+        model = two_tower.build(cfg["n_users"], cfg["n_items"], cfg["dim"],
+                                device=device, seed=0)
+        crit = BCECriterion()
+
+        def eval_batches(where):
+            # rec_smoke.py's eval stream: every rating in eval order,
+            # decoded once and scored before and after training
+            return list(ml.sharded_rating_dataset(
+                where, batch_size=cfg["eval_batch"], n_workers=1, seed=0,
+                drop_last=False).data(train=False, epoch=0))
+
+        def eval_loss(batches):
+            # each batch's mean summed on the host in float64, as
+            # rec_smoke.py sums it.  The gate reads the training shards, as
+            # rec_smoke.py's does; the held-out ratings are a reading (one
+            # epoch at this id space moves their loss by ~1e-9, at the
+            # float32 means' resolution)
+            tot, n = 0.0, 0
+            params = model.param_dict()
+            with torch.no_grad():
+                for (u, m), y in batches:
+                    yhat, _ = model.run(params, (
+                        torch.from_numpy(u).to(device),
+                        torch.from_numpy(m).to(device)))
+                    yt = torch.from_numpy(y).to(device)
+                    tot += float(crit.forward(yhat, yt)) * len(y)
+                    n += len(y)
+            return tot / n
+        t = time.monotonic()
+        train_eval, held_eval = eval_batches(paths), eval_batches(eval_paths)
+        l0, h0 = eval_loss(train_eval), eval_loss(held_eval)
+        seconds["eval"] = time.monotonic() - t
+        ds = ml.sharded_rating_dataset(paths, batch_size=cfg["batch"],
+                                       n_workers=2, seed=7)
+        opt = (Optimizer(model, ds, crit, seed=3, device=device)
+               .set_optim_method(SGD(learning_rate=cfg["lr"], fused=True))
+               .set_end_when(Trigger.max_epoch(cfg["epochs"])))
+        sync()
+        _build.reset_launch_counts()
+        t = time.monotonic()
+        opt.optimize()
+        sync()
+        train_s = time.monotonic() - t
+        seconds["train"] = train_s
+        launches = _build.launch_counts()
+        steps = opt.state.iteration
+        t = time.monotonic()
+        l1, h1 = eval_loss(train_eval), eval_loss(held_eval)
+        seconds["eval"] += time.monotonic() - t
+        check("eval_loss_falls", l1 < l0, f"{l0} -> {l1}")
+        if cuda:
+            check("k6_launches_equal_steps",
+                  launches.get("fused_sgd_plain", 0) == steps
+                  and set(launches) == {"fused_sgd_plain"},
+                  f"{launches} for {steps} steps")
+        readings["train"] = {
+            "steps": steps, "epochs": cfg["epochs"], "train_s": train_s,
+            "step_ms": 1e3 * train_s / max(steps, 1),
+            "samples_per_s": steps * cfg["batch"] / train_s,
+            "eval_loss_before": l0, "eval_loss_after": l1,
+            "held_out_loss_before": h0, "held_out_loss_after": h1,
+            "n_ratings": cfg["n_ratings"], "n_train": len(train),
+            "n_eval": len(held)}
+        # the cursor: half an epoch in, the rest replays bitwise
+        t = time.monotonic()
+        mk = lambda: ml.sharded_rating_dataset(paths, batch_size=cfg["batch"],
+                                               n_workers=2, seed=7)
+        ds1 = mk()
+        it1 = ds1.data(train=True, epoch=1)
+        for _ in range(max(steps // cfg["epochs"] // 2, 1)):
+            next(it1)
+        cursor = ds1.state()
+        rest1 = list(it1)
+        ds2 = mk()
+        ds2.restore(cursor)
+        rest2 = list(ds2.data(train=True, epoch=1))
+        same = len(rest1) == len(rest2) > 0 and all(
+            np.array_equal(xa[0], xb[0]) and np.array_equal(xa[1], xb[1])
+            and np.array_equal(ya, yb)
+            for (xa, ya), (xb, yb) in zip(rest1, rest2))
+        check("cursor_replays_bitwise", same,
+              f"{len(rest1)} vs {len(rest2)} batches")
+        seconds["cursor"] = time.monotonic() - t
+        readings["cursor_batches_replayed"] = len(rest2)
+        if cuda and cfg["profile_steps"]:
+            # the host's share: the device's idle share over a window of
+            # steps of the same loop (one more optimizer, same data)
+            prof_opt = (Optimizer(model, mk(), crit, seed=3, device=device)
+                        .set_optim_method(SGD(learning_rate=cfg["lr"],
+                                              fused=True))
+                        .set_end_when(Trigger.max_iteration(
+                            cfg["profile_steps"])))
+            t = time.monotonic()
+            prof = profile_steps(prof_opt.optimize, cfg["profile_steps"])
+            seconds["profile"] = time.monotonic() - t
+            readings["profile"] = prof
+            readings["host_share"] = None if prof is None else \
+                1.0 - prof["device_busy_share"]
+        log(f"recsys (a): {steps} steps in {train_s:.2f} s "
+            f"({readings['train']['step_ms']:.3f} ms a step, "
+            f"{readings['train']['samples_per_s']:.0f} samples/s), eval "
+            f"loss {l0!r} -> {l1!r}, held out {h0!r} -> {h1!r}, "
+            f"K6 {launches}")
+
+        # (b) the sharded bag on a one-rank mesh ------------------------- #
+        t = time.monotonic()
+        store = tempfile.mkdtemp(prefix="mesh_", dir=work)
+        mesh_lib.init_distributed(f"file://{store}/store", 0, 1,
+                                  device=device)
+        try:
+            mesh = mesh_lib.create_mesh({"tp": 1}, device=device)
+            stream = ml.sharded_rating_dataset(paths, batch_size=cfg["batch"],
+                                               n_workers=1, seed=0)
+            batches = []
+            for (u, m), _ in stream.data(train=False, epoch=0):
+                batches.append((u, m))
+                if len(batches) == cfg["bag_batches"]:
+                    break
+            rs = np.random.RandomState(17)
+            bag_checks = {"fwd": True, "bwd": True, "repeat": True,
+                          "dedup_fwd": True, "dedup_bwd": True,
+                          "tap": True, "dedup_fewer_ids": True}
+            worst_dedup = 0.0
+            for tower, table, col in (("user", model.weight_user, 0),
+                                      ("item", model.weight_item, 1)):
+                bag = ShardedEmbeddingBag(table.shape[0], cfg["dim"],
+                                          mesh=mesh, axis="tp",
+                                          combiner="mean").to(device)
+                with torch.no_grad():
+                    bag.weight.copy_(table.detach())
+                rec = Recorder()
+                bag.set_recorder(rec)
+                for b in batches:
+                    ids = torch.from_numpy(b[col]).to(device)
+                    gout = torch.from_numpy(rs.randn(
+                        ids.shape[0], cfg["dim"]).astype(np.float32)).to(device)
+
+                    def sharded(x):
+                        w = bag.weight.detach().clone().requires_grad_()
+                        y = bag.run({bag.name: {"weight": w}}, x)[0]
+                        (g,) = torch.autograd.grad((y * gout).sum(), [w])
+                        return y.detach(), g
+                    w = bag.weight.detach().clone().requires_grad_()
+                    yd = dense_bag(reference_table({bag.name: {"weight": w}},
+                                                   bag), ids, combiner="mean")
+                    (gd,) = torch.autograd.grad((yd * gout).sum(), [w])
+                    rec.reset_gauges("comm/group.")
+                    with CollectiveTap(mesh.group_labels()) as tap:
+                        ys, gs = sharded(ids)
+                    acct = rec.gauge_value("comm/group.tp.all-to-all_bytes")
+                    ys2, gs2 = sharded(ids)
+                    bag_checks["fwd"] &= torch.equal(ys, yd)
+                    bag_checks["bwd"] &= torch.equal(gs, gd)
+                    bag_checks["repeat"] &= torch.equal(ys, ys2) \
+                        and torch.equal(gs, gs2)
+                    a2a = [op for op in tap.ops if op[0] == "all-to-all"]
+                    b_, l_ = ids.shape
+                    cap = b_ * l_
+                    want = [cap * 4, cap * cfg["dim"] * 4]
+                    # forward's two legs and backward's reversed reply leg
+                    bag_checks["tap"] &= (
+                        [op[1] for op in a2a] == want + [want[1]]
+                        and acct == float(sum(want)))
+                    uniq, inv = dedup_for_mesh(b[col], 1)
+                    bag_checks["dedup_fewer_ids"] &= int((uniq >= 0).sum()) \
+                        < exchange_ids_without_dedup(b[col]) \
+                        or tower == "user"
+                    xu = (torch.from_numpy(uniq).to(device),
+                          torch.from_numpy(inv).to(device))
+                    yu, gu = sharded(xu)
+                    bag_checks["dedup_fwd"] &= torch.equal(yu, yd)
+                    ok = torch.allclose(gu, gd, **RECSYS_DEDUP_TOL)
+                    bag_checks["dedup_bwd"] &= bool(ok)
+                    worst_dedup = max(worst_dedup,
+                                      float((gu - gd).abs().max()))
+            for name, ok in bag_checks.items():
+                check(f"bag_{name}", ok)
+            readings["bag"] = {"batches": len(batches),
+                               "dedup_bwd_max_abs_err": worst_dedup,
+                               "backend": torch.distributed.get_backend()}
+        finally:
+            torch.distributed.destroy_process_group()
+            mesh_lib.set_mesh(None)
+        seconds["bag"] = time.monotonic() - t
+        log(f"recsys (b): {bag_checks}")
+
+        # (c) a table one card holds --------------------------------------- #
+        t = time.monotonic()
+        v, d = cfg["table_rows"], cfg["table_dim"]
+        gen = torch.Generator(device=device).manual_seed(5)
+        table = torch.randn((v, d), generator=gen, device=device)
+        rs = np.random.RandomState(0)
+        zipf = rs.zipf(cfg["zipf_a"], (cfg["bag_b"], cfg["bag_l"]))
+        ids_np = ((zipf - 1) % v + 1).astype(np.int32)
+        ids = torch.from_numpy(ids_np).to(device)
+        q, scale = quantize_table(table)
+        yf = dense_bag(table, ids, combiner="mean")
+        yq = quantized_dense_bag(q, scale, ids, combiner="mean")
+        int8_err = float((yq - yf).abs().max())
+        check("int8_within_bound", int8_err < RECSYS_INT8_TOL, int8_err)
+        ratio = table_bytes(table) / quantized_table_bytes(q, scale)
+        check("int8_bytes_ratio", ratio > 3.0, ratio)
+        n_ids = cfg["bag_b"] * cfg["bag_l"]
+        out_bytes = cfg["bag_b"] * d * 4
+        bounds = {
+            "fp32": (n_ids * d * 4 + n_ids * 4 + out_bytes)
+            / H100_HBM_BYTES_S * 1e3,
+            "int8": (n_ids * (d + 4) + n_ids * 4 + out_bytes)
+            / H100_HBM_BYTES_S * 1e3}
+        lookups = {"ids": n_ids, "bags": cfg["bag_b"], "dim": d,
+                   "table_rows": v, "int8_max_abs_err": int8_err,
+                   "bytes_ratio": ratio}
+        if cuda:
+            fp32_ms = cuda_ms(lambda: dense_bag(table, ids, combiner="mean"),
+                              iters=20)
+            int8_ms = cuda_ms(lambda: quantized_dense_bag(
+                q, scale, ids, combiner="mean"), iters=20)
+            lookups.update({
+                "fp32_ms": fp32_ms, "int8_ms": int8_ms,
+                "fp32_bound_ms": bounds["fp32"],
+                "int8_bound_ms": bounds["int8"],
+                "fp32_ids_per_s": n_ids / fp32_ms * 1e3,
+                "int8_ids_per_s": n_ids / int8_ms * 1e3,
+                "bound_by": "bytes"})
+        del q, scale, yq
+        readings["lookups"] = lookups
+        # updates: one batch's touched rows, unique, beside dense ones
+        uniq_rows = np.unique(ids_np.reshape(-1) - 1)[:cfg["sparse_nnz"]]
+        nnz = len(uniq_rows)
+        g_ids = torch.from_numpy(uniq_rows.astype(np.int64)).to(device)
+        g_vals = torch.randn((nnz, d), generator=gen, device=device)
+        grad = SparseRowGrad(g_ids, g_vals, v)
+        dense_g = grad.to_dense()
+        lr = 0.05
+        p_dense = {"t": {"w": table.clone()}}
+        dsgd = SGD(learning_rate=lr, fused=True)
+        sd = dsgd.init_state(p_dense)
+        dsgd.update({"t": {"w": dense_g}}, p_dense, sd)
+        p_sparse = table.clone()
+        ssgd = SparseSGD(learning_rate=lr)
+        ssgd.update(p_sparse, grad, ssgd.init_state(p_sparse))
+        check("sparse_sgd_bitwise_dense", torch.equal(p_sparse,
+                                                      p_dense["t"]["w"]))
+        del p_sparse
+        updates = {"touched_rows": nnz, "table_rows": v}
+        if cuda:
+            w = p_dense["t"]["w"]
+            updates["dense_sgd_ms"] = cuda_ms(
+                lambda: dsgd.update({"t": {"w": dense_g}}, p_dense, sd),
+                iters=5, warm=1)
+            st = ssgd.init_state(w)
+            updates["sparse_sgd_ms"] = cuda_ms(
+                lambda: ssgd.update(w, grad, st), iters=20)
+            dadam = Adam(learning_rate=1e-3, fused=True)
+            sa = dadam.init_state(p_dense)
+            updates["dense_adam_ms"] = cuda_ms(
+                lambda: dadam.update({"t": {"w": dense_g}}, p_dense, sa),
+                iters=5, warm=1)
+            del sa
+            sadam = SparseAdam(learning_rate=1e-3)
+            ss = sadam.init_state(w)
+            updates["sparse_adam_ms"] = cuda_ms(
+                lambda: sadam.update(w, grad, ss), iters=5, warm=1)
+            del ss
+            lazy = SparseAdam(learning_rate=1e-3, lazy=True)
+            sl = lazy.init_state(w)
+            updates["lazy_adam_ms"] = cuda_ms(
+                lambda: lazy.update(w, grad, sl), iters=20)
+            del sl
+            updates["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        readings["updates"] = updates
+        del table, p_dense, dense_g, grad
+        seconds["table"] = time.monotonic() - t
+        log(f"recsys (c): lookups {lookups}; updates {updates}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if cuda:
+            torch.cuda.empty_cache()
+    seconds["phase"] = time.monotonic() - t0
+    out = {"config": {k: cfg[k] for k in (
+        "n_users", "n_items", "dim", "n_ratings", "shards", "batch", "lr",
+        "epochs", "table_rows", "table_dim", "bag_b", "bag_l", "zipf_a")},
+           "model": f"two_tower.build({cfg['n_users']}, {cfg['n_items']}, "
+                    f"{cfg['dim']}) through Optimizer, BCECriterion, "
+                    f"SGD(learning_rate={cfg['lr']}, fused=True), batch "
+                    f"{cfg['batch']}",
+           "checks": checks, "readings": readings, "seconds": seconds,
+           "launches": {"recsys": launches if cuda else {}},
+           "phase_s": seconds["phase"], "card": card}
+    log(f"recsys phase: {seconds['phase']:.1f} s")
+    if fails:
+        raise AssertionError("recsys phase: " + "; ".join(fails))
+    return out
+
+
 # threads that a phase must stop before it returns, daemon or not
 _STOPPED_THREADS = ("introspection:", "health-watchdog")
 
@@ -9425,6 +9808,7 @@ def main() -> int:
     fleet = timed(phase_fleet, card, "cuda", False,
                   data_elastic["elastic"]["losses"],
                   slice_["tokens_per_s"] / SEQ)
+    recsys = timed(phase_recsys, card)
     by_path = {"serving": {"flash_fwd": slice_["launches"]},
                "decode": decode["launches"],
                "training": train["launches"],
@@ -9444,7 +9828,7 @@ def main() -> int:
                "pipeline": pipe_moe["launches"]["pipeline"],
                "moe": pipe_moe["launches"]["moe"],
                **data_elastic["launches"], **operate["launches"],
-               **fleet["launches"]}
+               **fleet["launches"], **recsys["launches"]}
     kernels = [k1, *k23, k4, k5, k6]
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
@@ -9482,6 +9866,7 @@ def main() -> int:
     print(json.dumps({"data_elastic": data_elastic}), flush=True)
     print(json.dumps({"operate": operate}), flush=True)
     print(json.dumps({"fleet": fleet}), flush=True)
+    print(json.dumps({"recsys": recsys}), flush=True)
     print(json.dumps({"phase_s": phase_s, "total_s": total_s,
                       "process_s": process_s}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

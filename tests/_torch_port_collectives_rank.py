@@ -19,8 +19,15 @@ runs, every rank the same:
 Writes rank 0's results to ``OUT_PKL``.  Imports neither jax nor
 ``bigdl_tpu``.
 """
-import pickle
+import faulthandler
 import sys
+
+# armed before torch is imported: a fatal signal (an abort at exit
+# included) leaves every thread's stack in the rank's log
+if not faulthandler.is_enabled():
+    faulthandler.enable(all_threads=True)
+
+import pickle
 import threading
 
 import numpy as np

@@ -9,8 +9,15 @@ through ``LocalOptimizer``, and writes each run's per-step losses, final
 weights and readings to ``OUT_PKL``.  Imports neither jax nor
 ``bigdl_tpu``; it checks so before it writes.
 """
-import pickle
+import faulthandler
 import sys
+
+# armed before torch is imported: a fatal signal (an abort at exit
+# included) leaves every thread's stack in the rank's log
+if not faulthandler.is_enabled():
+    faulthandler.enable(all_threads=True)
+
+import pickle
 
 import numpy as np
 import torch

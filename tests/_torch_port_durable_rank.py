@@ -21,10 +21,17 @@ Rank 0 writes each run's per-step losses, final weights and its momentum
 gathered whole to ``OUT_PKL``.  Imports neither jax nor ``bigdl_tpu``; it
 checks so before it writes.
 """
+import faulthandler
+import sys
+
+# armed before torch is imported: a fatal signal (an abort at exit
+# included) leaves every thread's stack in the rank's log
+if not faulthandler.is_enabled():
+    faulthandler.enable(all_threads=True)
+
 import os
 import pickle
 import shutil
-import sys
 
 import numpy as np
 import torch

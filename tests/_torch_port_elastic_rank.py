@@ -1,6 +1,13 @@
 """Trainer factories for the elastic supervisor's rank processes in
 ``tests/test_torch_port_elastic.py``: module-level (each rank imports
 this module), and importing no JAX."""
+import faulthandler
+
+# armed before torch is imported: a fatal signal (an abort at exit
+# included) leaves every thread's stack in the rank's log
+if not faulthandler.is_enabled():
+    faulthandler.enable(all_threads=True)
+
 import numpy as np
 import torch
 

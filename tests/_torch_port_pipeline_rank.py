@@ -28,11 +28,18 @@ job of ``JOB_JSON`` in order, every rank the same jobs:
 Writes the results to ``OUT_PKL``.  Imports neither jax nor
 ``bigdl_tpu``; it checks so before it writes.
 """
+import faulthandler
+import sys
+
+# armed before torch is imported: a fatal signal (an abort at exit
+# included) leaves every thread's stack in the rank's log
+if not faulthandler.is_enabled():
+    faulthandler.enable(all_threads=True)
+
 import json
 import os
 import pickle
 import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np

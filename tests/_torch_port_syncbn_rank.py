@@ -14,8 +14,15 @@ the sync, one ``DistriOptimizer`` step of ``SGD(0.05)`` over the global
 batch: the weights and state after it.  Writes all of it to ``OUT_PKL``.
 Imports neither jax nor ``bigdl_tpu``; it checks so before it writes.
 """
-import pickle
+import faulthandler
 import sys
+
+# armed before torch is imported: a fatal signal (an abort at exit
+# included) leaves every thread's stack in the rank's log
+if not faulthandler.is_enabled():
+    faulthandler.enable(all_threads=True)
+
+import pickle
 
 import numpy as np
 import torch

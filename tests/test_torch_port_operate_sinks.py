@@ -14,6 +14,7 @@ one, on one fake clock, and must come out the same:
 Inputs come from a numpy seed."""
 import json
 import threading
+import time as _time
 import types
 import urllib.error
 import urllib.request
@@ -37,16 +38,32 @@ from bigdl_tpu_torch.visualization import event_writer as t_events
 
 class _Clock:
     """Wall and monotonic time that advance only when read, the same
-    sequence on both sides."""
+    sequence on both sides.
+
+    Only the test's own thread and the servers' request threads read it.
+    Any other thread of the process reads the real clock: a stall
+    watchdog that an earlier test left running in the same worker polls
+    its recorder's ``step_age()`` through the patched module, and its
+    reads would otherwise advance one side's clock between that side's
+    own reads."""
 
     def __init__(self):
         self.wall, self.mono = 1.7e9, 100.0
+        self.owner = threading.current_thread()
+
+    def _ours(self):
+        t = threading.current_thread()
+        return t is self.owner or t.name.endswith("(process_request_thread)")
 
     def time(self):
+        if not self._ours():
+            return _time.time()
         self.wall += 0.25
         return self.wall
 
     def monotonic(self):
+        if not self._ours():
+            return _time.monotonic()
         self.mono += 0.125
         return self.mono
 
@@ -249,22 +266,44 @@ def test_server_routes_are_the_references(clocks, stalled, diverged):
     assert got["port"]["/nope"][0] == got["ref"]["/nope"][0] == 404
 
 
+def _jobs_healthz(side):
+    """/healthz with a stalled job registered, then without it, and the
+    /metrics status after."""
+    mod = j_http if side == "ref" else t_http
+    srv = mod.IntrospectionServer(_feed(_recorder(side)))
+    job = _feed(_recorder(side), seed=4)
+    job.gauge("health/stalled", 1)
+    srv.add_job("replica0", job).start()
+    try:
+        first = _get(srv.url("/healthz"))
+        srv.remove_job("replica0")
+        return first, _get(srv.url("/healthz")), \
+            _get(srv.url("/metrics"))[0]
+    finally:
+        srv.stop()
+
+
 def test_healthz_counts_jobs_worst_of(clocks):
     """A registered job's stall makes the aggregate 503 on both sides."""
-    def run(side):
-        mod = j_http if side == "ref" else t_http
-        srv = mod.IntrospectionServer(_feed(_recorder(side)))
-        job = _feed(_recorder(side), seed=4)
-        job.gauge("health/stalled", 1)
-        srv.add_job("replica0", job).start()
-        try:
-            first = _get(srv.url("/healthz"))
-            srv.remove_job("replica0")
-            return first, _get(srv.url("/healthz")), \
-                _get(srv.url("/metrics"))[0]
-        finally:
-            srv.stop()
-    got = both(run)
+    got = both(_jobs_healthz)
+    assert got["port"] == got["ref"]
+    assert got["port"][0][0] == 503 and got["port"][1][0] == 200
+
+
+def test_healthz_parity_holds_beside_a_polling_watchdog(clocks):
+    """A reference stall watchdog polling its own recorder's
+    ``step_age()`` every millisecond on its own thread, as one left
+    running by an earlier test in the worker does, moves neither side's
+    clock: the bodies stay the same."""
+    rec = j_recorder.Recorder(annotate=False)
+    rec.start_step(0)
+    rec.end_step(0)
+    from bigdl_tpu.observability.health.watchdog import StallWatchdog
+    dog = StallWatchdog(rec, min_history=1, poll_interval=0.001).start()
+    try:
+        got = both(_jobs_healthz)
+    finally:
+        dog.stop()
     assert got["port"] == got["ref"]
     assert got["port"][0][0] == 503 and got["port"][1][0] == 200
 

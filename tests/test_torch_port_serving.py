@@ -325,7 +325,9 @@ def test_import_leaves_jax_and_reference_out():
         "bigdl_tpu_torch.observability.slo, "
         "bigdl_tpu_torch.observability.aggregate, "
         "bigdl_tpu_torch.observability.regress, bigdl_tpu_torch.fleet, "
-        "bigdl_tpu_torch.autoscale\n"
+        "bigdl_tpu_torch.autoscale, bigdl_tpu_torch.tensor, "
+        "bigdl_tpu_torch.embedding, bigdl_tpu_torch.data.movielens, "
+        "bigdl_tpu_torch.models.two_tower, bigdl_tpu_torch.nn.sparse\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke_import')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'bigdl_tpu' or m.startswith('bigdl_tpu.')]\n"
@@ -363,7 +365,12 @@ def test_no_module_of_the_port_imports_jax_or_the_reference():
                 "observability/aggregate.py", "observability/regress.py",
                 "fleet/__init__.py", "fleet/pool.py",
                 "autoscale/__init__.py", "autoscale/signals.py",
-                "autoscale/policy.py", "autoscale/controller.py"):
+                "autoscale/policy.py", "autoscale/controller.py",
+                "tensor/__init__.py", "tensor/_segment.py",
+                "embedding/__init__.py", "embedding/sharded.py",
+                "embedding/dedup.py", "embedding/optim.py",
+                "embedding/serve.py", "data/movielens.py",
+                "models/two_tower.py", "nn/sparse.py"):
         assert f"bigdl_tpu_torch/{new}" in names
     assert len(files) > 10
     for f in files:
